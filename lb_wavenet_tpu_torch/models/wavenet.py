@@ -1,0 +1,206 @@
+"""WaveNet parameters and the teacher-forced forward pass (port of
+`lb_wavenet_tpu/models/wavenet.py`).
+
+The parameter layout is the JAX package's: a plain dict with per-layer
+weights STACKED along a leading layer axis, so the training forward, the
+ring-buffer samplers and the CUDA kernels consume the identical tensors and
+`utils/convert.py` moves a JAX tree across leaf by leaf.
+
+Matmuls follow the JAX `_mm` contract: operands rounded to the compute
+dtype, products accumulated in float32. On the CPU `a.bfloat16() @
+b.bfloat16()` would return a bf16 result, so the rounding is done by
+`.to(dt).float()` on both operands (a product of two bf16 values is exact in
+float32) and the product runs in float32.
+
+Not ported yet (ROADMAP.md A): mel/speaker conditioning, remat,
+`embed_lookup_mm`, the input mask and the loss.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ..config import ArchConfig
+
+Params = dict
+
+
+def compute_dtype(arch: ArchConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        arch.compute_dtype
+    ]
+
+
+def _generator(rng: Union[int, torch.Generator]) -> torch.Generator:
+    if isinstance(rng, torch.Generator):
+        return rng
+    return torch.Generator().manual_seed(int(rng))
+
+
+def _dense_init(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """LeCun-normal (std = 1/sqrt(fan_in)), the classic conv/dense init."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.randn(shape, generator=gen, dtype=torch.float32)
+    return (w / float(fan_in) ** 0.5).to(device)
+
+
+def init_params(
+    rng: Union[int, torch.Generator], arch: ArchConfig, device="cpu"
+) -> Params:
+    """Random parameters in the JAX package's layout (its own RNG stream:
+    tests convert JAX parameters instead of relying on equal draws)."""
+    if arch.use_local_cond or arch.use_global_cond:
+        raise NotImplementedError(
+            "mel/speaker conditioning is not ported yet (ROADMAP.md A9)"
+        )
+    gen = _generator(rng)
+    L = len(arch.dilations)
+    C = arch.residual_channels
+    G = arch.gate_channels
+    S = arch.skip_channels
+    Q = arch.quant_channels
+    K = arch.input_kernel
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {
+        "embed": _dense_init(gen, (Q, C), device),
+        "input_conv": {
+            "w": _dense_init(gen, (K, C, C), device),  # taps t-(K-1) .. t
+            "b": zeros(C),
+        },
+        "layers": {
+            "w_prev": _dense_init(gen, (L, C, 2 * G), device),  # tap at t - d
+            "w_cur": _dense_init(gen, (L, C, 2 * G), device),   # tap at t
+            "b": zeros(L, 2 * G),
+            "w_res": _dense_init(gen, (L, G, C), device),
+            "b_res": zeros(L, C),
+            "w_skip": _dense_init(gen, (L, G, S), device),
+            "b_skip": zeros(L, S),
+        },
+        "post": {
+            "w1": _dense_init(gen, (S, S), device),
+            "b1": zeros(S),
+            "w2": _dense_init(gen, (S, Q), device),
+            "b2": zeros(Q),
+        },
+    }
+
+
+def params_to(params: Params, device) -> Params:
+    """The parameter dict with every leaf on `device` (no copy if there)."""
+    return {
+        k: params_to(v, device) if isinstance(v, dict) else v.to(device)
+        for k, v in params.items()
+    }
+
+
+def rnd(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Round to the compute dtype, held in float32."""
+    return x.to(dt).to(torch.float32)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """(..., C) @ (C, D): operands in compute dtype, float32 accumulation."""
+    return rnd(x, dt) @ rnd(w, dt)
+
+
+def shift_right(x: torch.Tensor, d: int) -> torch.Tensor:
+    """y[:, t] = x[:, t - d] with zeros for t < d. Shapes (B, T, C)."""
+    if d == 0:
+        return x
+    t = x.shape[1]
+    return torch.nn.functional.pad(x, (0, 0, d, 0))[:, :t]
+
+
+def gated_unit(x, x_prev, layer_params: Params, i: int, dt):
+    """Gated activation + residual update; returns (residual_out, z)."""
+    lp = layer_params
+    pre = (
+        _mm(x, lp["w_cur"][i], dt)
+        + _mm(x_prev, lp["w_prev"][i], dt)
+        + lp["b"][i]
+    )
+    g = lp["w_cur"].shape[-1] // 2
+    z = torch.tanh(pre[..., :g]) * torch.sigmoid(pre[..., g:])
+    res = x + _mm(z, lp["w_res"][i], dt) + lp["b_res"][i]
+    return res, z
+
+
+def gated_layer(x, x_prev, layer_params: Params, i: int, dt):
+    """One gated residual unit; returns (residual_out, skip_contribution)."""
+    lp = layer_params
+    res, z = gated_unit(x, x_prev, layer_params, i, dt)
+    return res, _mm(z, lp["w_skip"][i], dt) + lp["b_skip"][i]
+
+
+def input_frontend(params: Params, arch: ArchConfig, x_classes, dt):
+    """Embed classes and apply the width-K causal input conv:
+    (B, T) -> (B, T, C)."""
+    e = params["embed"][x_classes.long()]
+    w = params["input_conv"]["w"]  # (K, C, C), tap k applies to t-(K-1-k)
+    k_taps = w.shape[0]
+    h = params["input_conv"]["b"].to(torch.float32)
+    for k in range(k_taps):
+        h = h + _mm(shift_right(e, k_taps - 1 - k), w[k], dt)
+    return h
+
+
+def input_step(params: Params, arch: ArchConfig, embed_buf, x_class):
+    """One step of the input frontend for the ring-buffer engines.
+
+    embed_buf (K-1, B, C) holds e(t-(K-1)) .. e(t-1); returns the residual
+    input h (B, C) of class x_class (B,) and the shifted embedding stack."""
+    dt = compute_dtype(arch)
+    k_taps = arch.input_kernel
+    e = params["embed"][x_class.long()]
+    w_in = params["input_conv"]["w"]
+    h = params["input_conv"]["b"].to(torch.float32) + _mm(e, w_in[k_taps - 1], dt)
+    for j in range(k_taps - 1):
+        h = h + _mm(embed_buf[j], w_in[j], dt)
+    if k_taps > 1:
+        embed_buf = torch.cat([embed_buf[1:], e[None].to(embed_buf.dtype)], 0)
+    return h, embed_buf
+
+
+def post_network(params: Params, skip_sum: torch.Tensor, dt) -> torch.Tensor:
+    p = params["post"]
+    h = torch.relu(skip_sum)
+    h = torch.relu(_mm(h, p["w1"], dt) + p["b1"])
+    return _mm(h, p["w2"], dt) + p["b2"]
+
+
+def forward(
+    params: Params,
+    arch: ArchConfig,
+    x_classes: torch.Tensor,
+    cond_frames: Optional[torch.Tensor] = None,
+    speaker_ids: Optional[torch.Tensor] = None,
+    return_skip: bool = False,
+) -> torch.Tensor:
+    """Teacher-forced forward: classes (B, T) -> logits (B, T, Q).
+
+    logits[:, t] is the categorical distribution over sample t+1. The skip
+    sum is ONE stacked contraction over (layer, gate), as in the JAX
+    forward, plus the constant bias sum_l b_skip[l].
+    """
+    if cond_frames is not None or speaker_ids is not None:
+        raise NotImplementedError(
+            "mel/speaker conditioning is not ported yet (ROADMAP.md A9)"
+        )
+    dt = compute_dtype(arch)
+    lp = params["layers"]
+    h = input_frontend(params, arch, x_classes, dt)
+    zs = []
+    for i, d in enumerate(arch.dilations):
+        h, z = gated_unit(h, shift_right(h, d), lp, i, dt)
+        zs.append(z)
+    z_all = torch.stack(zs, dim=0)  # (L, B, T, G)
+    skip_sum = torch.einsum(
+        "lbtg,lgs->bts", rnd(z_all, dt), rnd(lp["w_skip"], dt)
+    ) + lp["b_skip"].sum(dim=0)
+    if return_skip:
+        return skip_sum
+    return post_network(params, skip_sum, dt)

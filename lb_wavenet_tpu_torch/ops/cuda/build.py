@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels.
+
+Every `csrc/*.cu` is compiled with `nvcc` for `sm_90a` into its own shared
+library with a plain C interface, loaded with ctypes. All sources are built
+at first use, one `nvcc` process per source, started together. A library is
+named after the hash of its sources, so an edited source rebuilds and an
+unchanged one loads from `build/` (listed in `.gitignore`) at once. A failed
+build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from collections import OrderedDict
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict = {}
+# ptxas resource lines of the last build (registers, shared memory, spills).
+build_log: dict = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256()
+    for p in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(p.read_bytes())
+    return BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all at once; return
+    {name: path}."""
+    sources = sorted(CSRC.glob("*.cu"))
+    targets = {s.stem: _target(s) for s in sources}
+    todo = [s for s in sources if not targets[s.stem].exists()]
+    if todo:
+        BUILD.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = []
+        for src in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
+            procs.append((src, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )))
+        failed = []
+        for src, tmp, proc in procs:
+            out, _ = proc.communicate()
+            build_log[src.stem] = out
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"{src.name}:\n{out}")
+            else:
+                os.replace(tmp, targets[src.stem])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (built on first use)."""
+    with _lock:
+        if name not in _libs:
+            for stem, path in build_all().items():
+                _libs[stem] = ctypes.CDLL(str(path))
+        return _libs[name]
+
+
+def launch(lib: ctypes.CDLL, fn: str, args: ctypes.Structure, device) -> None:
+    """Call `fn(&args, stream)` on the current stream of `device`; raise
+    with CUDA's message if the launch was refused."""
+    import torch
+
+    f = getattr(lib, fn)
+    f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    err = f(ctypes.addressof(args), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        lib.wn_error_string.restype = ctypes.c_char_p
+        lib.wn_error_string.argtypes = [ctypes.c_int]
+        msg = lib.wn_error_string(err).decode()
+        raise RuntimeError(f"{fn}: CUDA error {err}: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def int32_table(values: tuple, device: str):
+    """A small constant int32 tensor on `device` (e.g. the dilations),
+    uploaded once per process."""
+    import torch
+
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+_prepared: "OrderedDict" = OrderedDict()
+
+
+def prepared(tag: str, sources: tuple, make):
+    """`make()` (e.g. the weights cast to the compute dtype), computed once
+    per `sources` and reused while each source tensor keeps its storage and
+    has not been written in place since (its version counter). The entry
+    holds the sources, so their storage cannot be reused by another tensor
+    while it is cached; the few newest entries are kept."""
+    key = (tag,) + tuple((t.data_ptr(), t._version, t.dtype, tuple(t.shape))
+                         for t in sources)
+    hit = _prepared.get(key)
+    if hit is None:
+        hit = _prepared[key] = (sources, make())
+        if len(_prepared) > 8:
+            _prepared.popitem(last=False)
+    else:
+        _prepared.move_to_end(key)
+    return hit[1]
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor (0 for None)."""
+    return 0 if t is None else t.data_ptr()
