@@ -24,14 +24,26 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      same requests through `python -m lb_wavenet_tpu_torch.cli serve` from a
      save_params checkpoint must write the same audio;
   4. the pallas engine (fused_stack per step) at B=512;
-  5. timings at the serving shapes and the `kernels` JSON line, the card's
-     name and power limit, and last the {"ok": true, ...} line.
+  5. the training kernels against their plain versions at the training
+     shapes (B=8, W=10240, T=13310): the train stack (tapcat off and on)
+     and the post-loss, values and every gradient leaf, through autograd;
+  6. training: run_training on synthetic_corpus with the wavenet30.json
+     train settings (fused stack + tapcat + fused post, fused_frontend
+     off), 20 steps with the loss of each; then at a fixed state the fused
+     step against the unfused plain PyTorch step and a grad_accum=2 step
+     against the one-shot step, a resume from the checkpoint, and
+     `python -m lb_wavenet_tpu_torch.cli train` for 2 steps followed by
+     `serve` from its checkpoint directory;
+  7. timings at the serving and training shapes and the `kernels` JSON
+     line, the card's name and power limit, and last the {"ok": true, ...}
+     line.
 
 Launch counts are set to 0 right before each path is driven and read right
 after; comparison launches are not counted.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -45,6 +57,25 @@ B = 512             # lanes (the pool batch)
 CHUNK = 1024        # samples per serving step
 T_CHECK = 256       # steps of the kernel-vs-plain mega checks
 LOGIT_ATOL = 5e-2   # bf16 operands: a flipped rounding moves logits ~1e-2
+TRAIN_B, TRAIN_W = 8, 10240   # wavenet30.json train batch and window
+TRAIN_STEPS = 20
+# Kernel vs plain at the training shapes, as max abs error over the leaf's
+# max abs value: the same bf16-rounded operands, fp32 sums in another order.
+KERNEL_RTOL = 1e-2
+# A whole step through the kernels vs through their plain versions: autograd
+# of the (unfused) frontend rounds dh0 to bf16, so ulp-level differences in
+# dh0 flip roundings that the input-conv and embedding gradients sum up.
+STEP_RTOL = 2e-2
+# grad_accum=2 vs the one-shot step: dlogits are rounded to bf16 at another
+# scale (the cotangent is 1 per micro instead of 1 / mask sum). Read 8.4e-3
+# on an H100 at this phase's fixed state.
+ACCUM_RTOL = 1.5e-2
+# Fused step vs the unfused PyTorch step: autograd of the plain forward rounds
+# every gradient that enters a bf16 product (the hand-written backwards round
+# only the operands), so leaves built from cancelling sums differ by ~9% of
+# their largest value (read 9.1e-2 on an H100 at this phase's fixed state);
+# the limit is about twice that reading.
+UNFUSED_RTOL = 0.18
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
 H100_BYTES_S = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
 
@@ -134,6 +165,39 @@ def stack_cost(arch, b: int, wbytes: int):
     return nbytes, 2 * b * L * (2 * C * 2 * G + G * C + G * S)
 
 
+def train_stack_cost(arch, b: int, t: int, wbytes: int, backward: bool):
+    """(bytes, flops) of the training stack's forward or backward at
+    (b, t), as the TPU kernels define the function: each input read once,
+    each output written once. The layer inputs x_all that the port's
+    forward also stores (so its backward need not reconstruct x) are not
+    counted: the function does not need them."""
+    L, C, G, S = (len(arch.dilations), arch.residual_channels,
+                  arch.gate_channels, arch.skip_channels)
+    w = L * (2 * C * 2 * G + G * C + G * S)
+    bias = L * (2 * G + C + S)
+    z_all = L * b * t * G * wbytes
+    if backward:   # z_all, x_final, g_skip, weights in; dh0, grads out
+        nbytes = z_all + 4 * b * t * (2 * C + S) + w * wbytes + 4 * (bias + w + bias)
+        macs = L * b * t * (2 * C * 2 * G + G * (S + C) + 2 * (2 * G * C)
+                            + 2 * C * 2 * G + G * C + G * S)
+    else:          # h0, weights in; z_all, skip, x_final out
+        nbytes = 4 * b * t * (2 * C + S) + z_all + w * wbytes + 4 * bias
+        macs = L * b * t * (2 * C * 2 * G + G * C + G * S)
+    return nbytes, 2 * macs
+
+
+def post_loss_cost(arch, b: int, t: int, w: int, wbytes: int, backward: bool):
+    """(bytes, flops) of the post-loss forward or backward over the scored
+    window (the head rows need no work)."""
+    S, Q = arch.skip_channels, arch.quant_channels
+    weights = (S * S + S * Q) * wbytes + 4 * (S + Q)
+    rows_in = 4 * b * w * S + 8 * b * w            # skip rows, targets, mask
+    if backward:   # + dskip (all rows) and the gradients out
+        return (rows_in + weights + 4 * b * t * S + 4 * (S * S + S * Q + S + Q),
+                2 * b * w * 3 * (S * S + S * Q))
+    return rows_in + weights + 4, 2 * b * w * (S * S + S * Q)
+
+
 def bound_ms(nbytes: int, flops: int):
     by_bytes, by_ops = nbytes / H100_BYTES_S * 1e3, flops / H100_BF16_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
@@ -160,7 +224,7 @@ def phase_environment():
     }))
     t0 = time.perf_counter()
     build.build_all()
-    for name in ("ar_step", "ar_mega"):
+    for name in ("ar_step", "ar_mega", "train_stack", "post_loss"):
         build.load(name)
     res = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
            for k, v in build.build_log.items()}
@@ -446,6 +510,335 @@ def phase_pallas_engine(params, arch, gpu):
     return launches
 
 
+def abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return abs_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def train_inputs(arch, seed: int):
+    """Numpy-seeded training-stack inputs on the card: h0 (B, T, C) and a
+    skip cotangent (B, T, S)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = arch.receptive_field - 1 + TRAIN_W
+    h0 = rng.standard_normal((TRAIN_B, t, arch.residual_channels), dtype=np.float32)
+    g = rng.standard_normal((TRAIN_B, t, arch.skip_channels), dtype=np.float32)
+    return torch.from_numpy(h0).cuda(), torch.from_numpy(g).cuda()
+
+
+def post_inputs(arch, seed: int):
+    """Numpy-seeded post-loss inputs on the card: skip (B, T, S), targets
+    and a mask with a file start inside the window."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = arch.receptive_field - 1 + TRAIN_W
+    skip = rng.standard_normal((TRAIN_B, t, arch.skip_channels), dtype=np.float32)
+    tgt = rng.integers(0, arch.quant_channels, (TRAIN_B, TRAIN_W)).astype(np.int32)
+    mask = np.ones((TRAIN_B, TRAIN_W), np.float32)
+    mask[0, :3000] = 0.0
+    return (torch.from_numpy(skip).cuda(), torch.from_numpy(tgt).cuda(),
+            torch.from_numpy(mask).cuda())
+
+
+def phase_train_kernels(params, arch, gpu):
+    """The training kernel pairs against their plain versions at the
+    training shapes, values and every gradient leaf; returns each kernel's
+    max abs error (forward: its outputs, backward: every gradient leaf)."""
+    import torch
+
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    dt = compute_dtype(arch)
+    report = dict.fromkeys(TRAIN_COUNTERS, 0.0)
+    h0, g = train_inputs(arch, 11)
+    for tapcat in (False, True):
+        lp = {k: v.detach().clone().requires_grad_(True) for k, v in params["layers"].items()}
+        h = h0.clone().requires_grad_(True)
+        skip = TS.make_fused_stack(arch, tapcat=tapcat)(lp, h)
+        (skip * g).sum().backward()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            plain = {k: v.detach() for k, v in params["layers"].items()}
+            sp, zp, xp = TS.stack_fwd_plain(plain, h0, arch.dilations, dt, tapcat)
+            dp, gp = TS.stack_bwd_plain(plain, arch.dilations, dt, tapcat, zp, xp, g)
+        errs = {"skip": rel_err(skip.detach(), sp), "dh0": rel_err(h.grad, dp),
+                **{f"layers.{k}": rel_err(lp[k].grad, gp[k]) for k in gp}}
+        log(json.dumps({"phase": "train_stack_vs_plain", "gpu": gpu, "tapcat": tapcat,
+                        "B": TRAIN_B, "T": h0.shape[1], "rel_err": errs,
+                        "rtol": KERNEL_RTOL}))
+        require(max(errs.values()) <= KERNEL_RTOL,
+                f"train stack (tapcat={tapcat}) differs: {errs}")
+        report["train_stack_fwd"] = max(report["train_stack_fwd"], abs_err(skip.detach(), sp))
+        report["train_stack_bwd"] = max(report["train_stack_bwd"], abs_err(h.grad, dp),
+                                        *(abs_err(lp[k].grad, gp[k]) for k in gp))
+        del skip, sp, zp, xp, dp, gp, lp, h
+    del h0, g
+
+    skip, tgt, mask = post_inputs(arch, 12)
+    post = {k: v.detach().clone().requires_grad_(True) for k, v in params["post"].items()}
+    s = skip.clone().requires_grad_(True)
+    num = PL.fused_post_loss(post, s, tgt, mask, TRAIN_W, arch.compute_dtype)
+    (num * 0.37).backward()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        plain = {k: v.detach() for k, v in params["post"].items()}
+        num_p = PL.post_loss_plain(plain, skip, tgt, mask, TRAIN_W, dt)
+        dsp, gp = PL.post_loss_bwd_plain(plain, skip, tgt, mask, TRAIN_W, dt,
+                                         torch.tensor(0.37, device="cuda"))
+    head = skip.shape[1] - TRAIN_W
+    errs = {"num": rel_err(num.detach(), num_p), "dskip": rel_err(s.grad, dsp),
+            **{f"post.{k}": rel_err(post[k].grad, gp[k]) for k in gp}}
+    head_zero = not bool(s.grad[:, :head].any())
+    log(json.dumps({"phase": "post_loss_vs_plain", "gpu": gpu, "B": TRAIN_B,
+                    "T": skip.shape[1], "W": TRAIN_W, "rel_err": errs,
+                    "head_dskip_exactly_zero": head_zero, "rtol": KERNEL_RTOL}))
+    require(max(errs.values()) <= KERNEL_RTOL and head_zero, f"post-loss differs: {errs}")
+    report["post_loss_fwd"] = abs_err(num.detach(), num_p)
+    report["post_loss_bwd"] = max(abs_err(s.grad, dsp),
+                                  *(abs_err(post[k].grad, gp[k]) for k in gp))
+    return report
+
+
+TRAIN_COUNTERS = ("train_stack_fwd", "train_stack_bwd", "post_loss_fwd", "post_loss_bwd")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the training kernels' wrappers to their plain versions (same
+    signatures) for a reference run on the card."""
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    swaps = [(TS, "train_stack_fwd", TS.stack_fwd_plain),
+             (TS, "train_stack_bwd", TS.stack_bwd_plain),
+             (PL, "post_loss_fwd", PL.post_loss_plain),
+             (PL, "post_loss_bwd", PL.post_loss_bwd_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def leaf_errs(got: dict, want: dict, prefix: str = "") -> dict:
+    """{path: rel_err} over two nested dicts of tensors."""
+    out = {}
+    for k in sorted(want):
+        if isinstance(want[k], dict):
+            out.update(leaf_errs(got[k], want[k], f"{prefix}{k}."))
+        else:
+            out[prefix + k] = rel_err(got[k], want[k])
+    return out
+
+
+def train_counters():
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    return {"train_stack_fwd": TS.train_stack_fwd, "train_stack_bwd": TS.train_stack_bwd,
+            "post_loss_fwd": PL.post_loss_fwd, "post_loss_bwd": PL.post_loss_bwd}
+
+
+def phase_training(arch, gpu):
+    """run_training at WaveNet-30 (the main training path), then the fixed
+    state checks, a resume and the CLI."""
+    import dataclasses
+    import io
+    import statistics
+
+    import torch
+
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.data import make_batches, synthetic_corpus, write_wav
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+
+    work = os.path.join(BUILD, "chip_smoke_train")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = Config.load(os.path.join(ROOT, "configs", "wavenet30.json"))
+    train = dataclasses.replace(
+        cfg.train, fused_frontend=False, n_steps=TRAIN_STEPS, log_every=1,
+        checkpoint_every=0, checkpoint_dir=os.path.join(work, "ckpt"))
+    require(train.fused_stack and train.tapcat and train.fused_post
+            and (train.batch_size, train.window_size) == (TRAIN_B, TRAIN_W),
+            "wavenet30.json no longer holds the training settings this phase drives")
+    cfg = dataclasses.replace(cfg, train=train)
+    corpus = synthetic_corpus(arch, TRAIN_W, n_files=8, file_len=160000, seed=0)
+    counters = train_counters()
+    try:
+        for f in counters.values():
+            f.launches = 0
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            state = PT.run_training(cfg, corpus=corpus, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        recs = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        losses = [r["loss"] for r in recs]
+        step_ms = [r["step_time_ms"] for r in recs]
+        ms = statistics.median(step_ms[1:])
+        L = len(arch.dilations)
+        per_step = {"train_stack_fwd": L + 1, "train_stack_bwd": 3 * L + 1,
+                    "post_loss_fwd": 2, "post_loss_bwd": 3}
+        log(json.dumps({
+            "phase": "training", "gpu": gpu, "B": TRAIN_B, "W": TRAIN_W,
+            "T": arch.receptive_field - 1 + TRAIN_W, "steps": state.step,
+            "losses": losses, "step_ms": step_ms, "median_step_ms_after_first": ms,
+            "samples_per_s": TRAIN_B * TRAIN_W / (ms / 1000.0), "wall_s": wall,
+            "launches": launches, "launches_per_step": per_step,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }))
+        require(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS, "training stopped early")
+        require(all(l == l and abs(l) < 1e3 for l in losses), f"non-finite loss: {losses}")
+        require(losses[-1] < losses[0] - 0.1, f"the loss did not fall: {losses}")
+        for k, n in per_step.items():
+            require(launches[k] == n * TRAIN_STEPS,
+                    f"{k}: {launches[k]} launches in {TRAIN_STEPS} steps, expected {n} per step")
+
+        # The same step at a fixed state: through the kernels, through their
+        # plain versions, and as the unfused PyTorch step (autograd of the
+        # plain forward); and grad_accum=2 against the one-shot step.
+        batch = PT.batch_to_device(next(make_batches(corpus, train, start_step=5)), "cuda")
+        fixed = PT.init_state(1, arch, train, "cuda").params
+        loss_k, g_k = PT.value_and_grads(fixed, batch, arch, train)
+        with plain_kernels():
+            loss_pk, g_pk = PT.value_and_grads(fixed, batch, arch, train)
+        loss_u, g_u = PT.value_and_grads(
+            fixed, batch, arch, dataclasses.replace(train, fused_stack=False, fused_post=False))
+        loss_a, g_a = PT.value_and_grads(
+            fixed, batch, arch, dataclasses.replace(train, grad_accum=2))
+        torch.cuda.synchronize()
+
+        def vs(loss, grads, ref_loss, ref_grads):
+            errs = leaf_errs(grads, ref_grads)
+            return {"loss": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+                    "grads": max(errs.values()), "worst_leaf": max(errs, key=errs.get)}
+
+        checks = {"kernels_vs_plain": vs(loss_k, g_k, loss_pk, g_pk),
+                  "kernels_vs_unfused": vs(loss_k, g_k, loss_u, g_u),
+                  "accum2_vs_one_shot": vs(loss_a, g_a, loss_k, g_k)}
+        log(json.dumps({"phase": "training_fixed_state", "gpu": gpu,
+                        "loss_kernels": float(loss_k), "loss_plain": float(loss_pk),
+                        "loss_unfused": float(loss_u), "loss_accum2": float(loss_a),
+                        **checks, "unfused_leaf_errs": leaf_errs(g_k, g_u),
+                        "rtol": {"plain": STEP_RTOL, "unfused": UNFUSED_RTOL,
+                                 "accum": ACCUM_RTOL}}))
+        for name, (loss_tol, grad_tol) in (("kernels_vs_plain", (1e-5, STEP_RTOL)),
+                                           ("kernels_vs_unfused", (1e-3, UNFUSED_RTOL)),
+                                           ("accum2_vs_one_shot", (1e-5, ACCUM_RTOL))):
+            c = checks[name]
+            require(c["loss"] <= loss_tol and c["grads"] <= grad_tol, f"{name}: {c}")
+        del batch, fixed, g_k, g_pk, g_u, g_a
+
+        # Resume: a second run finds the final checkpoint and trains nothing.
+        for f in counters.values():
+            f.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            again = PT.run_training(cfg, corpus=corpus, device="cuda")
+        same = all(torch.equal(a, b) for a, b in zip(PT.tree_leaves(again.params),
+                                                     PT.tree_leaves(state.params)))
+        relaunched = sum(f.launches for f in counters.values())
+        log(json.dumps({"phase": "training_resume", "step": again.step,
+                        "params_equal": same, "kernel_launches": relaunched}))
+        require(again.step == TRAIN_STEPS and same and relaunched == 0,
+                "the resumed run did not restore the final checkpoint as it was")
+
+        # The CLI: train 2 steps from a directory of wavs, serve from it.
+        wavs = os.path.join(work, "wavs")
+        os.makedirs(wavs)
+        for i in range(4):
+            write_wav(os.path.join(wavs, f"{i}.wav"), corpus.waves[i], arch.sample_rate)
+        ckpt = os.path.join(work, "cli_ckpt")
+        base = [sys.executable, "-m", "lb_wavenet_tpu_torch.cli"]
+        conf = ["--config", os.path.join(ROOT, "configs", "wavenet30.json")]
+        proc = subprocess.run(
+            base + ["train", *conf, "--set", f"train.data_dir={wavs}",
+                    "--set", f"train.checkpoint_dir={ckpt}", "--set", "train.n_steps=2",
+                    "--set", "train.log_every=1", "--set", "train.fused_frontend=false"],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        require(proc.returncode == 0, f"CLI train failed:\n{proc.stderr[-4000:]}")
+        cli_losses = [json.loads(ln)["loss"] for ln in proc.stdout.splitlines()
+                      if ln.startswith("{\"step\"")]
+        req = os.path.join(work, "req.jsonl")
+        with open(req, "w") as f:
+            f.writelines(json.dumps({"id": f"t{i}", "n_samples": 3000, "seed": i}) + "\n"
+                         for i in range(2))
+        proc = subprocess.run(
+            base + ["serve", *conf, "--requests", req, "--stream-chunk", "1024",
+                    "--set", f"gen.checkpoint_dir={ckpt}",
+                    "--set", f"gen.out_dir={os.path.join(work, 'wav_out')}",
+                    "--set", "gen.batch_size=8"],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        require(proc.returncode == 0, f"CLI serve failed:\n{proc.stderr[-4000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        served = sorted(os.listdir(os.path.join(work, "wav_out")))
+        log(json.dumps({"phase": "cli_train_then_serve", "train_losses": cli_losses,
+                        "served": summary["served"], "wavs": served}))
+        require(len(cli_losses) == 2 and summary["served"] == 2
+                and served == ["t0.wav", "t1.wav"], "CLI train/serve did not complete")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, {"step_ms": ms, "samples_per_s": TRAIN_B * TRAIN_W / (ms / 1000.0)}
+
+
+def train_timings(params, arch):
+    """{name: (ms, plain ms, (bytes, flops))} of the four training kernels
+    at the training shapes (tapcat on, as wavenet30.json trains)."""
+    import torch
+
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    dt = compute_dtype(arch)
+    wbytes = torch.finfo(dt).bits // 8
+    counts = {k: f.launches for k, f in train_counters().items()}
+    lp, dils = params["layers"], arch.dilations
+    h0, g = train_inputs(arch, 13)
+    t = h0.shape[1]
+    out = {}
+    _, z, x = TS.train_stack_fwd(lp, h0, dils, dt, True)
+    out["train_stack_fwd"] = (
+        cuda_ms(lambda: TS.train_stack_fwd(lp, h0, dils, dt, True), 5),
+        cuda_ms(lambda: TS.stack_fwd_plain(lp, h0, dils, dt, True), 1),
+        train_stack_cost(arch, TRAIN_B, t, wbytes, False))
+    out["train_stack_bwd"] = (
+        cuda_ms(lambda: TS.train_stack_bwd(lp, dils, dt, True, z, x, g), 3),
+        cuda_ms(lambda: TS.stack_bwd_plain(lp, dils, dt, True, z, x, g), 1),
+        train_stack_cost(arch, TRAIN_B, t, wbytes, True))
+    del z, x, h0, g
+    skip, tgt, mask = post_inputs(arch, 14)
+    post = params["post"]
+    gbar = torch.tensor(1.0 / TRAIN_B / TRAIN_W, device="cuda")
+    out["post_loss_fwd"] = (
+        cuda_ms(lambda: PL.post_loss_fwd(post, skip, tgt, mask, TRAIN_W, dt), 10),
+        cuda_ms(lambda: PL.post_loss_plain(post, skip, tgt, mask, TRAIN_W, dt), 3),
+        post_loss_cost(arch, TRAIN_B, t, TRAIN_W, wbytes, False))
+    out["post_loss_bwd"] = (
+        cuda_ms(lambda: PL.post_loss_bwd(post, skip, tgt, mask, TRAIN_W, dt, gbar), 10),
+        cuda_ms(lambda: PL.post_loss_bwd_plain(post, skip, tgt, mask, TRAIN_W, dt, gbar), 3),
+        post_loss_cost(arch, TRAIN_B, t, TRAIN_W, wbytes, True))
+    for k, f in train_counters().items():
+        f.launches = counts[k]
+    return out
+
+
 def phase_timing(params, arch, errs, launches, gpu):
     import torch
 
@@ -480,6 +873,7 @@ def phase_timing(params, arch, errs, launches, gpu):
     mega_plain = 1000 * (time.perf_counter() - t0)
     ar_mega.mega_generate.launches = counts
 
+    trained = train_timings(params, arch)
     kernels = []
     for name, src, rep, ms, plain, cost in (
         ("mega_generate", "lb_wavenet_tpu_torch/csrc/ar_mega.cu",
@@ -488,6 +882,14 @@ def phase_timing(params, arch, errs, launches, gpu):
         ("fused_stack", "lb_wavenet_tpu_torch/csrc/ar_step.cu",
          "lb_wavenet_tpu/ops/pallas/ar_step.py:105", stack_ms, stack_plain,
          stack_cost(arch, B, wbytes)),
+        ("train_stack_fwd", "lb_wavenet_tpu_torch/csrc/train_stack.cu",
+         "lb_wavenet_tpu/ops/pallas/train_stack.py:580", *trained["train_stack_fwd"]),
+        ("train_stack_bwd", "lb_wavenet_tpu_torch/csrc/train_stack.cu",
+         "lb_wavenet_tpu/ops/pallas/train_stack.py:681", *trained["train_stack_bwd"]),
+        ("post_loss_fwd", "lb_wavenet_tpu_torch/csrc/post_loss.cu",
+         "lb_wavenet_tpu/ops/pallas/post_loss.py:50", *trained["post_loss_fwd"]),
+        ("post_loss_bwd", "lb_wavenet_tpu_torch/csrc/post_loss.cu",
+         "lb_wavenet_tpu/ops/pallas/post_loss.py:100", *trained["post_loss_bwd"]),
     ):
         bms, by = bound_ms(*cost)
         kernels.append({
@@ -496,8 +898,12 @@ def phase_timing(params, arch, errs, launches, gpu):
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": None,
         })
+    train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
+                   "tapcat": True}
     log(json.dumps({"phase": "shapes", "gpu": gpu, "mega_generate": {"B": B, "T": CHUNK, "lane_rows": 3},
-                    "fused_stack": {"B": B, "steps": 1}}))
+                    "fused_stack": {"B": B, "steps": 1}, "train_stack_fwd": train_shape,
+                    "train_stack_bwd": train_shape, "post_loss_fwd": train_shape,
+                    "post_loss_bwd": train_shape}))
     log(json.dumps({"kernels": kernels}))
 
 
@@ -524,8 +930,11 @@ def main() -> int:
         arch = Config.load(os.path.join(ROOT, "configs", "wavenet30.json")).arch
         params = params_from_jax(numpy_params(arch, 0), device="cuda")
         errs = phase_kernels(params, arch, gpu)
+        errs.update(phase_train_kernels(params, arch, gpu))
         launches = {"mega_generate": phase_serving(params, arch, gpu),
                     "fused_stack": phase_pallas_engine(params, arch, gpu)}
+        train_launches, _ = phase_training(arch, gpu)
+        launches.update(train_launches)
         phase_timing(params, arch, errs, launches, gpu)
     except Exception:
         traceback.print_exc()

@@ -1,6 +1,8 @@
-"""Command-line entry points of the port: `serve --requests` and `generate`
-(the unconditioned, single-device parts of `lb_wavenet_tpu/cli.py`).
+"""Command-line entry points of the port: `train`, `serve --requests` and
+`generate` (the unconditioned, single-device parts of `lb_wavenet_tpu/cli.py`).
 
+    python -m lb_wavenet_tpu_torch.cli train --config configs/wavenet30.json \
+        --set train.data_dir=/data/wavs --set train.fused_frontend=false
     python -m lb_wavenet_tpu_torch.cli serve --config configs/wavenet30.json \
         --requests requests.jsonl --set gen.checkpoint_dir=/ckpt
     python -m lb_wavenet_tpu_torch.cli generate --config configs/wavenet30.json \
@@ -8,11 +10,12 @@
 
 `--set section.key=value` overrides any config field (values parsed as JSON,
 falling back to string). `--device` defaults to `cuda`; pass `--device cpu`
-to run the plain PyTorch paths. Weights come from
-`utils.checkpoint.save_params` files in gen.checkpoint_dir. The other
-subcommands (train, eval, info, export, warm, pack) and serving options
-(--listen, --artifact, --mesh-model, mel/speaker requests) are ROADMAP.md
-items.
+to run the plain PyTorch paths. `train` writes its checkpoints to
+train.checkpoint_dir and resumes from them; `generate`/`serve` read the
+params of the latest checkpoint in gen.checkpoint_dir (a training directory
+or `utils.checkpoint.save_params` files). The other subcommands (eval, info,
+export, warm, pack), `train --profile` and the serving options (--listen,
+--artifact, --mesh-model, mel/speaker requests) are ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -100,6 +103,16 @@ def _read_requests(path: str, cfg):
     if not requests:
         raise SystemExit(f"{path}: no requests")
     return requests
+
+
+def cmd_train(args) -> int:
+    """Teacher-forced training from train.data_dir (JSONL metrics on
+    stdout, checkpoints in train.checkpoint_dir)."""
+    from .train import run_training
+
+    state = run_training(_load_config(args), device=args.device)
+    print(json.dumps({"trained_to_step": int(state.step)}), flush=True)
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -264,6 +277,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="wavenet-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p_train = sub.add_parser("train", help="teacher-forced training")
+    _add_common(p_train)
     p_gen = sub.add_parser("generate", help="batched AR synthesis")
     _add_common(p_gen)
     p_gen.add_argument(
@@ -295,7 +310,7 @@ def main(argv=None) -> int:
         "and fetch each request once at completion",
     )
     args = parser.parse_args(argv)
-    return {"generate": cmd_generate, "serve": cmd_serve}[args.cmd](args)
+    return {"train": cmd_train, "generate": cmd_generate, "serve": cmd_serve}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -253,7 +253,7 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
 }
 
 template <typename T>
-static cudaError_t launch(const MegaArgs& a, cudaStream_t stream) {
+static cudaError_t launch(const MegaArgs& a, cudaStream_t stream, int* launches) {
   const size_t smem = sizeof(float) * TB *
                           (4 * a.C + 3 * a.G + 3 * a.S + a.Q + a.n_d1 * a.C +
                            (a.K - 1) * a.C + a.C) +
@@ -262,14 +262,18 @@ static cudaError_t launch(const MegaArgs& a, cudaStream_t stream) {
       mega_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   mega_kernel<T><<<a.B / TB, NT, smem, stream>>>(a);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
 }
 
 }  // namespace wn
 
 extern "C" int wn_mega_lane_tile() { return wn::TB; }
 
-extern "C" int wn_mega_generate(const wn::MegaArgs* a, void* stream) {
+// Returns a CUDA error code and adds the kernels it launched to *launches.
+extern "C" int wn_mega_generate(const wn::MegaArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a->bf16 ? wn::launch<__nv_bfloat16>(*a, s) : wn::launch<float>(*a, s));
+  return (int)(a->bf16 ? wn::launch<__nv_bfloat16>(*a, s, launches)
+                       : wn::launch<float>(*a, s, launches));
 }

@@ -105,21 +105,25 @@ __global__ void __launch_bounds__(NT) stack_kernel(StackArgs a) {
 }
 
 template <typename T>
-static cudaError_t launch(const StackArgs& a, cudaStream_t stream) {
+static cudaError_t launch(const StackArgs& a, cudaStream_t stream, int* launches) {
   const size_t smem = sizeof(float) * TB * (3 * a.C + 3 * a.G + a.S);
   cudaError_t err = cudaFuncSetAttribute(
       stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = (a.B + TB - 1) / TB;
   stack_kernel<T><<<grid, NT, smem, stream>>>(a);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
 }
 
 }  // namespace wn
 
 extern "C" int wn_stack_lane_tile() { return wn::TB; }
 
-extern "C" int wn_fused_stack(const wn::StackArgs* a, void* stream) {
+// Returns a CUDA error code and adds the kernels it launched to *launches.
+extern "C" int wn_fused_stack(const wn::StackArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a->bf16 ? wn::launch<__nv_bfloat16>(*a, s) : wn::launch<float>(*a, s));
+  return (int)(a->bf16 ? wn::launch<__nv_bfloat16>(*a, s, launches)
+                       : wn::launch<float>(*a, s, launches));
 }

@@ -1,8 +1,47 @@
-"""Audio IO (port of `lb_wavenet_tpu/data.py`; only `write_wav` so far — the
-corpus, windows and batching wait for the training slice, ROADMAP.md A6)."""
+"""Input pipeline: wav corpus -> batched teacher-forcing windows (port of
+`lb_wavenet_tpu/data.py`).
+
+A deterministic, seeded, numpy-only loader. Files are mu-law encoded once
+(on the CPU, with the port's bit-exact `ops/mulaw.py`) into an in-memory
+corpus; each epoch is a seeded permutation of all (file, window) pairs; a
+host takes rows `host_id::host_count` of every batch. For the same seed and
+step the batches equal the JAX package's row for row.
+
+Not ported yet (ROADMAP.md A): mel frames (`with_mel`, A queue item 4), the
+packed out-of-core corpus (`Corpus.from_pack`, `load_corpus` of a file) and
+the native C++ ingest/assembly tier (A queue item 8).
+"""
 from __future__ import annotations
 
+import dataclasses
+import os
+import warnings
+from typing import Iterator, Optional, Sequence
+
 import numpy as np
+import torch
+
+from .config import ArchConfig, TrainConfig
+from .ops import geometry
+from .ops.mulaw import mu_law_encode
+
+
+def load_wav(path: str) -> tuple[np.ndarray, int]:
+    """Read a wav file to float32 in [-1, 1] (mono: channels averaged)."""
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        data = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    if data.ndim > 1:
+        data = data.mean(axis=1)
+    return data, sr
 
 
 def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:
@@ -11,3 +50,276 @@ def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:
 
     wav = np.clip(np.asarray(wav, dtype=np.float32), -1.0, 1.0)
     wavfile.write(path, sample_rate, (wav * 32767.0).astype(np.int16))
+
+
+@dataclasses.dataclass
+class Batch:
+    """One training batch (host-local rows)."""
+
+    inputs: np.ndarray   # int32 (B, R-1+W)   mu-law classes
+    targets: np.ndarray  # int32 (B, W)
+    mask: np.ndarray     # float32 (B, W)
+    mel: Optional[np.ndarray] = None       # float32 (B, F, n_mels)
+    speaker: Optional[np.ndarray] = None   # int32 (B,)
+
+
+def discover_layout(data_dir: str, n_speakers: int = 0):
+    """Flat (`data_dir/*.wav`) or per-speaker (`data_dir/<speaker>/*.wav`,
+    sorted subdirectory names -> ids 0..S-1) layout: (paths, speakers |
+    None, speaker_names | None). With n_speakers == 0 a per-speaker layout
+    drops its labels with a warning."""
+
+    def wavs_in(d: str) -> list:
+        return sorted(os.path.join(d, f) for f in os.listdir(d)
+                      if f.lower().endswith(".wav"))
+
+    flat = wavs_in(data_dir)
+    by_speaker = [
+        (name, wavs)
+        for name in sorted(os.listdir(data_dir))
+        if os.path.isdir(os.path.join(data_dir, name))
+        and (wavs := wavs_in(os.path.join(data_dir, name)))
+    ]
+    speakers: Optional[list] = None
+    speaker_names: Optional[list] = None
+    if by_speaker and flat:
+        raise ValueError(
+            f"{data_dir}: ambiguous layout — wav files both at the top "
+            "level and inside speaker subdirectories")
+    if by_speaker:
+        paths = [p for _, wavs in by_speaker for p in wavs]
+        if n_speakers > 0:
+            if len(by_speaker) > n_speakers:
+                raise ValueError(
+                    f"{data_dir}: {len(by_speaker)} speaker directories "
+                    f"but arch.n_speakers={n_speakers}")
+            speakers = [si for si, (_, wavs) in enumerate(by_speaker) for _ in wavs]
+            speaker_names = [name for name, _ in by_speaker]
+        else:
+            warnings.warn(f"{data_dir} has speaker subdirectories but "
+                          "arch.n_speakers == 0; training unconditioned")
+    else:
+        paths = flat
+    if not paths:
+        raise FileNotFoundError(f"No .wav files under {data_dir}")
+    return paths, speakers, speaker_names
+
+
+class WindowIndex:
+    """Lazy flat index of (file, window) pairs from per-file window-count
+    prefix sums: the same order and r -> (fi, wi) map as the materialized
+    list [(fi, wi) for fi in files for wi in windows(fi)]."""
+
+    def __init__(self, counts):
+        self.prefix = np.concatenate([[0], np.cumsum(np.asarray(counts, dtype=np.int64))])
+        self.n = int(self.prefix[-1])
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, r: int):
+        if r < 0:
+            r += self.n
+        if not 0 <= r < self.n:
+            raise IndexError(r)
+        fi = int(np.searchsorted(self.prefix, r, side="right")) - 1
+        return fi, int(r - self.prefix[fi])
+
+    def __iter__(self):
+        for fi in range(len(self.prefix) - 1):
+            for wi in range(int(self.prefix[fi + 1] - self.prefix[fi])):
+                yield (fi, wi)
+
+
+class Corpus:
+    """In-memory mu-law-encoded corpus with its window index."""
+
+    def __init__(
+        self,
+        waves: Sequence[np.ndarray],
+        arch: ArchConfig,
+        window_size: int,
+        speakers: Optional[Sequence[int]] = None,
+    ):
+        self.arch = arch
+        self.window_size = window_size
+        self.r_field = arch.receptive_field
+        self.waves = [np.asarray(w, dtype=np.float32) for w in waves]
+        self.encoded = [
+            mu_law_encode(torch.from_numpy(w), arch.quant_channels).numpy()
+            for w in self.waves
+        ]
+        self.speakers = list(speakers) if speakers is not None else None
+        self.speaker_names: Optional[list] = None  # set by from_dir
+        self.index = WindowIndex(
+            [geometry.num_windows(len(e), window_size) for e in self.encoded])
+        if not len(self.index):
+            raise ValueError("Corpus yields no training windows")
+
+    @classmethod
+    def from_dir(cls, data_dir: str, arch: ArchConfig, window_size: int) -> "Corpus":
+        """Build from a directory of wavs (flat or per-speaker layout, see
+        `discover_layout`); every file must have arch.sample_rate."""
+        paths, speakers, speaker_names = discover_layout(data_dir, n_speakers=arch.n_speakers)
+        waves = []
+        for p in paths:
+            w, sr = load_wav(p)
+            if sr != arch.sample_rate:
+                raise ValueError(f"{p}: sample rate {sr} != configured {arch.sample_rate}")
+            waves.append(w)
+        corpus = cls(waves, arch, window_size, speakers=speakers)
+        corpus.speaker_names = speaker_names
+        return corpus
+
+    def example(self, fi: int, wi: int):
+        return geometry.extract_window(self.encoded[fi], self.window_size, self.r_field, wi)
+
+    def examples_batch(self, pairs: Sequence[tuple]):
+        """Batched (inputs, targets, mask) for B (file, window) pairs."""
+        rows = [self.example(*p) for p in pairs]
+        return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
+                np.stack([r[2] for r in rows]))
+
+
+class LaneSchedule:
+    """Lane-continuous ("virtual batch") window order: one seeded
+    permutation of the FILES defines a circle of all n (file, window) pairs;
+    lane k starts at (k * n) // B and advances one window per step, so a
+    lane walks consecutive spans of one file."""
+
+    def __init__(self, corpus: Corpus, train: TrainConfig):
+        rng = np.random.default_rng(np.random.SeedSequence([train.seed, 7]))
+        self.file_order = rng.permutation(len(corpus.encoded))
+        counts = [geometry.num_windows(len(corpus.encoded[fi]), corpus.window_size)
+                  for fi in self.file_order]
+        self.prefix = np.concatenate([[0], np.cumsum(counts)])
+        self.n = int(self.prefix[-1])
+        self.batch_size = train.batch_size
+
+    def pair(self, lane: int, step: int) -> tuple:
+        """(file, window) for `lane` at `step`."""
+        pos = (lane * self.n // self.batch_size + step) % self.n
+        j = int(np.searchsorted(self.prefix, pos, side="right")) - 1
+        return int(self.file_order[j]), int(pos - self.prefix[j])
+
+
+def load_corpus(path: str, arch: ArchConfig, window_size: int) -> Corpus:
+    """Corpus from a directory of wavs. A packed corpus file is not ported
+    yet."""
+    if os.path.isfile(path):
+        raise NotImplementedError(
+            f"{path}: packed corpora (Corpus.from_pack) are not ported yet "
+            "(ROADMAP.md A queue item 8); pass a directory of wavs")
+    return Corpus.from_dir(path, arch, window_size)
+
+
+def make_batches(
+    corpus: Corpus,
+    train: TrainConfig,
+    host_id: int = 0,
+    host_count: int = 1,
+    start_step: int = 0,
+    with_mel: bool = False,
+) -> Iterator[Batch]:
+    """Infinite deterministic batch stream; the host takes rows
+    host_id::host_count. Each epoch is a seeded permutation of all windows
+    (per ROW: global position g = step * B + k draws perm_{g // n}[g % n],
+    so a batch across an epoch seam takes its tail from the next epoch);
+    with train.lane_continuous each lane walks files instead. `start_step`
+    resumes exactly (the dataset cursor is the step count)."""
+    if with_mel:
+        raise NotImplementedError(
+            "mel frames wait for the conditioning slice (ROADMAP.md A queue item 4)")
+    if train.batch_size % host_count:
+        raise ValueError("global batch size must divide evenly across hosts")
+    n = len(corpus.index)
+    lanes = LaneSchedule(corpus, train) if train.lane_continuous else None
+    step = start_step
+    perms: dict[int, np.ndarray] = {}  # epoch -> permutation (<= 2 live)
+
+    def perm_for(epoch: int) -> np.ndarray:
+        p = perms.get(epoch)
+        if p is None:
+            rng = np.random.default_rng(np.random.SeedSequence([train.seed, epoch]))
+            p = perms[epoch] = rng.permutation(n)
+            for e in [e for e in perms if e < epoch - 1]:
+                del perms[e]
+        return p
+
+    while True:
+        if lanes is not None:
+            pairs = [lanes.pair(k, step) for k in range(train.batch_size)][host_id::host_count]
+        else:
+            base = step * train.batch_size
+            picks = [perm_for((base + k) // n)[(base + k) % n]
+                     for k in range(train.batch_size)]
+            pairs = [corpus.index[r] for r in picks[host_id::host_count]]
+        inputs, targets, mask = corpus.examples_batch(pairs)
+        speaker = None
+        if corpus.speakers is not None:
+            speaker = np.asarray([corpus.speakers[p[0]] for p in pairs], dtype=np.int32)
+        yield Batch(inputs, targets, mask, None, speaker)
+        step += 1
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Run `iterator` in a daemon thread, keeping `depth` items ready; an
+    exception in the producer is raised on the consumer side. Closing the
+    returned generator (or dropping it) stops the thread within 0.1 s."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = object()
+    closed = threading.Event()
+
+    def put(item) -> bool:
+        while not closed.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+        except Exception as e:  # surfaced to the consumer below
+            put(e)
+        put(stop)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        closed.set()
+
+
+def synthetic_corpus(
+    arch: ArchConfig,
+    window_size: int,
+    n_files: int = 4,
+    file_len: int = 16000,
+    seed: int = 0,
+) -> Corpus:
+    """Deterministic synthetic corpus (mixed sinusoids + noise), the same
+    waves as the JAX package's for the same arguments."""
+    rng = np.random.default_rng(seed)
+    waves = []
+    for _ in range(n_files):
+        t = np.arange(file_len, dtype=np.float32) / arch.sample_rate
+        f0 = rng.uniform(80, 400)
+        w = (0.5 * np.sin(2 * np.pi * f0 * t)
+             + 0.2 * np.sin(2 * np.pi * 2.7 * f0 * t)
+             + 0.05 * rng.standard_normal(file_len))
+        waves.append(np.clip(w, -1, 1).astype(np.float32))
+    return Corpus(waves, arch, window_size)

@@ -12,8 +12,14 @@ b.bfloat16()` would return a bf16 result, so the rounding is done by
 `.to(dt).float()` on both operands (a product of two bf16 values is exact in
 float32) and the product runs in float32.
 
-Not ported yet (ROADMAP.md A): mel/speaker conditioning, remat,
-`embed_lookup_mm`, the input mask and the loss.
+The forward is differentiable with autograd; `masked_loss_sums` /
+`masked_loss` are the training loss. The embedding's gradient is the
+gather's own backward (an index add), the same gradient as the JAX
+package's `mm_embed_grad` (a matmul formulation written for the TPU), so
+that training option is accepted and changes nothing here.
+
+Not ported yet (ROADMAP.md A): mel/speaker conditioning (A queue item 4)
+and the sequence-parallel input mask (A queue item 7).
 """
 from __future__ import annotations
 
@@ -179,12 +185,16 @@ def forward(
     cond_frames: Optional[torch.Tensor] = None,
     speaker_ids: Optional[torch.Tensor] = None,
     return_skip: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Teacher-forced forward: classes (B, T) -> logits (B, T, Q).
+    """Teacher-forced forward: classes (B, T) -> logits (B, T, Q), or the
+    skip sum (B, T, S) with return_skip.
 
     logits[:, t] is the categorical distribution over sample t+1. The skip
     sum is ONE stacked contraction over (layer, gate), as in the JAX
-    forward, plus the constant bias sum_l b_skip[l].
+    forward, plus the constant bias sum_l b_skip[l]. `remat` recomputes
+    each layer in the backward (torch.utils.checkpoint) instead of keeping
+    its activations.
     """
     if cond_frames is not None or speaker_ids is not None:
         raise NotImplementedError(
@@ -193,9 +203,18 @@ def forward(
     dt = compute_dtype(arch)
     lp = params["layers"]
     h = input_frontend(params, arch, x_classes, dt)
+
+    def one_layer(h, i, d):
+        return gated_unit(h, shift_right(h, d), lp, i, dt)
+
     zs = []
     for i, d in enumerate(arch.dilations):
-        h, z = gated_unit(h, shift_right(h, d), lp, i, dt)
+        if remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            h, z = checkpoint(one_layer, h, i, d, use_reentrant=False)
+        else:
+            h, z = one_layer(h, i, d)
         zs.append(z)
     z_all = torch.stack(zs, dim=0)  # (L, B, T, G)
     skip_sum = torch.einsum(
@@ -204,3 +223,22 @@ def forward(
     if return_skip:
         return skip_sum
     return post_network(params, skip_sum, dt)
+
+
+def masked_loss_sums(logits: torch.Tensor, targets: torch.Tensor,
+                     mask: torch.Tensor, window_size: int):
+    """(sum of masked CE, sum of mask) over the last `window_size` logits:
+    the accumulable form of masked_loss (gradient accumulation adds the
+    numerators and the denominators and divides once)."""
+    w_logits = logits[:, -window_size:, :]
+    ce = -torch.log_softmax(w_logits, dim=-1)
+    ce = ce.gather(-1, targets.long()[..., None])[..., 0]
+    return (ce * mask).sum(), mask.sum()
+
+
+def masked_loss(logits: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor, window_size: int) -> torch.Tensor:
+    """Boundary-masked mean CE: logits (B, R-1+W, Q), targets/mask (B, W);
+    logits[:, -W + j] predicts targets[:, j] (ops/geometry.py)."""
+    num, den = masked_loss_sums(logits, targets, mask, window_size)
+    return num / torch.clamp(den, min=1.0)

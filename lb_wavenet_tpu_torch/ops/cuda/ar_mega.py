@@ -321,8 +321,7 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         _inv_temp(temperature) if temperature > 0.0 else 0.0,
         int(dt == torch.bfloat16), sum(1 for d in arch.dilations if d == 1),
     )
-    build.launch(_library(), "wn_mega_generate", args, dev)
-    mega_generate.launches += 1
+    mega_generate.launches += build.launch(_library(), "wn_mega_generate", args, dev)
     return classes, logits
 
 

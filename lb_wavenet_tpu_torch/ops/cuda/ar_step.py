@@ -116,8 +116,8 @@ def fused_stack(
         skip.data_ptr(),
         b, L, c, two_g // 2, s, int(t), int(dt == torch.bfloat16),
     )
-    build.launch(build.load("ar_step"), "wn_fused_stack", args, dev)
-    fused_stack.launches += 1
+    fused_stack.launches += build.launch(build.load("ar_step"), "wn_fused_stack",
+                                         args, dev)
     return bufs, skip
 
 

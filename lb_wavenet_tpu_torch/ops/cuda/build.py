@@ -88,20 +88,32 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def launch(lib: ctypes.CDLL, fn: str, args: ctypes.Structure, device) -> None:
-    """Call `fn(&args, stream)` on the current stream of `device`; raise
-    with CUDA's message if the launch was refused."""
+def launch(lib: ctypes.CDLL, fn: str, args: ctypes.Structure, device) -> int:
+    """Call `fn(&args, stream, &n)` on the current stream of `device`; the
+    function adds the kernels it launched to n. Raise with CUDA's message
+    if a launch was refused. Returns n."""
     import torch
 
     f = getattr(lib, fn)
-    f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    f.argtypes = [ctypes.c_void_p] * 3
     f.restype = ctypes.c_int
-    err = f(ctypes.addressof(args), torch.cuda.current_stream(device).cuda_stream)
+    n = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = f(ctypes.addressof(args), stream, ctypes.addressof(n))
     if err != 0:
         lib.wn_error_string.restype = ctypes.c_char_p
         lib.wn_error_string.argtypes = [ctypes.c_int]
         msg = lib.wn_error_string(err).decode()
         raise RuntimeError(f"{fn}: CUDA error {err}: {msg}")
+    return n.value
+
+
+def on_card(device, what: str) -> bool:
+    """True for a CUDA device (launch the kernel), False for the CPU (run
+    the plain version); anything else raises."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {device}")
+    return device.type == "cuda"
 
 
 @functools.lru_cache(maxsize=None)

@@ -81,7 +81,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                         top == "lb_wavenet_tpu":
                     bad.append(f"{os.path.relpath(path, ROOT)}: {n}")
     assert not bad, bad
-    assert len(_port_sources()) > 10
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    training_slice = {
+        "lb_wavenet_tpu_torch/train.py", "lb_wavenet_tpu_torch/data.py",
+        "lb_wavenet_tpu_torch/ops/geometry.py", "lb_wavenet_tpu_torch/utils/metrics.py",
+        "lb_wavenet_tpu_torch/utils/checkpoint.py", "lb_wavenet_tpu_torch/utils/convert.py",
+        "lb_wavenet_tpu_torch/ops/cuda/train_stack.py",
+        "lb_wavenet_tpu_torch/ops/cuda/post_loss.py", "chip_smoke.py",
+    }
+    assert training_slice <= scanned, training_slice - scanned
+    assert len(scanned) > 15
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

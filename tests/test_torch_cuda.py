@@ -1,6 +1,8 @@
 """Port tests that need the card: each CUDA kernel against its plain
-PyTorch version on the same CUDA inputs, and a pooled request replayed on a
-dedicated session. They skip without a GPU; on one, run
+PyTorch version on the same CUDA inputs (the sampling kernels, and the
+training kernel pairs through autograd), a pooled request replayed on a
+dedicated session, and a fused training step on the card against the same
+step on the CPU. They skip without a GPU; on one, run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -110,3 +112,97 @@ def test_pool_replay_on_card(cuda):
     busy = serve(2, reqs)
     alone = serve(1, reqs[2:])
     np.testing.assert_array_equal(busy["c"], alone["c"])
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("tapcat", [False, True])
+def test_train_stack_kernels_match_plain(cuda, dtype, tapcat, rtol):
+    """Forward and backward kernels through the autograd Function against
+    the plain versions, a ragged last time tile; errors relative to each
+    leaf's largest magnitude (sums in another order, same roundings)."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    arch = dataclasses.replace(SMALL, compute_dtype=dtype)
+    dt = compute_dtype(arch)
+    p = init_params(3, arch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    h0 = torch.randn((3, 70, 16), device=cuda, generator=g)
+    gs = torch.randn((3, 70, 32), device=cuda, generator=g)
+    lp = {k: v.clone().requires_grad_(True) for k, v in p["layers"].items()}
+    h = h0.clone().requires_grad_(True)
+    n_fwd, n_bwd = TS.train_stack_fwd.launches, TS.train_stack_bwd.launches
+    skip = TS.make_fused_stack(arch, tapcat=tapcat)(lp, h)
+    (skip * gs).sum().backward()
+    torch.cuda.synchronize()
+    L = len(arch.dilations)
+    assert TS.train_stack_fwd.launches == n_fwd + L + 1
+    assert TS.train_stack_bwd.launches == n_bwd + 3 * L + 1
+    sp, zp, xp = TS.stack_fwd_plain(p["layers"], h0, arch.dilations, dt, tapcat)
+    dp, gp = TS.stack_bwd_plain(p["layers"], arch.dilations, dt, tapcat, zp, xp, gs)
+
+    def close(a, b):
+        torch.testing.assert_close(a, b, rtol=0, atol=rtol * float(b.abs().max()))
+
+    close(skip.detach(), sp)
+    close(h.grad, dp)
+    for k in gp:
+        close(lp[k].grad, gp[k])
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+def test_post_loss_kernels_match_plain(cuda, dtype, rtol):
+    """Numerator, dskip (exactly 0 on the head rows) and the post
+    gradients against the plain versions, a ragged last row tile."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+
+    arch = dataclasses.replace(SMALL, compute_dtype=dtype)
+    dt = compute_dtype(arch)
+    p = init_params(4, arch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    skip = torch.randn((3, 60, 32), device=cuda, generator=g)
+    tgt = torch.randint(0, 256, (3, 37), device=cuda, generator=g, dtype=torch.int32)
+    mask = (torch.rand((3, 37), device=cuda, generator=g) > 0.2).float()
+    post = {k: v.clone().requires_grad_(True) for k, v in p["post"].items()}
+    s = skip.clone().requires_grad_(True)
+    n_fwd, n_bwd = PL.post_loss_fwd.launches, PL.post_loss_bwd.launches
+    num = PL.fused_post_loss(post, s, tgt, mask, 37, dtype)
+    (num * 0.5).backward()
+    torch.cuda.synchronize()
+    assert (PL.post_loss_fwd.launches, PL.post_loss_bwd.launches) == (n_fwd + 2, n_bwd + 3)
+    num_p = PL.post_loss_plain(p["post"], skip, tgt, mask, 37, dt)
+    dsp, gp = PL.post_loss_bwd_plain(p["post"], skip, tgt, mask, 37, dt,
+                                     torch.tensor(0.5, device=cuda))
+    torch.testing.assert_close(num.detach(), num_p, rtol=rtol, atol=0)
+    assert not s.grad[:, :60 - 37].any()
+
+    def close(a, b):
+        torch.testing.assert_close(a, b, rtol=0, atol=rtol * float(b.abs().max()))
+
+    close(s.grad, dsp)
+    for k in gp:
+        close(post[k].grad, gp[k])
+
+
+def test_fused_training_step_on_card(cuda):
+    """A fused train step (stack + tapcat + post) on the card against the
+    same step on the CPU (the plain versions), fp32."""
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.config import TrainConfig
+
+    train = TrainConfig(batch_size=2, window_size=40, learning_rate=1e-3, fused_stack=True,
+                        tapcat=True, fused_post=True)
+    state = PT.init_state(5, SMALL, train, "cpu")
+    g = torch.Generator().manual_seed(5)
+    t = SMALL.receptive_field - 1 + 40
+    batch = {"inputs": torch.randint(0, 256, (2, t), generator=g, dtype=torch.int32),
+             "targets": torch.randint(0, 256, (2, 40), generator=g, dtype=torch.int32),
+             "mask": torch.ones((2, 40))}
+    loss_c, grads_c = PT.value_and_grads(state.params, batch, SMALL, train)
+    params_g = PT.tree_map(lambda v: v.to(cuda), state.params)
+    loss_g, grads_g = PT.value_and_grads(params_g, {k: v.to(cuda) for k, v in batch.items()},
+                                         SMALL, train)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for a, b in zip(PT.tree_leaves(grads_g), PT.tree_leaves(grads_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
