@@ -8,7 +8,8 @@ Drives the port (`lb_wavenet_tpu_torch`, never JAX) at WaveNet-30 full width
 random weights seeded by numpy, in phases; any failure exits non-zero:
 
   1. environment: CUDA, the card and its power limit, triton, nvcc; build
-     every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a);
+     every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a), one
+     nvcc per source, all started together;
   2. each kernel against its plain PyTorch version on the card at B=512:
      fused_stack (one step at a mid-stream t: ring and skip), mega_generate
      (teacher-forced logits and carry over one 1024-step streaming chunk at
@@ -16,7 +17,9 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      per-lane 2-row and 3-row lane blocks over 256 steps from the zero
      carry: first divergent step reported, and every class the kernel
      picked must be a near-argmax of the plain version's scores on the
-     kernel's own history);
+     kernel's own history), turbo_step (one step at a mid-stream t, then
+     teacher-forced logits and state over a 256-step chunk, then greedy and
+     per-lane free runs of 128 steps under the same near-argmax check);
   3. serving: SessionPool(engine="mega", device="cuda"), pool batch 512,
      chunk 1024, pipelined, 12 requests of 8000-24000 samples with seeds and
      temperatures {0, 0.7, 1.0}, the last 4 on recycled lanes; a sampled
@@ -24,17 +27,26 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      same requests through `python -m lb_wavenet_tpu_torch.cli serve` from a
      save_params checkpoint must write the same audio;
   4. the pallas engine (fused_stack per step) at B=512;
-  5. the training kernels against their plain versions at the training
-     shapes (B=8, W=10240, T=13310): the train stack (tapcat off and on)
-     and the post-loss, values and every gradient leaf, through autograd;
-  6. training: run_training on synthetic_corpus with the wavenet30.json
-     train settings (fused stack + tapcat + fused post, fused_frontend
-     off), 20 steps with the loss of each; then at a fixed state the fused
-     step against the unfused plain PyTorch step and a grad_accum=2 step
-     against the one-shot step, a resume from the checkpoint, and
-     `python -m lb_wavenet_tpu_torch.cli train` for 2 steps followed by
-     `serve` from its checkpoint directory;
-  7. timings at the serving and training shapes and the `kernels` JSON
+  5. the turbo engine: SessionPool(engine="turbo") at pool batch 100 (not a
+     multiple of the lane tile), 6 requests with seeds and temperatures, a
+     sampled one replayed bit-identically on a dedicated session, and
+     `cli serve --set gen.engine=turbo` writing the pool's audio;
+  6. the training kernels against their plain versions at the training
+     shapes (B=8, W=10240, T=13310): the frontend pair, the train stack
+     (tapcat off and on) and the post-loss, values and every gradient leaf,
+     through autograd;
+  7. training: run_training on synthetic_corpus with the wavenet30.json
+     train recipe as written (fused frontend + fused stack + tapcat + fused
+     post), 20 steps with the loss of each, the frontend kernels launched
+     every step and no plain frontend op; then at a fixed state the fused
+     step against its plain versions, the unfused PyTorch step and a
+     grad_accum=2 step against the one-shot step, a resume from the
+     checkpoint, and `python -m lb_wavenet_tpu_torch.cli train` for 2 steps
+     followed by `serve` and `eval` from its checkpoint directory;
+  8. evaluation: `evaluate` of the trained params on a held-out
+     synthetic_corpus (another seed), fused and plain forward, and a short
+     run_training with in-training eval records;
+  9. timings at the serving and training shapes and the `kernels` JSON
      line, the card's name and power limit, and last the {"ok": true, ...}
      line.
 
@@ -56,28 +68,41 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 512             # lanes (the pool batch)
 CHUNK = 1024        # samples per serving step
 T_CHECK = 256       # steps of the kernel-vs-plain mega checks
+T_TURBO = 128       # steps of the turbo free-run checks
+TURBO_POOL = 100    # turbo pool batch: not a multiple of the lane tile
 LOGIT_ATOL = 5e-2   # bf16 operands: a flipped rounding moves logits ~1e-2
 TRAIN_B, TRAIN_W = 8, 10240   # wavenet30.json train batch and window
 TRAIN_STEPS = 20
+STEP_PARTS = 5      # steps timed part by part
 # Kernel vs plain at the training shapes, as max abs error over the leaf's
 # max abs value: the same bf16-rounded operands, fp32 sums in another order.
 KERNEL_RTOL = 1e-2
-# A whole step through the kernels vs through their plain versions: autograd
-# of the (unfused) frontend rounds dh0 to bf16, so ulp-level differences in
-# dh0 flip roundings that the input-conv and embedding gradients sum up.
-STEP_RTOL = 2e-2
+# A whole step through the kernels vs through their plain versions: the
+# post-loss backward's dskip differs by reordered fp32 sums (5e-4 of its
+# largest value), which the stack carries into dh0, and the input conv's
+# gradient sums it over 106k positions with cancellation. Read 5.4e-3
+# (input_conv.w) on an H100 at this phase's fixed state; the limit is about
+# twice that.
+STEP_RTOL = 1e-2
 # grad_accum=2 vs the one-shot step: dlogits are rounded to bf16 at another
 # scale (the cotangent is 1 per micro instead of 1 / mask sum). Read 8.4e-3
 # on an H100 at this phase's fixed state.
 ACCUM_RTOL = 1.5e-2
-# Fused step vs the unfused PyTorch step: autograd of the plain forward rounds
-# every gradient that enters a bf16 product (the hand-written backwards round
-# only the operands), so leaves built from cancelling sums differ by ~9% of
-# their largest value (read 9.1e-2 on an H100 at this phase's fixed state);
-# the limit is about twice that reading.
+# Fused step vs the unfused PyTorch step (frontend, stack and post-loss as
+# autograd of the plain forward): autograd rounds every gradient that enters
+# a bf16 product (the hand-written backwards round only the operands), so
+# leaves built from cancelling sums differ by ~9% of their largest value
+# (read 9.1e-2, layers.w_cur, on an H100 at this phase's fixed state); the
+# limit is about twice that reading.
 UNFUSED_RTOL = 0.18
+# Eval through the fused stack vs the plain forward: the same bf16 operands,
+# the skip sum in another order (read 1.3e-5 nats on an H100).
+EVAL_NLL_ATOL = 1e-4
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
 H100_BYTES_S = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
+
+
+KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss")
 
 
 class SmokeFailure(Exception):
@@ -198,6 +223,32 @@ def post_loss_cost(arch, b: int, t: int, w: int, wbytes: int, backward: bool):
     return rows_in + weights + 4, 2 * b * w * (S * S + S * Q)
 
 
+def turbo_cost(arch, b: int, lane_rows: int, wbytes: int):
+    """(bytes, flops) of one turbo step: weights and biases, h and the
+    embedding stack in and out, the L ring rows read and written, forced
+    and the lane block in, the classes out."""
+    L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
+    S, Q, K = arch.skip_channels, arch.quant_channels, arch.input_kernel
+    w = L * (2 * C * 2 * G + G * C + G * S) + S * S + S * Q + Q * C + K * C * C
+    bias = L * (2 * G + C + S) + S + Q + C
+    state = 2 * (C + (K - 1) * C + L * C) * b
+    nbytes = w * wbytes + 4 * (bias + state + b + lane_rows * b + b)
+    flops = 2 * b * (L * (2 * C * 2 * G + G * C + G * S) + S * S + S * Q + K * C * C)
+    return nbytes, flops
+
+
+def frontend_cost(arch, b: int, t: int, backward: bool):
+    """(bytes, flops) of the frontend's forward or backward at (b, t): the
+    classes, table, taps and bias in (fp32, as the TPU kernel reads them);
+    h0 out, or dh in and d_embed, d_w, d_b out."""
+    C, Q, K = arch.residual_channels, arch.quant_channels, arch.input_kernel
+    params = Q * C + K * C * C + C
+    taps = 2 * b * t * K * C * C
+    if backward:   # d_w and d_e products, plus the scatter's adds
+        return 4 * (b * t + params + b * t * C + params), 2 * taps + b * t * C
+    return 4 * (b * t + params + b * t * C), taps
+
+
 def bound_ms(nbytes: int, flops: int):
     by_bytes, by_ops = nbytes / H100_BYTES_S * 1e3, flops / H100_BF16_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
@@ -224,7 +275,7 @@ def phase_environment():
     }))
     t0 = time.perf_counter()
     build.build_all()
-    for name in ("ar_step", "ar_mega", "train_stack", "post_loss"):
+    for name in KERNEL_SOURCES:
         build.load(name)
     res = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
            for k, v in build.build_log.items()}
@@ -357,6 +408,116 @@ def phase_kernels(params, arch, gpu):
     return report
 
 
+def phase_turbo_kernels(params, arch, gpu):
+    """turbo_step against its plain version at B=512: one step at a
+    mid-stream t, a teacher-forced chunk, and free runs under the
+    near-argmax check."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.ops.cuda import ar_turbo
+
+    lp, c = params["layers"], arch.residual_channels
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h0, e0 = G._fused_frontend_zero(params, arch, B)
+    inv = torch.tensor([0.0, 1 / 0.7, 1.0], dtype=torch.float32).repeat(B // 3 + 1)[:B]
+    seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda", dtype=torch.int32, generator=gen)
+    lane3 = torch.stack([seeds, torch.full((B,), 900, device="cuda", dtype=torch.int32),
+                         inv.cuda().view(torch.int32)])
+
+    def random_state():
+        return {"bufs": torch.randn((sum(arch.dilations), B, c), device="cuda", generator=gen),
+                "h": torch.randn((B, c), device="cuda", generator=gen),
+                "e": torch.randn((arch.input_kernel - 1, B, c), device="cuda", generator=gen)}
+
+    # One step at t = 1000 through the JAX-shaped wrapper, half the lanes
+    # forced; the plain version is forced to the kernel's classes (a near-tie
+    # may sample another class), and each choice is held to the near-argmax
+    # check instead.
+    st = random_state()
+    forced = torch.where(torch.arange(B, device="cuda") % 2 == 0,
+                         torch.randint(0, arch.quant_channels, (B,), device="cuda",
+                                       dtype=torch.int32, generator=gen), -1).to(torch.int32)
+    bk, bp = st["bufs"].clone(), st["bufs"].clone()
+    _, ck, ek, hk, lk = ar_turbo.turbo_step(params, lp, arch, st["h"], st["e"], bk, 1000,
+                                            12345, forced, temperature=1.0, lane=lane3,
+                                            emit_logits=True)
+    torch.cuda.synchronize()
+    sp = {"bufs": bp, "h": st["h"].clone(), "e": st["e"].clone()}
+    cp, lpl = ar_turbo.turbo_generate_plain(params, lp, arch, sp, 1000, ck[None], 1.0,
+                                            True, lane3, 12345)
+    cp, _ = ar_turbo.turbo_generate_plain(
+        params, lp, arch, {"bufs": st["bufs"].clone(), "h": st["h"].clone(),
+                           "e": st["e"].clone()}, 1000, forced[None], 1.0, False, lane3, 12345)
+    step_err = max(abs_err(bk, bp), abs_err(hk, sp["h"]), abs_err(ek, sp["e"]),
+                   abs_err(lk, lpl[0]))
+    gap = check_choices(lpl.transpose(1, 2), ck[None], 1.0, _shift_lane(lane3, 1000),
+                        forced[None])
+    log(json.dumps({"phase": "turbo_step_vs_plain", "gpu": gpu, "B": B, "t": 1000,
+                    "lane_rows": 3, "max_abs_err": step_err, "classes_equal":
+                    bool(torch.equal(ck, cp[0])), "max_choice_gap": gap,
+                    "atol": LOGIT_ATOL}))
+    require(step_err <= LOGIT_ATOL and gap <= 2 * LOGIT_ATOL,
+            f"turbo_step differs from plain: {step_err}, choice gap {gap}")
+
+    # Teacher-forced over a T_CHECK-step chunk at a mid-stream t0.
+    st = random_state()
+    forced = torch.randint(0, arch.quant_channels, (T_CHECK, B), device="cuda",
+                           dtype=torch.int32, generator=gen)
+    sk = {k: v.clone() for k, v in st.items()}
+    _, lk = ar_turbo.turbo_generate(params, lp, arch, sk, 5000, forced, 1.0, True, lane3, 7)
+    torch.cuda.synchronize()
+    _, lpl = ar_turbo.turbo_generate_plain(params, lp, arch, st, 5000, forced, 1.0, True,
+                                           lane3, 7)
+    err = abs_err(lk, lpl)
+    state_err = max(abs_err(sk[k], st[k]) for k in st)
+    log(json.dumps({"phase": "turbo_teacher_forced_vs_plain", "gpu": gpu, "B": B,
+                    "T": T_CHECK, "t0": 5000, "max_abs_err": err,
+                    "state_max_abs_err": state_err, "atol": LOGIT_ATOL}))
+    require(err <= LOGIT_ATOL and state_err <= LOGIT_ATOL,
+            f"turbo teacher-forced logits/state differ: {err}, {state_err}")
+    report = {"turbo_step": max(step_err, err)}
+    del st, sk, lk, lpl
+
+    zeros = torch.zeros(B, device="cuda", dtype=torch.int32)
+    free = torch.full((T_TURBO, B), -1, device="cuda", dtype=torch.int32)
+
+    def run(fn, forced, temp, emit, lane):
+        state = {"bufs": torch.zeros((sum(arch.dilations), B, c), device="cuda"),
+                 "h": h0.clone(), "e": e0.clone()}
+        out = fn(params, lp, arch, state, 0, forced, temp, emit, lane, 12345)
+        torch.cuda.synchronize()
+        return out
+
+    for name, temp, lane in (
+        ("greedy", 0.0, None),
+        ("per_lane_2row", 1.0, torch.stack([seeds, zeros])),
+        ("per_lane_3row", 1.0, torch.stack([seeds, zeros, inv.cuda().view(torch.int32)])),
+    ):
+        cls_k, _ = run(ar_turbo.turbo_generate_cuda, free, temp, False, lane)
+        cls_p, _ = run(ar_turbo.turbo_generate_plain, free, temp, False, lane)
+        diff = (cls_k != cls_p).any(dim=1).nonzero()
+        _, lg_tf = run(ar_turbo.turbo_generate_plain, cls_k, temp, True, lane)
+        gap = check_choices(lg_tf.transpose(1, 2), cls_k, temp, lane, free)
+        log(json.dumps({
+            "phase": f"turbo_{name}_vs_plain", "gpu": gpu, "B": B, "T": T_TURBO,
+            "first_divergent_step": int(diff[0]) if len(diff) else None,
+            "lanes_equal": float((cls_k == cls_p).all(dim=0).float().mean()),
+            "max_choice_gap": gap, "gap_tol": 2 * LOGIT_ATOL,
+        }))
+        require(gap <= 2 * LOGIT_ATOL,
+                f"turbo {name}: kernel chose a class {gap} below the plain max")
+    return report
+
+
+def _shift_lane(lane, t):
+    """The lane block with lease times moved back by t, so that
+    check_choices (which counts steps from 0) hashes step t."""
+    out = lane.clone()
+    out[1] -= t
+    return out
+
+
 def make_requests():
     """12 requests of 8000-24000 samples, temperatures {0, 0.7, 1.0}."""
     return [
@@ -366,8 +527,8 @@ def make_requests():
     ]
 
 
-def serve_pool(params, arch, requests, batch, first_wave):
-    """Serve `requests` through a pipelined mega SessionPool; the first
+def serve_pool(params, arch, requests, batch, first_wave, engine="mega"):
+    """Serve `requests` through a pipelined SessionPool; the first
     `first_wave` go in at once, the rest as lanes free up (so they take
     recycled lanes). Returns ({id: classes}, {id: lane}, stats, wall)."""
     import numpy as np
@@ -375,7 +536,7 @@ def serve_pool(params, arch, requests, batch, first_wave):
 
     from lb_wavenet_tpu_torch.serving import SessionPool
 
-    pool = SessionPool(params, arch, batch, 0, engine="mega", chunk_size=CHUNK,
+    pool = SessionPool(params, arch, batch, 0, engine=engine, chunk_size=CHUNK,
                        temperature=1.0, pipeline=True, device="cuda")
     out, lanes, parts = {}, {}, {}
     queue = list(requests)
@@ -408,7 +569,6 @@ def phase_serving(params, arch, gpu):
     import numpy as np
 
     from lb_wavenet_tpu_torch.ops.cuda.ar_mega import mega_generate
-    from lb_wavenet_tpu_torch.utils.checkpoint import save_params
 
     requests = make_requests()
     mega_generate.launches = 0
@@ -444,8 +604,20 @@ def phase_serving(params, arch, gpu):
                     "temperature": rep["temperature"], "bit_identical": same}))
     require(same, f"replay of {rep['id']} on a dedicated session differs")
 
-    # The same requests through the CLI, from a save_params checkpoint.
+    cli_serve(params, arch, requests, out, "mega", B, gpu)
+    return launches
+
+
+def cli_serve(params, arch, requests, out, engine, batch, gpu):
+    """The same requests through `python -m lb_wavenet_tpu_torch.cli serve`
+    from a save_params checkpoint: the wavs must equal the pool's audio."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
     from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+    from lb_wavenet_tpu_torch.ops.mulaw import mu_law_decode
+    from lb_wavenet_tpu_torch.utils.checkpoint import save_params
 
     work = os.path.join(BUILD, "chip_smoke")   # gitignored, removed below
     shutil.rmtree(work, ignore_errors=True)
@@ -461,28 +633,68 @@ def phase_serving(params, arch, gpu):
             "--requests", req_path, "--stream-chunk", str(CHUNK),
             "--set", f"gen.checkpoint_dir={os.path.join(work, 'ckpt')}",
             "--set", f"gen.out_dir={os.path.join(work, 'wav')}",
-            "--set", f"gen.batch_size={B}", "--set", "gen.temperature=1.0",
+            "--set", f"gen.batch_size={batch}", "--set", "gen.temperature=1.0",
+            "--set", f"gen.engine={engine}",
         ]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
                               timeout=600)
         require(proc.returncode == 0, f"CLI serve failed:\n{proc.stderr[-4000:]}")
         summary = json.loads(proc.stdout.strip().splitlines()[-1])
-        require(summary["served"] == len(requests), f"CLI served {summary['served']}")
-        from scipy.io import wavfile
-
-        from lb_wavenet_tpu_torch.ops.mulaw import mu_law_decode
-        import torch
-
+        require(summary["served"] == len(requests) and summary["engine"] == engine,
+                f"CLI served {summary['served']} on {summary['engine']}")
         for r in requests:
             _, wav = wavfile.read(os.path.join(work, "wav", f"{r['id']}.wav"))
             ref = mu_law_decode(torch.from_numpy(out[r["id"]])).numpy()
             ref = (np.clip(ref, -1, 1) * 32767.0).astype(np.int16)
             require(np.array_equal(wav, ref), f"CLI audio of {r['id']} differs")
         summary["gpu"] = gpu
-        log(json.dumps({"phase": "cli_serve", "summary": summary,
+        log(json.dumps({"phase": f"cli_serve_{engine}", "summary": summary,
                         "audio_equal_to_pool": True}))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_turbo_serving(params, arch, gpu):
+    """The turbo engine behind SessionPool at a batch that is not a multiple
+    of the lane tile, a bit-identical replay, and the CLI."""
+    import numpy as np
+
+    from lb_wavenet_tpu_torch.ops.cuda.ar_turbo import turbo_step
+
+    requests = [{"id": f"u{i}", "n_samples": 3000 + 611 * i, "seed": 500 + 13 * i,
+                 "temperature": (0.0, 0.7, 1.0)[i % 3]} for i in range(6)]
+    turbo_step.launches = 0
+    out, lanes, stats, wall = serve_pool(params, arch, requests, TURBO_POOL, first_wave=4,
+                                         engine="turbo")
+    launches = turbo_step.launches
+    require(len(out) == len(requests), "not every turbo request completed")
+    for r in requests:
+        cls = out[r["id"]]
+        require(cls.shape == (r["n_samples"],) and cls.min() >= 0
+                and cls.max() < arch.quant_channels, f"bad classes for {r['id']}")
+    recycled = [r["id"] for r in requests[4:] if lanes[r["id"]] < 4]
+    nst = max(stats["steps"], 1)
+    total = sum(r["n_samples"] for r in requests)
+    log(json.dumps({
+        "phase": "turbo_serving", "gpu": gpu, "requests": len(requests),
+        "pool_batch": TURBO_POOL, "chunk": CHUNK, "audio_sec": total / arch.sample_rate,
+        "wall_s": wall, "delivered_audio_sec_per_s": total / arch.sample_rate / wall,
+        "steps": stats["steps"], "turbo_launches": launches,
+        "recycled_lanes": {rid: lanes[rid] for rid in recycled},
+        "phase_ms_per_step": {k[:-2]: 1000.0 * v / nst for k, v in stats.items()
+                              if k.endswith("_s")},
+    }))
+    require(len(recycled) == 2, f"late turbo requests did not take recycled lanes: {lanes}")
+    require(launches == stats["steps"] * CHUNK,
+            f"turbo_step launched {launches} times in {stats['steps']} chunks")
+    rep = min((r for r in requests if r["temperature"] > 0 and r["id"] in recycled),
+              key=lambda r: r["n_samples"])
+    rep_out, _, _, _ = serve_pool(params, arch, [rep], 1, first_wave=1, engine="turbo")
+    same = np.array_equal(rep_out[rep["id"]], out[rep["id"]])
+    log(json.dumps({"phase": "turbo_replay", "request": rep["id"],
+                    "temperature": rep["temperature"], "bit_identical": same}))
+    require(same, f"turbo replay of {rep['id']} on a dedicated session differs")
+    cli_serve(params, arch, requests, out, "turbo", TURBO_POOL, gpu)
     return launches
 
 
@@ -532,6 +744,19 @@ def train_inputs(arch, seed: int):
     return torch.from_numpy(h0).cuda(), torch.from_numpy(g).cuda()
 
 
+def frontend_inputs(arch, seed: int):
+    """Numpy-seeded frontend inputs on the card: classes (B, T) and an h0
+    cotangent (B, T, C)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = arch.receptive_field - 1 + TRAIN_W
+    x = rng.integers(0, arch.quant_channels, (TRAIN_B, t)).astype(np.int32)
+    dh = rng.standard_normal((TRAIN_B, t, arch.residual_channels), dtype=np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(dh).cuda()
+
+
 def post_inputs(arch, seed: int):
     """Numpy-seeded post-loss inputs on the card: skip (B, T, S), targets
     and a mask with a file start inside the window."""
@@ -555,11 +780,33 @@ def phase_train_kernels(params, arch, gpu):
     import torch
 
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
     from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
     from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
     dt = compute_dtype(arch)
     report = dict.fromkeys(TRAIN_COUNTERS, 0.0)
+    x, dh = frontend_inputs(arch, 10)
+    leaves = {"embed": params["embed"].detach().clone().requires_grad_(True),
+              "w": params["input_conv"]["w"].detach().clone().requires_grad_(True),
+              "b": params["input_conv"]["b"].detach().clone().requires_grad_(True)}
+    h = F.fused_frontend(leaves["embed"], {"w": leaves["w"], "b": leaves["b"]}, x,
+                         compute_dtype=arch.compute_dtype)
+    (h * dh).sum().backward()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        plain = [leaves[k].detach() for k in ("embed", "w", "b")]
+        hp = F.frontend_fwd_plain(*plain, x, dt)
+        gp = dict(zip(("embed", "w", "b"), F.frontend_bwd_plain(plain[0], plain[1], x, dt, dh)))
+    errs = {"h0": rel_err(h.detach(), hp), **{f"d_{k}": rel_err(leaves[k].grad, gp[k])
+                                              for k in gp}}
+    log(json.dumps({"phase": "frontend_vs_plain", "gpu": gpu, "B": TRAIN_B, "T": x.shape[1],
+                    "rel_err": errs, "rtol": KERNEL_RTOL}))
+    require(max(errs.values()) <= KERNEL_RTOL, f"frontend differs: {errs}")
+    report["frontend_fwd"] = abs_err(h.detach(), hp)
+    report["frontend_bwd"] = max(abs_err(leaves[k].grad, gp[k]) for k in gp)
+    del h, hp, gp, leaves, x, dh
+
     h0, g = train_inputs(arch, 11)
     for tapcat in (False, True):
         lp = {k: v.detach().clone().requires_grad_(True) for k, v in params["layers"].items()}
@@ -609,17 +856,21 @@ def phase_train_kernels(params, arch, gpu):
     return report
 
 
-TRAIN_COUNTERS = ("train_stack_fwd", "train_stack_bwd", "post_loss_fwd", "post_loss_bwd")
+TRAIN_COUNTERS = ("frontend_fwd", "frontend_bwd", "train_stack_fwd", "train_stack_bwd",
+                  "post_loss_fwd", "post_loss_bwd")
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Route the training kernels' wrappers to their plain versions (same
     signatures) for a reference run on the card."""
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
     from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
     from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
-    swaps = [(TS, "train_stack_fwd", TS.stack_fwd_plain),
+    swaps = [(F, "frontend_fwd", F.frontend_fwd_plain),
+             (F, "frontend_bwd", F.frontend_bwd_plain),
+             (TS, "train_stack_fwd", TS.stack_fwd_plain),
              (TS, "train_stack_bwd", TS.stack_bwd_plain),
              (PL, "post_loss_fwd", PL.post_loss_plain),
              (PL, "post_loss_bwd", PL.post_loss_bwd_plain)]
@@ -645,16 +896,44 @@ def leaf_errs(got: dict, want: dict, prefix: str = "") -> dict:
 
 
 def train_counters():
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
     from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
     from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
-    return {"train_stack_fwd": TS.train_stack_fwd, "train_stack_bwd": TS.train_stack_bwd,
+    return {"frontend_fwd": F.frontend_fwd, "frontend_bwd": F.frontend_bwd,
+            "train_stack_fwd": TS.train_stack_fwd, "train_stack_bwd": TS.train_stack_bwd,
             "post_loss_fwd": PL.post_loss_fwd, "post_loss_bwd": PL.post_loss_bwd}
 
 
+@contextlib.contextmanager
+def no_plain_frontend():
+    """Fail if the training step runs the frontend as plain PyTorch: the
+    unfused input_frontend or the kernel pair's plain versions."""
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    real = PT.input_frontend
+
+    def fused_only(params, arch, x, dt, fused_frontend=False):
+        require(fused_frontend, "the training step ran the unfused frontend")
+        return real(params, arch, x, dt, fused_frontend)
+
+    def refuse(*_):
+        raise SmokeFailure("the training step ran the frontend's plain version")
+
+    saved = (F.frontend_fwd_plain, F.frontend_bwd_plain)
+    PT.input_frontend, F.frontend_fwd_plain, F.frontend_bwd_plain = fused_only, refuse, refuse
+    try:
+        yield
+    finally:
+        PT.input_frontend = real
+        F.frontend_fwd_plain, F.frontend_bwd_plain = saved
+
+
 def phase_training(arch, gpu):
-    """run_training at WaveNet-30 (the main training path), then the fixed
-    state checks, a resume and the CLI."""
+    """run_training at WaveNet-30 with the recipe as written (the main
+    training path), then the fixed state checks, a resume, evaluation and
+    the CLI."""
     import dataclasses
     import io
     import statistics
@@ -670,10 +949,9 @@ def phase_training(arch, gpu):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     cfg = Config.load(os.path.join(ROOT, "configs", "wavenet30.json"))
-    train = dataclasses.replace(
-        cfg.train, fused_frontend=False, n_steps=TRAIN_STEPS, log_every=1,
-        checkpoint_every=0, checkpoint_dir=os.path.join(work, "ckpt"))
-    require(train.fused_stack and train.tapcat and train.fused_post
+    train = dataclasses.replace(cfg.train, n_steps=TRAIN_STEPS, log_every=1,
+                                checkpoint_every=0, checkpoint_dir=os.path.join(work, "ckpt"))
+    require(train.fused_frontend and train.fused_stack and train.tapcat and train.fused_post
             and (train.batch_size, train.window_size) == (TRAIN_B, TRAIN_W),
             "wavenet30.json no longer holds the training settings this phase drives")
     cfg = dataclasses.replace(cfg, train=train)
@@ -685,7 +963,7 @@ def phase_training(arch, gpu):
         out = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), no_plain_frontend():
             state = PT.run_training(cfg, corpus=corpus, device="cuda")
         wall = time.perf_counter() - t0
         launches = {k: f.launches for k, f in counters.items()}
@@ -694,8 +972,8 @@ def phase_training(arch, gpu):
         step_ms = [r["step_time_ms"] for r in recs]
         ms = statistics.median(step_ms[1:])
         L = len(arch.dilations)
-        per_step = {"train_stack_fwd": L + 1, "train_stack_bwd": 3 * L + 1,
-                    "post_loss_fwd": 2, "post_loss_bwd": 3}
+        per_step = {"frontend_fwd": 1, "frontend_bwd": 4, "train_stack_fwd": L + 1,
+                    "train_stack_bwd": 3 * L + 1, "post_loss_fwd": 2, "post_loss_bwd": 3}
         log(json.dumps({
             "phase": "training", "gpu": gpu, "B": TRAIN_B, "W": TRAIN_W,
             "T": arch.receptive_field - 1 + TRAIN_W, "steps": state.step,
@@ -711,16 +989,20 @@ def phase_training(arch, gpu):
             require(launches[k] == n * TRAIN_STEPS,
                     f"{k}: {launches[k]} launches in {TRAIN_STEPS} steps, expected {n} per step")
 
+        phase_step_breakdown(cfg, corpus, gpu)
+
         # The same step at a fixed state: through the kernels, through their
         # plain versions, and as the unfused PyTorch step (autograd of the
-        # plain forward); and grad_accum=2 against the one-shot step.
+        # plain forward, frontend included); and grad_accum=2 against the
+        # one-shot step.
         batch = PT.batch_to_device(next(make_batches(corpus, train, start_step=5)), "cuda")
         fixed = PT.init_state(1, arch, train, "cuda").params
         loss_k, g_k = PT.value_and_grads(fixed, batch, arch, train)
         with plain_kernels():
             loss_pk, g_pk = PT.value_and_grads(fixed, batch, arch, train)
         loss_u, g_u = PT.value_and_grads(
-            fixed, batch, arch, dataclasses.replace(train, fused_stack=False, fused_post=False))
+            fixed, batch, arch, dataclasses.replace(train, fused_stack=False, fused_post=False,
+                                                    fused_frontend=False))
         loss_a, g_a = PT.value_and_grads(
             fixed, batch, arch, dataclasses.replace(train, grad_accum=2))
         torch.cuda.synchronize()
@@ -759,18 +1041,25 @@ def phase_training(arch, gpu):
         require(again.step == TRAIN_STEPS and same and relaunched == 0,
                 "the resumed run did not restore the final checkpoint as it was")
 
-        # The CLI: train 2 steps from a directory of wavs, serve from it.
-        wavs = os.path.join(work, "wavs")
+        held_out = synthetic_corpus(arch, TRAIN_W, n_files=2, file_len=40000, seed=1)
+        phase_eval(cfg, state, held_out, work, gpu)
+
+        # The CLI: train 2 steps from a directory of wavs, serve and evaluate
+        # from it.
+        wavs, eval_wavs = os.path.join(work, "wavs"), os.path.join(work, "eval_wavs")
         os.makedirs(wavs)
+        os.makedirs(eval_wavs)
         for i in range(4):
             write_wav(os.path.join(wavs, f"{i}.wav"), corpus.waves[i], arch.sample_rate)
+        for i, w in enumerate(held_out.waves):
+            write_wav(os.path.join(eval_wavs, f"{i}.wav"), w, arch.sample_rate)
         ckpt = os.path.join(work, "cli_ckpt")
         base = [sys.executable, "-m", "lb_wavenet_tpu_torch.cli"]
         conf = ["--config", os.path.join(ROOT, "configs", "wavenet30.json")]
         proc = subprocess.run(
             base + ["train", *conf, "--set", f"train.data_dir={wavs}",
                     "--set", f"train.checkpoint_dir={ckpt}", "--set", "train.n_steps=2",
-                    "--set", "train.log_every=1", "--set", "train.fused_frontend=false"],
+                    "--set", "train.log_every=1"],
             capture_output=True, text=True, cwd=ROOT, timeout=600)
         require(proc.returncode == 0, f"CLI train failed:\n{proc.stderr[-4000:]}")
         cli_losses = [json.loads(ln)["loss"] for ln in proc.stdout.splitlines()
@@ -788,21 +1077,147 @@ def phase_training(arch, gpu):
         require(proc.returncode == 0, f"CLI serve failed:\n{proc.stderr[-4000:]}")
         summary = json.loads(proc.stdout.strip().splitlines()[-1])
         served = sorted(os.listdir(os.path.join(work, "wav_out")))
-        log(json.dumps({"phase": "cli_train_then_serve", "train_losses": cli_losses,
-                        "served": summary["served"], "wavs": served}))
+        proc = subprocess.run(
+            base + ["eval", *conf, "--data-dir", eval_wavs, "--set", f"gen.checkpoint_dir={ckpt}"],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        require(proc.returncode == 0, f"CLI eval failed:\n{proc.stderr[-4000:]}")
+        cli_eval = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(json.dumps({"phase": "cli_train_then_serve_and_eval", "train_losses": cli_losses,
+                        "served": summary["served"], "wavs": served, "eval": cli_eval}))
         require(len(cli_losses) == 2 and summary["served"] == 2
                 and served == ["t0.wav", "t1.wav"], "CLI train/serve did not complete")
+        require(cli_eval["n_windows"] == len(held_out.index) and 0 < cli_eval["nll"] < 10,
+                f"CLI eval: {cli_eval}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches, {"step_ms": ms, "samples_per_s": TRAIN_B * TRAIN_W / (ms / 1000.0)}
 
 
+def phase_step_breakdown(cfg, corpus, gpu):
+    """Where a training step's time goes: after a warm-up, STEP_PARTS steps
+    as run_training runs them (prefetched batches) with CUDA events around
+    the batch copy, the forward, the backward and Adam + EMA, and the host
+    clock around each whole step; then one torch.profiler trace (device
+    activity only) of two steps: device time of the port's kernels
+    (namespace wn) and of every other kernel, and the largest others. The
+    idle share is 1 - device busy time / step wall time."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.data import make_batches, prefetch
+
+    arch, train = cfg.arch, cfg.train
+    batches = prefetch(make_batches(corpus, train))
+    state = PT.init_state(2, arch, train, "cuda")
+
+    def step(events=None):
+        nonlocal state
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        mark(0)
+        batch = PT.batch_to_device(next(batches), "cuda")
+        mark(1)
+        params = PT.tree_map(lambda p: p.detach().requires_grad_(True), state.params)
+        num, den = PT.loss_sums_fn(params, arch, train.window_size, batch, train)
+        loss = num / torch.clamp(den, min=1.0)
+        mark(2)
+        grads = PT._grad(loss, params)
+        mark(3)
+        state = PT._apply_updates(state, grads, train)
+        mark(4)
+
+    try:
+        for _ in range(2):
+            step()
+        parts = {"batch_copy": [], "forward": [], "backward": [], "adam_ema": []}
+        wall = []
+        for _ in range(STEP_PARTS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(ev)
+            torch.cuda.synchronize()
+            wall.append(1000.0 * (time.perf_counter() - t0))
+            for i, k in enumerate(parts):
+                parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        batches.close()
+    ms = {k: statistics.median(v) for k, v in parts.items()}
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 2000.0
+    ours = sum(v for k, v in kernels.items() if "wn::" in k)
+    other = {k: v for k, v in kernels.items() if "wn::" not in k}
+    busy = ours + sum(other.values())
+    step_ms = statistics.median(wall)
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:10]
+    log(json.dumps({
+        "phase": "training_step_breakdown", "gpu": gpu, "steps": STEP_PARTS,
+        "device_ms_per_step": ms, "step_wall_ms": step_ms,
+        "profile_device_ms_per_step": {"port_kernels": ours,
+                                       "other_kernels": sum(other.values()),
+                                       "busy": busy},
+        "idle_share": (1.0 - busy / step_ms) if busy else "not measured",
+        "top_other_kernels_ms_per_step": [[k[:90], v] for k, v in top],
+    }))
+
+
+def phase_eval(cfg, state, held_out, work, gpu):
+    """evaluate() of the trained params on a held-out corpus, through the
+    fused stack and the plain forward, then a short run_training with
+    in-training eval records (params and EMA)."""
+    import dataclasses
+    import io
+
+    import torch
+
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.eval import evaluate
+
+    arch, train = cfg.arch, cfg.train
+    t0 = time.perf_counter()
+    fused = evaluate(state.params, arch, held_out, train.batch_size, fused=True, tapcat=True)
+    fused_s = time.perf_counter() - t0
+    plain = evaluate(state.params, arch, held_out, train.batch_size)
+    gap = abs(fused["nll"] - plain["nll"])
+    ev_train = dataclasses.replace(train, n_steps=2, eval_every=1, eval_batches=1,
+                                   ema_decay=0.999,
+                                   checkpoint_dir=os.path.join(work, "eval_ckpt"))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run = PT.run_training(dataclasses.replace(cfg, train=ev_train), corpus=held_out,
+                              eval_corpus=held_out, device="cuda")
+    recs = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    evals = [r for r in recs if "eval_nll" in r]
+    again = evaluate(run.params, arch, held_out, train.batch_size, max_batches=1, fused=True,
+                     tapcat=True)
+    log(json.dumps({"phase": "eval", "gpu": gpu, "windows": len(held_out.index),
+                    "fused": fused, "plain": plain, "fused_vs_plain_nll": gap,
+                    "fused_wall_s": fused_s, "in_training": evals,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    require(fused["n_windows"] == len(held_out.index) and 0 < fused["nll"] < 10,
+            f"bad eval metrics: {fused}")
+    require(gap <= EVAL_NLL_ATOL, f"fused and plain eval differ by {gap} nats")
+    require([r["step"] for r in evals] == [1, 2]
+            and all("eval_ema_nll" in r and "eval_accuracy" in r for r in evals)
+            and evals[-1]["eval_nll"] == again["nll"],
+            f"in-training eval records: {evals}")
+
+
 def train_timings(params, arch):
-    """{name: (ms, plain ms, (bytes, flops))} of the four training kernels
+    """{name: (ms, plain ms, (bytes, flops))} of the six training kernels
     at the training shapes (tapcat on, as wavenet30.json trains)."""
     import torch
 
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
     from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
     from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
@@ -810,9 +1225,20 @@ def train_timings(params, arch):
     wbytes = torch.finfo(dt).bits // 8
     counts = {k: f.launches for k, f in train_counters().items()}
     lp, dils = params["layers"], arch.dilations
-    h0, g = train_inputs(arch, 13)
-    t = h0.shape[1]
     out = {}
+    x, dh = frontend_inputs(arch, 15)
+    t = x.shape[1]
+    front = (params["embed"], params["input_conv"]["w"], params["input_conv"]["b"])
+    out["frontend_fwd"] = (
+        cuda_ms(lambda: F.frontend_fwd(*front, x, dt), 20),
+        cuda_ms(lambda: F.frontend_fwd_plain(*front, x, dt), 5),
+        frontend_cost(arch, TRAIN_B, t, False))
+    out["frontend_bwd"] = (
+        cuda_ms(lambda: F.frontend_bwd(front[0], front[1], x, dt, dh), 20),
+        cuda_ms(lambda: F.frontend_bwd_plain(front[0], front[1], x, dt, dh), 5),
+        frontend_cost(arch, TRAIN_B, t, True))
+    del x, dh
+    h0, g = train_inputs(arch, 13)
     _, z, x = TS.train_stack_fwd(lp, h0, dils, dt, True)
     out["train_stack_fwd"] = (
         cuda_ms(lambda: TS.train_stack_fwd(lp, h0, dils, dt, True), 5),
@@ -844,7 +1270,7 @@ def phase_timing(params, arch, errs, launches, gpu):
 
     from lb_wavenet_tpu_torch.generate import _fused_frontend_zero
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
-    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_step
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_step, ar_turbo
 
     wbytes = torch.finfo(compute_dtype(arch)).bits // 8
     lp = params["layers"]
@@ -873,6 +1299,20 @@ def phase_timing(params, arch, errs, launches, gpu):
     mega_plain = 1000 * (time.perf_counter() - t0)
     ar_mega.mega_generate.launches = counts
 
+    # turbo: ms per step (one launch), from 64-step runs; lanes as the pool's.
+    state = {"bufs": torch.zeros((sum(arch.dilations), B, arch.residual_channels),
+                                 device="cuda"), "h": h0.clone(), "e": e0.clone()}
+    counts = ar_turbo.turbo_step.launches
+    n = 64
+    turbo_ms = cuda_ms(lambda: ar_turbo.turbo_generate_cuda(
+        params, lp, arch, state, 0, free[:n], 1.0, False, lane, 0), 3) / n
+    t0 = time.perf_counter()
+    ar_turbo.turbo_generate_plain(params, lp, arch, state, 0, free[:8], 1.0, False, lane, 0)
+    torch.cuda.synchronize()
+    turbo_plain = 1000 * (time.perf_counter() - t0) / 8
+    ar_turbo.turbo_step.launches = counts
+    del state
+
     trained = train_timings(params, arch)
     kernels = []
     for name, src, rep, ms, plain, cost in (
@@ -882,6 +1322,13 @@ def phase_timing(params, arch, errs, launches, gpu):
         ("fused_stack", "lb_wavenet_tpu_torch/csrc/ar_step.cu",
          "lb_wavenet_tpu/ops/pallas/ar_step.py:105", stack_ms, stack_plain,
          stack_cost(arch, B, wbytes)),
+        ("turbo_step", "lb_wavenet_tpu_torch/csrc/ar_turbo.cu",
+         "lb_wavenet_tpu/ops/pallas/ar_turbo.py:35", turbo_ms, turbo_plain,
+         turbo_cost(arch, B, 3, wbytes)),
+        ("frontend_fwd", "lb_wavenet_tpu_torch/csrc/frontend.cu",
+         "lb_wavenet_tpu/ops/pallas/frontend.py:71", *trained["frontend_fwd"]),
+        ("frontend_bwd", "lb_wavenet_tpu_torch/csrc/frontend.cu",
+         "lb_wavenet_tpu/ops/pallas/frontend.py:120", *trained["frontend_bwd"]),
         ("train_stack_fwd", "lb_wavenet_tpu_torch/csrc/train_stack.cu",
          "lb_wavenet_tpu/ops/pallas/train_stack.py:580", *trained["train_stack_fwd"]),
         ("train_stack_bwd", "lb_wavenet_tpu_torch/csrc/train_stack.cu",
@@ -901,7 +1348,10 @@ def phase_timing(params, arch, errs, launches, gpu):
     train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
                    "tapcat": True}
     log(json.dumps({"phase": "shapes", "gpu": gpu, "mega_generate": {"B": B, "T": CHUNK, "lane_rows": 3},
-                    "fused_stack": {"B": B, "steps": 1}, "train_stack_fwd": train_shape,
+                    "fused_stack": {"B": B, "steps": 1},
+                    "turbo_step": {"B": B, "steps": 1, "lane_rows": 3, "ms": "per step"},
+                    "frontend_fwd": train_shape, "frontend_bwd": train_shape,
+                    "train_stack_fwd": train_shape,
                     "train_stack_bwd": train_shape, "post_loss_fwd": train_shape,
                     "post_loss_bwd": train_shape}))
     log(json.dumps({"kernels": kernels}))
@@ -930,9 +1380,11 @@ def main() -> int:
         arch = Config.load(os.path.join(ROOT, "configs", "wavenet30.json")).arch
         params = params_from_jax(numpy_params(arch, 0), device="cuda")
         errs = phase_kernels(params, arch, gpu)
+        errs.update(phase_turbo_kernels(params, arch, gpu))
         errs.update(phase_train_kernels(params, arch, gpu))
         launches = {"mega_generate": phase_serving(params, arch, gpu),
-                    "fused_stack": phase_pallas_engine(params, arch, gpu)}
+                    "fused_stack": phase_pallas_engine(params, arch, gpu),
+                    "turbo_step": phase_turbo_serving(params, arch, gpu)}
         train_launches, _ = phase_training(arch, gpu)
         launches.update(train_launches)
         phase_timing(params, arch, errs, launches, gpu)

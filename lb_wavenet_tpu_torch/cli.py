@@ -1,21 +1,25 @@
-"""Command-line entry points of the port: `train`, `serve --requests` and
-`generate` (the unconditioned, single-device parts of `lb_wavenet_tpu/cli.py`).
+"""Command-line entry points of the port: `train`, `eval`, `serve --requests`
+and `generate` (the unconditioned, single-device parts of
+`lb_wavenet_tpu/cli.py`).
 
     python -m lb_wavenet_tpu_torch.cli train --config configs/wavenet30.json \
-        --set train.data_dir=/data/wavs --set train.fused_frontend=false
+        --set train.data_dir=/data/wavs
+    python -m lb_wavenet_tpu_torch.cli eval --config configs/wavenet30.json \
+        --data-dir /data/heldout --set gen.checkpoint_dir=/ckpt
     python -m lb_wavenet_tpu_torch.cli serve --config configs/wavenet30.json \
         --requests requests.jsonl --set gen.checkpoint_dir=/ckpt
     python -m lb_wavenet_tpu_torch.cli generate --config configs/wavenet30.json \
-        --set gen.batch_size=8 --set gen.n_samples=16000
+        --set gen.batch_size=8 --set gen.n_samples=16000 --set gen.engine=turbo
 
 `--set section.key=value` overrides any config field (values parsed as JSON,
 falling back to string). `--device` defaults to `cuda`; pass `--device cpu`
 to run the plain PyTorch paths. `train` writes its checkpoints to
 train.checkpoint_dir and resumes from them; `generate`/`serve` read the
 params of the latest checkpoint in gen.checkpoint_dir (a training directory
-or `utils.checkpoint.save_params` files). The other subcommands (eval, info,
-export, warm, pack), `train --profile` and the serving options (--listen,
---artifact, --mesh-model, mel/speaker requests) are ROADMAP.md items.
+or `utils.checkpoint.save_params` files), and so does `eval`. The other
+subcommands (info, export, warm, pack), `train --profile` and the serving
+options (--listen, --artifact, --mesh-model, mel/speaker requests) are
+ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -86,7 +90,7 @@ def _read_requests(path: str, cfg):
             if "mel" in r or "speaker" in r:
                 raise SystemExit(
                     f"{path}:{ln}: mel/speaker requests are not ported yet "
-                    "(ROADMAP.md A9)"
+                    "(ROADMAP.md A queue item 4)"
                 )
             if seed is not None and cfg.gen.global_rng:
                 raise SystemExit(
@@ -112,6 +116,26 @@ def cmd_train(args) -> int:
 
     state = run_training(_load_config(args), device=args.device)
     print(json.dumps({"trained_to_step": int(state.step)}), flush=True)
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Held-out teacher-forced evaluation (eval.py) of the latest checkpoint
+    in gen.checkpoint_dir: one JSON line of metrics."""
+    cfg = _load_config(args)
+    from .data import load_corpus
+    from .eval import evaluate
+    from .utils.checkpoint import restore_params
+
+    params = restore_params(cfg.gen.checkpoint_dir, prefer_ema=args.ema)
+    data_dir = args.data_dir or cfg.train.eval_dir or cfg.train.data_dir
+    if not data_dir:
+        raise SystemExit("eval needs --data-dir or train.eval_dir/data_dir")
+    corpus = load_corpus(data_dir, cfg.arch, cfg.train.window_size)
+    metrics = evaluate(params, cfg.arch, corpus,
+                       cfg.train.eval_batch_size or cfg.train.batch_size,
+                       max_batches=cfg.train.eval_batches, device=args.device)
+    print(json.dumps(metrics), flush=True)
     return 0
 
 
@@ -279,6 +303,12 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_train = sub.add_parser("train", help="teacher-forced training")
     _add_common(p_train)
+    p_eval = sub.add_parser("eval", help="held-out teacher-forced metrics")
+    _add_common(p_eval)
+    p_eval.add_argument("--data-dir", default="",
+                        help="eval corpus (default: train.eval_dir, then train.data_dir)")
+    p_eval.add_argument("--ema", action="store_true",
+                        help="evaluate the checkpoint's EMA params")
     p_gen = sub.add_parser("generate", help="batched AR synthesis")
     _add_common(p_gen)
     p_gen.add_argument(
@@ -310,7 +340,8 @@ def main(argv=None) -> int:
         "and fetch each request once at completion",
     )
     args = parser.parse_args(argv)
-    return {"train": cmd_train, "generate": cmd_generate, "serve": cmd_serve}[args.cmd](args)
+    return {"train": cmd_train, "eval": cmd_eval, "generate": cmd_generate,
+            "serve": cmd_serve}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -79,6 +79,8 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
   const T* w2 = static_cast<const T*>(a.w2);
   const T* emb = static_cast<const T*>(a.emb);
   const T* w_in = static_cast<const T*>(a.w_in);
+  // The global counter hash runs over (q, b) feature-major: q * B + b.
+  const Sampler sp = {a.lane, a.lane_rows, a.mode, a.seed_base, a.inv_temp, B, 1};
 
   // Load the carry of this tile.
   for (int i = threadIdx.x; i < C * TB; i += NT) {
@@ -158,87 +160,13 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
       if (d == 1) ++i1;
     }
 
-    // Post network: logits = relu(relu(skip) @ w1 + b1) @ w2 + b2.
-    for (int i = threadIdx.x; i < S * TB; i += NT) ar[i] = rnd<T>(fmaxf(skip[i], 0.f));
-    __syncthreads();
-    block_mm(w1, S, S, S, ar, [&](int m, int j, float acc) {
-      hid[m * TB + j] = rnd<T>(fmaxf(acc + a.b1[m], 0.f));
-    });
-    __syncthreads();
-    block_mm(w2, Q, Q, S, hid, [&](int m, int j, float acc) {
-      const float v = acc + a.b2[m];
-      lg[m * TB + j] = v;
+    // Post network, sampling, then the next step's frontend (common.cuh).
+    post_logits(skip, ar, hid, lg, w1, a.b1, w2, a.b2, S, Q, [&](int m, int j, float v) {
       if (a.logits) a.logits[((size_t)t * Q + m) * B + b0 + j] = v;
     });
-    __syncthreads();
-
-    // Sampling: one warp per lane, first-max argmax over the Q scores.
-    const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
-    for (int j = warp; j < TB; j += NT / 32) {
-      const int b = b0 + j;
-      float best = -INFINITY;
-      int bq = Q;
-      for (int q = lid; q < Q; q += 32) {
-        const float v = lg[q * TB + j];
-        float s = v;
-        if (a.mode == 1) {
-          const uint32_t seed = (uint32_t)a.lane[b];
-          const uint32_t tl = (uint32_t)(t_abs - a.lane[B + b]);
-          const float g = gumbel(mix32(seed + tl * 0x9E3779B9u + (uint32_t)q * 0x7FEB352Du));
-          if (a.lane_rows == 3) {
-            const float inv = __int_as_float(a.lane[2 * B + b]);
-            s = inv > 0.f ? __fadd_rn(__fmul_rn(v, inv), g) : v;
-          } else {
-            s = __fadd_rn(__fmul_rn(v, a.inv_temp), g);
-          }
-        } else if (a.mode == 2) {
-          const uint32_t ctr = (uint32_t)q * (uint32_t)B + (uint32_t)b;
-          const uint32_t seed = (uint32_t)(a.seed_base + t_abs);
-          s = __fadd_rn(__fmul_rn(v, a.inv_temp), gumbel(mix32(seed + ctr * 0x9E3779B9u)));
-        }
-        if (s > best) { best = s; bq = q; }  // q rises: keeps the first max
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oq = __shfl_xor_sync(0xffffffffu, bq, o);
-        if (ob > best || (ob == best && oq < bq)) { best = ob; bq = oq; }
-      }
-      if (lid == 0) {
-        const int f = a.forced[(size_t)t * B + b];
-        const int c = f >= 0 ? f : bq;
-        cls[j] = c;
-        a.classes[(size_t)t * B + b] = c;
-      }
-    }
-    __syncthreads();
-
-    // Next step's frontend: e = emb[cls] (compute dtype), then
-    // h = (b_in + e @ w_in[K-1]) + sum_j e_s[j] @ w_in[j], and shift the stack.
-    for (int i = threadIdx.x; i < C * TB; i += NT) {
-      const int c = i / TB, j = i % TB;
-      er[i] = to_f(emb[(size_t)cls[j] * C + c]);
-    }
-    __syncthreads();
-    block_mm(w_in + (size_t)(K - 1) * C * C, C, C, C, er, [&](int m, int j, float acc) {
-      x[m * TB + j] = a.b_in[m] + acc;
-    });
-    __syncthreads();
-    for (int p = 0; p < K - 1; ++p) {
-      // The rounded past embedding goes through xr (free until next step).
-      for (int i = threadIdx.x; i < C * TB; i += NT) xr[i] = rnd<T>(es[p * C * TB + i]);
-      __syncthreads();
-      block_mm(w_in + (size_t)p * C * C, C, C, C, xr, [&](int m, int j, float acc) {
-        x[m * TB + j] = x[m * TB + j] + acc;
-      });
-      __syncthreads();
-    }
-    if (K > 1) {
-      for (int i = threadIdx.x; i < C * TB; i += NT) {
-        for (int p = 0; p < K - 2; ++p) es[p * C * TB + i] = es[(p + 1) * C * TB + i];
-        es[(K - 2) * C * TB + i] = er[i];
-      }
-      __syncthreads();
-    }
+    sample_tile(lg, sp, B, b0, Q, t_abs, a.forced + (size_t)t * B, cls,
+                a.classes + (size_t)t * B);
+    next_frontend(x, xr, es, er, cls, emb, w_in, a.b_in, C, K);
   }
 
   // Export the carry: next step's h and the embedding stack.

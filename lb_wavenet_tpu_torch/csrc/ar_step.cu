@@ -45,10 +45,6 @@ __global__ void __launch_bounds__(NT) stack_kernel(StackArgs a) {
   float* zr = pre + 2 * G * TB;  // [G][TB] rounded gate output
   float* skip = zr + G * TB;     // [S][TB]
   const int b0 = blockIdx.x * TB;
-  const T* w_cur = static_cast<const T*>(a.w_cur);
-  const T* w_prev = static_cast<const T*>(a.w_prev);
-  const T* w_res = static_cast<const T*>(a.w_res);
-  const T* w_skip = static_cast<const T*>(a.w_skip);
 
   for (int i = threadIdx.x; i < C * TB; i += NT) {
     const int j = i / C, c = i % C, b = b0 + j;
@@ -60,42 +56,10 @@ __global__ void __launch_bounds__(NT) stack_kernel(StackArgs a) {
   int off = 0;
   for (int l = 0; l < a.L; ++l) {
     const int d = a.dils[l];
-    const int slot = off + a.t % d;
-    // Read the tap, then overwrite the same ring row with this layer's h.
-    for (int i = threadIdx.x; i < C * TB; i += NT) {
-      const int j = i / C, c = i % C, b = b0 + j;
-      const float h = x[c * TB + j];
-      float tap = 0.f;
-      if (b < B) {
-        float* p = a.bufs + ((size_t)slot * B + b) * C + c;
-        tap = *p;
-        *p = h;
-      }
-      xr[c * TB + j] = rnd<T>(h);
-      tr[c * TB + j] = rnd<T>(tap);
-    }
-    __syncthreads();
-    // pre = (h @ w_cur + tap @ w_prev) + b: two sums, as the JAX kernel.
-    block_mm(w_cur + (size_t)l * C * 2 * G, 2 * G, 2 * G, C, xr,
-             [&](int m, int j, float acc) { pre[m * TB + j] = acc; });
-    block_mm(w_prev + (size_t)l * C * 2 * G, 2 * G, 2 * G, C, tr,
-             [&](int m, int j, float acc) {
-               pre[m * TB + j] = (pre[m * TB + j] + acc) + a.b[l * 2 * G + m];
-             });
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * TB; i += NT) {
-      const float z = tanhf(pre[i]) * sigmoidf(pre[G * TB + i]);
-      zr[i] = rnd<T>(z);
-    }
-    __syncthreads();
-    // h = (h + z @ w_res) + b_res;  skip = (skip + z @ w_skip) + b_skip.
-    block_mm(w_res + (size_t)l * G * C, C, C, G, zr, [&](int m, int j, float acc) {
-      x[m * TB + j] = (x[m * TB + j] + acc) + a.b_res[l * C + m];
-    });
-    block_mm(w_skip + (size_t)l * G * S, S, S, G, zr, [&](int m, int j, float acc) {
-      skip[m * TB + j] = (skip[m * TB + j] + acc) + a.b_skip[l * S + m];
-    });
-    __syncthreads();
+    const LayerW<T> w = layer_w<T>(a.w_cur, a.w_prev, a.b, a.w_res, a.b_res, a.w_skip,
+                                   a.b_skip, l, C, G, S);
+    split_layer(w, a.bufs + (size_t)(off + a.t % d) * B * C, B, b0, C, G, S, x, xr, tr, pre,
+                zr, skip);
     off += d;
   }
   for (int i = threadIdx.x; i < S * TB; i += NT) {

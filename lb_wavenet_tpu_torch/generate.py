@@ -11,6 +11,8 @@ Engines:
   * engine="xla" — the plain PyTorch ring-buffer loop (the reference path).
   * engine="pallas" — the fused all-layer CUDA stack kernel per step
     (ops/cuda/ar_step.py) + post network and sampling in PyTorch.
+  * engine="turbo" — one CUDA kernel launch per sample step that runs the
+    whole step, sampling included (ops/cuda/ar_turbo.py); any batch.
   * engine="mega" — the whole generation loop in one CUDA kernel
     (ops/cuda/ar_mega.py); the serving default.
 
@@ -20,13 +22,13 @@ kernels' plain versions.
 
 Randomness: `rng` is an int seed (or a torch.Generator). The `xla`/`pallas`
 engines sample from a torch.Generator on the device (the JAX threefry chain
-is not reproduced); `mega` samples from the stateless per-lane counter hash,
-whose bits equal the JAX package's, so per-lane seeds replay across
-frameworks and devices.
+is not reproduced); `turbo` and `mega` sample from the stateless per-lane
+counter hash, whose bits equal the JAX package's, so per-lane seeds replay
+across frameworks and devices.
 
-Not ported yet (raise NotImplementedError, see ROADMAP.md): turbo,
-model_axis, cond/speaker_ids, and the TPU VMEM-ring layout
-WAVENET_MEGA_VMEM_D > 1.
+Not ported yet (raise NotImplementedError, see ROADMAP.md A): model_axis
+(A queue item 7), cond/speaker_ids (A queue item 4), and the TPU VMEM-ring
+layout WAVENET_MEGA_VMEM_D > 1.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from .models.wavenet import (
 )
 from .ops.cuda import ar_mega
 from .ops.cuda.ar_step import buffer_offsets, pallas_stack_step
+from .ops.cuda.ar_turbo import turbo_generate
 from .ops.cuda.ar_mega import (
     LANE_TILE, _M32, _mix32, _mul32, _u32, estack_feature_major,
     gumbel_from_bits, mega_generate, mega_zero_carry,
@@ -62,8 +65,8 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+def _not_ported(what: str, item: int):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A queue item {item})")
 
 
 class RingState(NamedTuple):
@@ -113,9 +116,9 @@ def stack_step(
     standing in for the d-shifted activations. Returns (new embed_buf,
     bufs (updated in place), logits)."""
     if cond_t is not None or gcond is not None:
-        raise _not_ported("conditioning", "A9")
+        raise _not_ported("conditioning", 4)
     if model_axis is not None:
-        raise _not_ported("model_axis", "A12")
+        raise _not_ported("model_axis", 7)
     dt = compute_dtype(arch)
     lp = params["layers"]
     h, new_embed_buf = input_step(params, arch, state.embed_buf, x_class)
@@ -202,8 +205,9 @@ def _pack_lane(lane_seed, lane_t0, lane_inv_temp=None):
 
 def _check_env():
     if int(os.environ.get("WAVENET_MEGA_VMEM_D", "1")) > 1:
-        raise _not_ported("the TPU VMEM-ring layout (WAVENET_MEGA_VMEM_D > 1)",
-                          "B2")
+        raise NotImplementedError(
+            "the TPU VMEM-ring layout (WAVENET_MEGA_VMEM_D > 1) is not ported "
+            "(ROADMAP.md B2)")
 
 
 def generate_classes(
@@ -227,17 +231,15 @@ def generate_classes(
 
     `forced` primes/teacher-forces: wherever forced[b, t] >= 0 the emitted
     class is overridden (the model still updates its state from it).
-    Engines: "xla" | "pallas" | "mega". mega samples
+    Engines: "xla" | "pallas" | "turbo" | "mega". turbo and mega sample
     by default from the per-lane hash with seeds derived from the session
-    seed; global_rng=True switches it to the batch-wide counter hash.
+    seed; global_rng=True switches them to the batch-wide counter hash.
     """
     _check_env()
     if cond is not None or speaker_ids is not None:
-        raise _not_ported("conditioning", "A9")
+        raise _not_ported("conditioning", 4)
     if model_axis is not None:
-        raise _not_ported("model_axis", "A12")
-    if engine == "turbo":
-        raise _not_ported("engine 'turbo'", "B6")
+        raise _not_ported("model_axis", 7)
     dev = resolve_device(device)
     params = params_to(params, dev)
     if forced is not None:
@@ -245,6 +247,11 @@ def generate_classes(
     b = int(batch)
     if engine == "mega":
         return _generate_classes_mega(
+            params, arch, rng, b, n_samples, forced, temperature,
+            return_logits, global_rng,
+        )
+    if engine == "turbo":
+        return _generate_classes_turbo(
             params, arch, rng, b, n_samples, forced, temperature,
             return_logits, global_rng,
         )
@@ -369,10 +376,35 @@ def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
     return out[:, 0, :b].t()
 
 
+def _generate_classes_turbo(params, arch, rng, b, n_samples, forced,
+                            temperature, return_logits, global_rng):
+    """One-shot turbo from the zero-class frontend and empty rings; per-lane
+    seeds derived from the session seed unless global_rng."""
+    dev = params["embed"].device
+    if forced is None:
+        forced_ts = torch.full((n_samples, b), -1, dtype=torch.int32, device=dev)
+    else:
+        forced_ts = forced[:, :n_samples].t()
+    h0, e0 = _fused_frontend_zero(params, arch, b)
+    state = {"bufs": torch.zeros((sum(arch.dilations), b, arch.residual_channels),
+                                 device=dev), "e": e0, "h": h0}
+    seed_base = _seed_base(rng)
+    lane = None
+    if temperature > 0.0 and not global_rng:
+        lane = torch.stack([derive_lane_seeds(seed_base, b, dev),
+                            torch.zeros((b,), dtype=torch.int32, device=dev)])
+    classes, logits = turbo_generate(params, params["layers"], arch, state, 0, forced_ts,
+                                     temperature, return_logits, lane, seed_base)
+    if return_logits:
+        return classes.t(), logits.transpose(0, 1)
+    return classes.t()
+
+
 class Stream(NamedTuple):
-    """Carried state of a streaming session: a RingState (xla/pallas) or a
-    {"carry", "seed_base"} dict (mega). Pass the SAME engine to every
-    stream_chunk of a session. Chunks update the state in place."""
+    """Carried state of a streaming session: a RingState (xla/pallas), a
+    {"bufs", "e", "h", "seed_base"} dict (turbo) or a {"carry",
+    "seed_base"} dict (mega). Pass the SAME engine to every stream_chunk of
+    a session. Chunks update the state in place."""
 
     state: object
     t: int  # absolute sample index of the next step
@@ -398,22 +430,26 @@ def padded_stream_batch(batch: int, engine: str) -> int:
 def start_stream(arch: ArchConfig, batch: int, rng: Rng, engine: str = "xla",
                  params: Optional[Params] = None,
                  model_axis: Optional[str] = None, device="cuda") -> Stream:
-    """Open a streaming session (see stream_chunk). mega needs `params` to
-    seed its carry and batch % MEGA_LANE_MULTIPLE == 0 (open it at
-    padded_stream_batch and slice the pad lanes off, as SessionPool does)."""
+    """Open a streaming session (see stream_chunk). turbo and mega need
+    `params` to seed their carry; mega needs batch % MEGA_LANE_MULTIPLE == 0
+    (open it at padded_stream_batch and slice the pad lanes off, as
+    SessionPool does), turbo streams at any batch."""
     _check_env()
     if model_axis is not None:
-        raise _not_ported("model_axis", "A12")
-    if engine == "turbo":
-        raise _not_ported("engine 'turbo'", "B6")
+        raise _not_ported("model_axis", 7)
     dev = resolve_device(device)
-    if engine == "mega":
+    if engine in ("mega", "turbo"):
         if params is None:
-            raise ValueError("start_stream(engine='mega') needs params")
+            raise ValueError(f"start_stream(engine='{engine}') needs params")
         params = params_to(params, dev)
         h0, e0 = _fused_frontend_zero(params, arch, batch)
-        state = {"carry": mega_zero_carry(arch, h0, e0),
-                 "seed_base": _seed_base(rng)}
+        if engine == "mega":
+            state = {"carry": mega_zero_carry(arch, h0, e0)}
+        else:
+            state = {"bufs": torch.zeros((sum(arch.dilations), batch,
+                                          arch.residual_channels), device=dev),
+                     "e": e0, "h": h0}
+        state["seed_base"] = _seed_base(rng)
         return Stream(state, 0)
     if engine not in ("xla", "pallas"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -445,15 +481,13 @@ def stream_chunk(
     logits (B, chunk, Q)], new_stream). The session state is updated in
     place; ring phase and sampling counters continue across chunks, so the
     concatenated output equals one generate_classes call of the same
-    length. mega defaults to per-lane seeds derived from the session seed
-    (lane time == absolute time); explicit lane_seed/lane_t0 override
-    them; global_rng=True uses the batch-wide counter hash."""
+    length. turbo and mega default to per-lane seeds derived from the
+    session seed (lane time == absolute time); explicit lane_seed/lane_t0
+    override them; global_rng=True uses the batch-wide counter hash."""
     if cond is not None or speaker_ids is not None:
-        raise _not_ported("conditioning", "A9")
+        raise _not_ported("conditioning", 4)
     if model_axis is not None:
-        raise _not_ported("model_axis", "A12")
-    if engine == "turbo":
-        raise _not_ported("engine 'turbo'", "B6")
+        raise _not_ported("model_axis", 7)
     if forced is not None and forced.shape[1] != chunk_size:
         raise ValueError(
             f"stream_chunk forced must be (B, {chunk_size}), got "
@@ -473,6 +507,8 @@ def stream_chunk(
     if engine == "mega":
         carry = stream.state["carry"]
         dev = carry["h_s"].device
+    elif engine == "turbo":
+        dev = stream.state["h"].device
     else:
         dev = stream.state.bufs.device
     params = params_to(params, dev)
@@ -482,12 +518,20 @@ def stream_chunk(
     if forced is not None:
         forced = torch.as_tensor(forced).to(dev, torch.int32)
 
+    if engine in ("mega", "turbo") and lane_seed is None and (
+            temperature > 0.0 and not global_rng):
+        # The one-shot default: per-lane hash, seeds derived from the session
+        # seed, lane time == absolute time (chunked output equals one-shot).
+        b_dev = carry["h_s"].shape[-1] if engine == "mega" else stream.state["h"].shape[0]
+        lane_seed = derive_lane_seeds(stream.state["seed_base"], b_dev, dev)
+        lane_t0 = torch.zeros((b_dev,), dtype=torch.int32, device=dev)
     if engine == "mega":
-        if lane_seed is None and temperature > 0.0 and not global_rng:
-            b_dev = carry["h_s"].shape[-1]
-            lane_seed = derive_lane_seeds(stream.state["seed_base"], b_dev, dev)
-            lane_t0 = torch.zeros((b_dev,), dtype=torch.int32, device=dev)
         return _mega_stream_chunk(
+            params, arch, stream, chunk_size, forced, temperature,
+            return_logits, lane_seed, lane_t0, lane_inv_temp,
+        )
+    if engine == "turbo":
+        return _turbo_stream_chunk(
             params, arch, stream, chunk_size, forced, temperature,
             return_logits, lane_seed, lane_t0, lane_inv_temp,
         )
@@ -547,6 +591,30 @@ def _mega_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
     return cls_bt, new_stream
 
 
+def _turbo_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
+                        temperature: float, return_logits: bool, lane_seed=None,
+                        lane_t0=None, lane_inv_temp=None):
+    """One turbo chunk: a launch per step at ABSOLUTE time stream.t + i
+    (ring slots and sampling counters follow absolute time, so chunked
+    output continues the one-shot sequence), carrying (rings, embedding
+    stack, h) between chunks in place."""
+    st = stream.state
+    b = st["h"].shape[0]
+    if forced is None:
+        forced_ts = torch.full((chunk_size, b), -1, dtype=torch.int32,
+                               device=st["h"].device)
+    else:
+        forced_ts = forced.t()
+    classes, logits = turbo_generate(
+        params, params["layers"], arch, st, stream.t, forced_ts, temperature,
+        return_logits, _pack_lane(lane_seed, lane_t0, lane_inv_temp), st["seed_base"],
+    )
+    new_stream = Stream(st, stream.t + chunk_size)
+    if return_logits:
+        return classes.t(), logits.transpose(0, 1), new_stream
+    return classes.t(), new_stream
+
+
 def reset_lanes(params: Params, arch: ArchConfig, stream: Stream,
                 lane_mask, engine: str = "xla",
                 model_axis: Optional[str] = None) -> Stream:
@@ -556,7 +624,7 @@ def reset_lanes(params: Params, arch: ArchConfig, stream: Stream,
     session at any global phase: a recycled lane's greedy/teacher-forced
     (and per-lane sampled) output equals a fresh session's."""
     if model_axis is not None:
-        raise _not_ported("model_axis", "A12")
+        raise _not_ported("model_axis", 7)
     # masked_fill_/where rather than boolean indexing: no host sync.
     if engine in ("xla", "pallas"):
         rs: RingState = stream.state
@@ -579,7 +647,15 @@ def reset_lanes(params: Params, arch: ArchConfig, stream: Stream,
         )
         return stream
     if engine == "turbo":
-        raise _not_ported("engine 'turbo'", "B6")
+        st = stream.state
+        dev = st["h"].device
+        mask = torch.as_tensor(lane_mask).to(dev, torch.bool)
+        params = params_to(params, dev)
+        h0, e0 = _fused_frontend_zero(params, arch, st["h"].shape[0])
+        st["bufs"].masked_fill_(mask[None, :, None], 0.0)
+        st["e"].copy_(torch.where(mask[None, :, None], e0, st["e"]))
+        st["h"].copy_(torch.where(mask[:, None], h0, st["h"]))
+        return stream
     raise ValueError(f"unknown engine {engine!r}")
 
 
@@ -608,7 +684,7 @@ def generate(params: Params, arch: ArchConfig, rng: Rng, batch: int,
     """Synthesize waveforms (B, n_samples) in [-1, 1]; `forced` primes the
     generator (forced[b, t] >= 0 is emitted and fed back, -1 free-runs)."""
     if cond_frames is not None:
-        raise _not_ported("conditioning", "A9")
+        raise _not_ported("conditioning", 4)
     classes = generate_classes(
         params, arch, rng, batch, n_samples, speaker_ids=speaker_ids,
         forced=forced, temperature=temperature, engine=engine,

@@ -58,7 +58,7 @@ def init_params(
     tests convert JAX parameters instead of relying on equal draws)."""
     if arch.use_local_cond or arch.use_global_cond:
         raise NotImplementedError(
-            "mel/speaker conditioning is not ported yet (ROADMAP.md A9)"
+            "mel/speaker conditioning is not ported yet (ROADMAP.md A queue item 4)"
         )
     gen = _generator(rng)
     L = len(arch.dilations)
@@ -142,9 +142,16 @@ def gated_layer(x, x_prev, layer_params: Params, i: int, dt):
     return res, _mm(z, lp["w_skip"][i], dt) + lp["b_skip"][i]
 
 
-def input_frontend(params: Params, arch: ArchConfig, x_classes, dt):
+def input_frontend(params: Params, arch: ArchConfig, x_classes, dt,
+                   fused_frontend: bool = False):
     """Embed classes and apply the width-K causal input conv:
-    (B, T) -> (B, T, C)."""
+    (B, T) -> (B, T, C). `fused_frontend` runs it (and its gradient) through
+    the frontend kernel pair (ops/cuda/frontend.py)."""
+    if fused_frontend:
+        from ..ops.cuda.frontend import fused_frontend as _ff
+
+        return _ff(params["embed"], params["input_conv"], x_classes,
+                   compute_dtype=arch.compute_dtype)
     e = params["embed"][x_classes.long()]
     w = params["input_conv"]["w"]  # (K, C, C), tap k applies to t-(K-1-k)
     k_taps = w.shape[0]
@@ -186,6 +193,7 @@ def forward(
     speaker_ids: Optional[torch.Tensor] = None,
     return_skip: bool = False,
     remat: bool = False,
+    fused_frontend: bool = False,
 ) -> torch.Tensor:
     """Teacher-forced forward: classes (B, T) -> logits (B, T, Q), or the
     skip sum (B, T, S) with return_skip.
@@ -194,15 +202,16 @@ def forward(
     sum is ONE stacked contraction over (layer, gate), as in the JAX
     forward, plus the constant bias sum_l b_skip[l]. `remat` recomputes
     each layer in the backward (torch.utils.checkpoint) instead of keeping
-    its activations.
+    its activations; `fused_frontend` runs the frontend through its kernel
+    pair.
     """
     if cond_frames is not None or speaker_ids is not None:
         raise NotImplementedError(
-            "mel/speaker conditioning is not ported yet (ROADMAP.md A9)"
+            "mel/speaker conditioning is not ported yet (ROADMAP.md A queue item 4)"
         )
     dt = compute_dtype(arch)
     lp = params["layers"]
-    h = input_frontend(params, arch, x_classes, dt)
+    h = input_frontend(params, arch, x_classes, dt, fused_frontend)
 
     def one_layer(h, i, d):
         return gated_unit(h, shift_right(h, d), lp, i, dt)

@@ -350,7 +350,7 @@ def mega_generate(
     sequence exactly. One-shot calls run from mega_zero_carry(h0, e0)."""
     if has_cond or cond_ts is not None:
         raise NotImplementedError(
-            "conditioned mega_generate waits for the mel slice (ROADMAP.md A9)"
+            "conditioned mega_generate waits for the mel slice (ROADMAP.md A queue item 4)"
         )
     if not streaming:
         carry = mega_zero_carry(arch, h0, e0)

@@ -83,7 +83,7 @@ def fused_stack(
     """Run all gated layers; returns (bufs, skip_sum (B, S) fp32)."""
     if cond_t is not None:
         raise NotImplementedError(
-            "conditioned fused_stack waits for the mel slice (ROADMAP.md A9)"
+            "conditioned fused_stack waits for the mel slice (ROADMAP.md A queue item 4)"
         )
     if h0.device.type == "cpu":
         return fused_stack_plain(lp, arch, h0, bufs, t)
@@ -137,10 +137,10 @@ def pallas_stack_step(
     """Drop-in replacement for generate.stack_step using fused_stack."""
     if cond_t is not None or gcond is not None:
         raise NotImplementedError(
-            "conditioning waits for the mel/speaker slice (ROADMAP.md A9)"
+            "conditioning waits for the mel/speaker slice (ROADMAP.md A queue item 4)"
         )
     if model_axis is not None:
-        raise NotImplementedError("model_axis waits for ROADMAP.md A12")
+        raise NotImplementedError("model_axis waits for ROADMAP.md A queue item 7")
     h, new_embed_buf = input_step(params, arch, state.embed_buf, x_class)
     bufs, skip = fused_stack(params["layers"], arch, h, state.bufs, t)
     return new_embed_buf, bufs, post_network(params, skip, compute_dtype(arch))

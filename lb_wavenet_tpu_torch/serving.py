@@ -14,7 +14,7 @@ batch to requests and recycles them in place as they finish.
     and gathered once per completed request (deliver="request").
 
 Not ported yet: frozen artifacts, model-sharded pools and mel/speaker
-requests (ROADMAP.md A9-A12).
+requests (ROADMAP.md A queue items 4, 5 and 7).
 """
 from __future__ import annotations
 
@@ -89,15 +89,15 @@ class SessionPool:
     ):
         if artifact is not None:
             raise NotImplementedError(
-                "serving artifacts are not ported yet (ROADMAP.md A11)"
+                "serving artifacts are not ported yet (ROADMAP.md A queue item 5)"
             )
         if mesh is not None:
             raise NotImplementedError(
-                "model-sharded pools are not ported yet (ROADMAP.md A12)"
+                "model-sharded pools are not ported yet (ROADMAP.md A queue item 7)"
             )
         if arch.use_local_cond or arch.use_global_cond:
             raise NotImplementedError(
-                "mel/speaker serving is not ported yet (ROADMAP.md A9)"
+                "mel/speaker serving is not ported yet (ROADMAP.md A queue item 4)"
             )
         self.device = resolve_device(device)
         self.params = params_to(params, self.device)
@@ -200,7 +200,7 @@ class SessionPool:
             raise ValueError(f"n_samples must be positive, got {n_samples}")
         if speaker is not None or cond_fn is not None:
             raise NotImplementedError(
-                "mel/speaker requests are not ported yet (ROADMAP.md A9)"
+                "mel/speaker requests are not ported yet (ROADMAP.md A queue item 4)"
             )
         if seed is not None and not self.per_lane_rng:
             raise ValueError("submit(seed=...) needs per_lane_rng=True")

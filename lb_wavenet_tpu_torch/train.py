@@ -2,8 +2,9 @@
 `lb_wavenet_tpu/train.py`) on one device.
 
 A step is eager PyTorch: the loss of a batch (the production path runs the
-dilated stack and the post network + masked CE through the CUDA kernel
-pairs of `ops/cuda/train_stack.py` and `ops/cuda/post_loss.py`), its
+input frontend, the dilated stack and the post network + masked CE through
+the CUDA kernel pairs of `ops/cuda/frontend.py`, `ops/cuda/train_stack.py`
+and `ops/cuda/post_loss.py`), its
 gradient by autograd (`value_and_grads`), then Adam. Adam is written on tensors and follows
 optax's `chain(clip_by_global_norm, adam(schedule))` step for step: the
 learning rate is read at the update count BEFORE it increments (so with
@@ -16,11 +17,11 @@ The state is a NamedTuple of tensor dicts; a step returns a new state and
 leaves the old one intact. Entry points run on the card unless the caller
 passes device="cpu" (then the kernels' plain versions run).
 
-Not ported yet, and raising NotImplementedError (ROADMAP.md A): model and
-sequence parallelism (mesh_model > 1, mesh_data > 1, seq_parallel; A queue
-item 7), in-training evaluation (eval_dir / eval_every; A queue item 2),
-TensorBoard, mel/speaker conditioning (A queue item 4) and the fused
-frontend kernels (train.fused_frontend; ROADMAP.md B5, the next slice).
+`run_training` evaluates on a held-out corpus every train.eval_every steps
+(eval.py). Not ported yet, and raising NotImplementedError (ROADMAP.md A):
+model and sequence parallelism (mesh_model > 1, mesh_data > 1,
+seq_parallel; A queue item 7), TensorBoard (A queue item 8) and mel/speaker
+conditioning (A queue item 4).
 """
 from __future__ import annotations
 
@@ -147,9 +148,11 @@ def init_state(rng, arch: ArchConfig, train: TrainConfig, device="cpu") -> Train
 
 
 def forward_fused(params: dict, arch: ArchConfig, x_classes, cond_frames=None,
-                  speaker_ids=None, tapcat: bool = False, return_skip: bool = False):
+                  speaker_ids=None, tapcat: bool = False, return_skip: bool = False,
+                  fused_frontend: bool = False):
     """forward() with the dilated stack run by the training-stack kernel
-    pair (ops/cuda/train_stack.py): same logits to float rounding."""
+    pair (ops/cuda/train_stack.py): same logits to float rounding.
+    `fused_frontend` also runs the frontend through its kernel pair."""
     from .ops.cuda.train_stack import make_fused_stack
 
     if cond_frames is not None or speaker_ids is not None:
@@ -157,15 +160,16 @@ def forward_fused(params: dict, arch: ArchConfig, x_classes, cond_frames=None,
             "conditioned training waits for the mel/speaker slice "
             "(ROADMAP.md A queue item 4)")
     dt = compute_dtype(arch)
-    h0 = input_frontend(params, arch, x_classes, dt)
+    h0 = input_frontend(params, arch, x_classes, dt, fused_frontend)
     skip = make_fused_stack(arch, tapcat=tapcat)(params["layers"], h0)
     return skip if return_skip else post_network(params, skip, dt)
 
 
 def _batch_logits(params, arch: ArchConfig, batch: dict, remat: bool,
-                  fused_stack: bool, tapcat: bool, return_skip: bool = False):
+                  fused_stack: bool, tapcat: bool, return_skip: bool = False,
+                  fused_frontend: bool = False):
     kw = dict(cond_frames=batch.get("mel"), speaker_ids=batch.get("speaker"),
-              return_skip=return_skip)
+              return_skip=return_skip, fused_frontend=fused_frontend)
     if fused_stack:
         return forward_fused(params, arch, batch["inputs"], tapcat=tapcat, **kw)
     return forward(params, arch, batch["inputs"], remat=remat, **kw)
@@ -175,22 +179,20 @@ def loss_sums_fn(params, arch: ArchConfig, window_size: int, batch: dict,
                  train: TrainConfig):
     """(masked-CE numerator, mask denominator) of one (micro)batch. With
     train.fused_post the post network + CE run through the post-loss kernel
-    pair (ops/cuda/post_loss.py) on the skip sum. train.mm_embed_grad is
-    accepted and changes nothing (models/wavenet.py)."""
-    if train.fused_frontend:
-        raise NotImplementedError(
-            "the fused frontend kernels (train.fused_frontend) are the next "
-            "slice of the port (ROADMAP.md B5); set train.fused_frontend=false")
+    pair (ops/cuda/post_loss.py) on the skip sum; with train.fused_frontend
+    the frontend runs through its kernel pair (ops/cuda/frontend.py).
+    train.mm_embed_grad is accepted and changes nothing (models/wavenet.py)."""
     if train.fused_post:
         from .ops.cuda.post_loss import fused_post_loss
 
         skip = _batch_logits(params, arch, batch, train.remat, train.fused_stack,
-                             train.tapcat, return_skip=True)
+                             train.tapcat, return_skip=True,
+                             fused_frontend=train.fused_frontend)
         num = fused_post_loss(params["post"], skip, batch["targets"], batch["mask"],
                               window_size, compute_dtype=arch.compute_dtype)
         return num, batch["mask"].to(torch.float32).sum()
     logits = _batch_logits(params, arch, batch, train.remat, train.fused_stack,
-                           train.tapcat)
+                           train.tapcat, fused_frontend=train.fused_frontend)
     return masked_loss_sums(logits, batch["targets"], batch["mask"], window_size)
 
 
@@ -254,15 +256,12 @@ def batch_to_device(batch: Batch, device) -> dict:
     return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in d.items()}
 
 
-def _check_supported(arch: ArchConfig, train: TrainConfig, eval_corpus) -> None:
+def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
     if train.mesh_model > 1 or train.mesh_data > 1 or train.seq_parallel:
         raise NotImplementedError(
             "model, data and sequence parallelism (train.mesh_model > 1, "
             "mesh_data > 1, seq_parallel) wait for ROADMAP.md A queue item 7; "
             "the port trains on one device")
-    if train.eval_dir or train.eval_every > 0 or eval_corpus is not None:
-        raise NotImplementedError(
-            "in-training evaluation waits for eval.py (ROADMAP.md A queue item 2)")
     if train.tensorboard_dir:
         raise NotImplementedError(
             "the TensorBoard stream is not ported (ROADMAP.md A queue item 8); "
@@ -273,6 +272,23 @@ def _check_supported(arch: ArchConfig, train: TrainConfig, eval_corpus) -> None:
             "(ROADMAP.md A queue item 4)")
 
 
+def _eval_record(state: TrainState, arch: ArchConfig, train: TrainConfig,
+                 eval_corpus: Corpus, dev) -> dict:
+    """The in-training evaluation of the params (and of the EMA copy),
+    through the fused stack when the step uses it."""
+    from .eval import evaluate
+
+    kw = dict(max_batches=train.eval_batches, fused=train.fused_stack,
+              tapcat=train.tapcat and train.fused_stack, device=dev)
+    batch = train.eval_batch_size or train.batch_size
+    ev = evaluate(state.params, arch, eval_corpus, batch, **kw)
+    record = {f"eval_{k}": v for k, v in ev.items()}
+    if train.ema_decay > 0:
+        ev_ema = evaluate(state.ema, arch, eval_corpus, batch, **kw)
+        record.update(eval_ema_nll=ev_ema["nll"], eval_ema_accuracy=ev_ema["accuracy"])
+    return record
+
+
 def run_training(
     config: Config,
     corpus: Optional[Corpus] = None,
@@ -280,12 +296,18 @@ def run_training(
     eval_corpus: Optional[Corpus] = None,
     device: Any = "cuda",
 ) -> TrainState:
-    """Full training run: data, resume, loop, checkpoints, metrics."""
+    """Full training run: data, resume, loop, checkpoints, metrics, and
+    every train.eval_every steps an evaluation of the held-out corpus
+    (`eval_corpus`, or train.eval_dir), logged as eval_* records (plus
+    eval_ema_nll / eval_ema_accuracy with an EMA) and kept out of
+    step_time_ms."""
     arch, train = config.arch, config.train
-    _check_supported(arch, train, eval_corpus)
+    _check_supported(arch, train)
     dev = resolve_device(device)
     if corpus is None:
         corpus = load_corpus(train.data_dir, arch, train.window_size)
+    if eval_corpus is None and train.eval_dir:
+        eval_corpus = load_corpus(train.eval_dir, arch, train.window_size)
     state = init_state(train.seed, arch, train, dev)
     manager = ckpt_lib.make_manager(train.checkpoint_dir)
     state, start_step = ckpt_lib.restore_if_available(manager, state)
@@ -307,6 +329,10 @@ def run_training(
                 metrics.log(step=i + 1, loss=loss_v, lr=lr_at(train, i + 1),
                             samples_per_sec=samples_per_step * n_logged / dt,
                             step_time_ms=1000.0 * dt / n_logged)
+            if eval_corpus is not None and train.eval_every > 0 and (
+                    (i + 1) % train.eval_every == 0 or i + 1 == total):
+                metrics.log(step=i + 1, **_eval_record(state, arch, train, eval_corpus, dev))
+                t_last = time.perf_counter()  # eval time is not step time
             if i + 1 == total or (train.checkpoint_every > 0
                                   and (i + 1) % train.checkpoint_every == 0):
                 ckpt_lib.save(manager, state, i + 1)

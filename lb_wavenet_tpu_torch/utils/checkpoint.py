@@ -65,9 +65,18 @@ def _load(directory: str, step: Optional[int]) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def restore_params(directory: str, step: Optional[int] = None) -> dict:
-    """Load the parameter dict at `step` (default: the latest)."""
-    return _load(directory, step)["params"]
+def restore_params(directory: str, step: Optional[int] = None,
+                   prefer_ema: bool = False) -> dict:
+    """Load the parameter dict at `step` (default: the latest); with
+    prefer_ema its EMA copy (a training checkpoint of a run with
+    train.ema_decay > 0; an error if it has none)."""
+    ck = _load(directory, step)
+    if prefer_ema:
+        if not ck.get("ema"):
+            raise ValueError(f"the checkpoint under {directory} carries no EMA params "
+                             "(train with train.ema_decay > 0)")
+        return ck["ema"]
+    return ck["params"]
 
 
 class CheckpointManager:

@@ -88,6 +88,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "lb_wavenet_tpu_torch/utils/checkpoint.py", "lb_wavenet_tpu_torch/utils/convert.py",
         "lb_wavenet_tpu_torch/ops/cuda/train_stack.py",
         "lb_wavenet_tpu_torch/ops/cuda/post_loss.py", "chip_smoke.py",
+        "lb_wavenet_tpu_torch/eval.py", "lb_wavenet_tpu_torch/ops/cuda/frontend.py",
+        "lb_wavenet_tpu_torch/ops/cuda/ar_turbo.py",
     }
     assert training_slice <= scanned, training_slice - scanned
     assert len(scanned) > 15
@@ -125,9 +127,8 @@ def test_kernel_wrappers_refuse_unknown_devices_and_unported_options():
     h = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_stack(params["layers"], arch, h, torch.zeros((3, 2, 8), device="meta"), 0)
-    for kw, item in ((dict(engine="turbo"), "B6"),
-                     (dict(model_axis="model"), "A12"),
-                     (dict(speaker_ids=torch.zeros(2)), "A9")):
+    for kw, item in ((dict(model_axis="model"), "A queue item 7"),
+                     (dict(speaker_ids=torch.zeros(2)), "A queue item 4")):
         with pytest.raises(NotImplementedError, match=item):
             generate_classes(params, arch, 0, 2, 4, device="cpu", **kw)
 

@@ -206,3 +206,110 @@ def test_fused_training_step_on_card(cuda):
     assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
     for a, b in zip(PT.tree_leaves(grads_g), PT.tree_leaves(grads_c)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("k_taps", [1, 2, 3])
+def test_frontend_kernels_match_plain(cuda, dtype, rtol, k_taps):
+    """h0 and the three gradients through the autograd Function against the
+    plain versions, a ragged last time tile and scatter chunk; errors
+    relative to each leaf's largest magnitude (bf16: one flipped rounding
+    of a d_e piece moves d_embed by up to 2^-8 of it)."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    dt = compute_dtype(dataclasses.replace(SMALL, compute_dtype=dtype))
+    g = torch.Generator(device=cuda).manual_seed(6 + k_taps)
+    embed = torch.randn((256, 16), device=cuda, generator=g)
+    w = torch.randn((k_taps, 16, 16), device=cuda, generator=g) / 4
+    b = torch.randn(16, device=cuda, generator=g) / 10
+    x = torch.randint(0, 256, (3, 301), device=cuda, generator=g, dtype=torch.int32)
+    x[0, 5] = 256   # out of range: a zero row, no gradient
+    dh = torch.randn((3, 301, 16), device=cuda, generator=g)
+    leaves = [t.clone().requires_grad_(True) for t in (embed, w, b)]
+    n_fwd, n_bwd = F.frontend_fwd.launches, F.frontend_bwd.launches
+    h = F.fused_frontend(leaves[0], {"w": leaves[1], "b": leaves[2]}, x, compute_dtype=dtype)
+    (h * dh).sum().backward()
+    torch.cuda.synchronize()
+    assert (F.frontend_fwd.launches, F.frontend_bwd.launches) == (n_fwd + 1, n_bwd + 4)
+    hp = F.frontend_fwd_plain(embed, w, b, x, dt)
+    gp = F.frontend_bwd_plain(embed, w, x, dt, dh)
+
+    def close(a, ref):
+        torch.testing.assert_close(a, ref, rtol=0, atol=rtol * float(ref.abs().max()))
+
+    close(h.detach(), hp)
+    for leaf, ref in zip(leaves, gp):
+        close(leaf.grad, ref)
+
+
+@pytest.mark.parametrize("rows,temperature", [(None, 0.0), (2, 1.0), (3, 0.8),
+                                              (None, 0.8)])
+@pytest.mark.parametrize("k_taps", [1, 2, 3])
+def test_turbo_kernel_matches_plain(cuda, rows, temperature, k_taps):
+    """fp32 small arch at a ragged batch (13 lanes): teacher-forced logits
+    and the carried state within 1e-4 over 48 steps, one launch per step;
+    free-running classes equal (greedy, per-lane 2/3 rows, global hash)."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_turbo
+
+    arch = dataclasses.replace(SMALL, input_kernel=k_taps)
+    p = init_params(7, arch, cuda)
+    b, t = 13, 48
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lane = None
+    if rows is not None:
+        lane = [torch.randint(0, 2**31 - 1, (b,), generator=g, device=cuda),
+                torch.randint(-9, 9, (b,), generator=g, device=cuda)]
+        if rows == 3:
+            inv = torch.tensor([0.0, 1.25, 1.0, 2.0] * 4, device=cuda)[:b]
+            lane.append(inv.view(torch.int32))
+        lane = torch.stack([x.to(torch.int32) for x in lane])
+    h0, e0 = _fused_frontend_zero(p, arch, b)
+    ring = torch.randn((sum(arch.dilations), b, 16), device=cuda, generator=g)
+
+    def run(fn, forced, emit):
+        state = {"bufs": ring.clone(), "h": h0.clone(), "e": e0.clone()}
+        cls, lg = fn(p, p["layers"], arch, state, 500, forced, temperature, emit, lane, 99)
+        torch.cuda.synchronize()
+        return cls, lg, state
+
+    forced = torch.randint(0, 256, (t, b), generator=g, device=cuda, dtype=torch.int32)
+    n = ar_turbo.turbo_step.launches
+    _, lk, sk = run(ar_turbo.turbo_generate_cuda, forced, True)
+    assert ar_turbo.turbo_step.launches == n + t
+    _, lp, sp = run(ar_turbo.turbo_generate_plain, forced, True)
+    torch.testing.assert_close(lk, lp, rtol=0, atol=1e-4)
+    for k in sk:
+        torch.testing.assert_close(sk[k], sp[k], rtol=0, atol=1e-4)
+    free = torch.full((t, b), -1, device=cuda, dtype=torch.int32)
+    ck, _, _ = run(ar_turbo.turbo_generate_cuda, free, False)
+    cp, _, _ = run(ar_turbo.turbo_generate_plain, free, False)
+    assert torch.equal(ck, cp)
+
+
+def test_recipe_training_step_on_card(cuda):
+    """The production recipe's step (fused frontend + stack with tapcat +
+    post) on the card against the same step on the CPU (the plain
+    versions), fp32."""
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.config import TrainConfig
+
+    train = TrainConfig(batch_size=2, window_size=40, learning_rate=1e-3, fused_stack=True,
+                        tapcat=True, fused_post=True, fused_frontend=True)
+    state = PT.init_state(8, SMALL, train, "cpu")
+    g = torch.Generator().manual_seed(8)
+    t = SMALL.receptive_field - 1 + 40
+    batch = {"inputs": torch.randint(0, 256, (2, t), generator=g, dtype=torch.int32),
+             "targets": torch.randint(0, 256, (2, 40), generator=g, dtype=torch.int32),
+             "mask": torch.ones((2, 40))}
+    loss_c, grads_c = PT.value_and_grads(state.params, batch, SMALL, train)
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    n = (F.frontend_fwd.launches, F.frontend_bwd.launches)
+    params_g = PT.tree_map(lambda v: v.to(cuda), state.params)
+    loss_g, grads_g = PT.value_and_grads(params_g, {k: v.to(cuda) for k, v in batch.items()},
+                                         SMALL, train)
+    assert (F.frontend_fwd.launches, F.frontend_bwd.launches) == (n[0] + 1, n[1] + 4)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for a, b in zip(PT.tree_leaves(grads_g), PT.tree_leaves(grads_c)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)

@@ -104,7 +104,7 @@ def test_pool_validation(pair):
         pool.submit("x", 0)
     with pytest.raises(ValueError, match=">= 0"):
         pool.submit("x", 4, temperature=-1.0)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A queue item 4"):
         pool.submit("x", 4, speaker=1)
     assert pool.submit("x", 4) and not pool.submit("y", 4)
     with pytest.raises(ValueError, match="deliver"):

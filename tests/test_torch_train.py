@@ -104,13 +104,14 @@ def test_adam_updates_match_optax(clip, warmup, ema):
         assert ps.ema is None
 
 
-@pytest.mark.parametrize("kernels", [dict(FUSED, mm_embed_grad=True), {}],
-                         ids=["fused", "unfused"])
+@pytest.mark.parametrize("kernels", [dict(FUSED, mm_embed_grad=True), {},
+                                     dict(FUSED, mm_embed_grad=True, fused_frontend=True)],
+                         ids=["fused", "unfused", "recipe"])
 def test_train_steps_match_jax(kernels):
     """Three steps from a converted JAX state, with the fused stack (tapcat),
-    the fused post-loss and mm_embed_grad (as configs/wavenet30.json
-    trains), or with none of them (the plain forward + masked CE): losses
-    and params track the JAX steps."""
+    the fused post-loss and mm_embed_grad, with the fused frontend as well
+    (configs/wavenet30.json's recipe), or with none of them (the plain
+    forward + masked CE): losses and params track the JAX steps."""
     w = 24
     jt, pt = _both(batch_size=2, window_size=w, learning_rate=1e-3, **kernels)
     mesh = make_mesh(1, 1, devices=jax.devices()[:1])
@@ -251,13 +252,17 @@ def test_cli_train_then_generate_from_its_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(fused_frontend=True), "B5"),
+    (dict(mesh_data=2), "A queue item 7"),
     (dict(seq_parallel=True), "A queue item 7"),
     (dict(mesh_model=2), "A queue item 7"),
-    (dict(eval_dir="/nonexistent", eval_every=5), "A queue item 2"),
+    (dict(eval_dir="PACK_FILE", eval_every=5), "A queue item 8"),
     (dict(tensorboard_dir="/nonexistent"), "A queue item 8"),
 ])
 def test_unported_training_settings_raise(tmp_path, override, item):
+    if override.get("eval_dir") == "PACK_FILE":   # a packed eval corpus
+        pack = tmp_path / "eval.pack"
+        pack.write_bytes(b"")
+        override = dict(override, eval_dir=str(pack))
     cfg = _run_cfg(tmp_path, 2)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **override))
     corpus = synthetic_corpus(PMICRO, 64, n_files=1, file_len=500)
@@ -274,3 +279,19 @@ def test_conditioning_and_missing_card_raise(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PT.run_training(cfg, corpus=corpus)
+
+
+def test_wavenet30_train_section_trains_as_written(tmp_path, capsys):
+    """configs/wavenet30.json's train section as written (fused frontend,
+    stack with tapcat, post-loss, mm_embed_grad, mesh_data -1) on a MICRO
+    arch, cut to a small batch, window and step count."""
+    full = PConfig.load(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                     "wavenet30.json"))
+    tr = full.train
+    assert tr.fused_frontend and tr.fused_stack and tr.tapcat and tr.fused_post
+    train = dataclasses.replace(tr, batch_size=2, window_size=32, n_steps=2, log_every=1,
+                                checkpoint_dir=str(tmp_path / "ckpt"))
+    corpus = synthetic_corpus(PMICRO, 32, n_files=2, file_len=800)
+    state = PT.run_training(PConfig(arch=PMICRO, train=train), corpus=corpus, device="cpu")
+    losses = [json.loads(ln)["loss"] for ln in capsys.readouterr().out.splitlines()]
+    assert state.step == 2 and len(losses) == 2 and all(np.isfinite(losses))
