@@ -46,7 +46,25 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
   8. evaluation: `evaluate` of the trained params on a held-out
      synthetic_corpus (another seed), fused and plain forward, and a short
      run_training with in-training eval records;
-  9. timings at the serving and training shapes and the `kernels` JSON
+  9. model-sharded serving of configs/stress_gen.json (the 512-skip stress
+     config: 3x10 dilations, C=G=64, S=512, Q=256, bf16) at full width,
+     B=256, random weights from a numpy seed: `tp_kernel`, kernel B7
+     (tp_fused_stack) against its plain version at S_l = 512 and on each
+     256-wide half, whose skip sums must concatenate to the whole one;
+     `tp_serving_1rank`, one NCCL rank (model axis 1) in this process:
+     mesh_generate_classes(engine="mega") greedy against single-device mega
+     (every B7 choice held to the plain scores on its own history), B7 once
+     per step and never its plain version, a ShardedSession in chunks
+     against the one-shot run, reset_lanes against a fresh session, the
+     pallas engine on the model group, the TP step split into its parts and
+     delivered audio-sec/s against single-device mega; `tp_serving_2rank`,
+     two processes sharing the card over gloo (model axis 2, S_l = 256):
+     greedy and explicit-lane-seed sampled runs equal across ranks and to
+     the one-rank run, a mesh SessionPool serving 6 requests (two on
+     recycled lanes), and `torchrun --nproc-per-node 2 -m
+     lb_wavenet_tpu_torch.cli serve --mesh-model 2` writing that pool's
+     audio;
+ 10. timings at the serving and training shapes and the `kernels` JSON
      line, the card's name and power limit, and last the {"ok": true, ...}
      line.
 
@@ -100,9 +118,21 @@ UNFUSED_RTOL = 0.18
 EVAL_NLL_ATOL = 1e-4
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
 H100_BYTES_S = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
+TP_CONFIG = os.path.join(ROOT, "configs", "stress_gen.json")
+TP_B = 256          # stress_gen.json gen.batch_size
+TP_STEPS = 256      # steps of the model-sharded greedy and sampled runs
+TP_CHUNK = 64       # ShardedSession chunk of the chunked-equals-one-shot check
+TP_T = 1000         # the step of the B7-vs-plain check
+TP_SEED = 17        # session seed of the model-sharded runs
+# B7 vs its plain version, max |difference| over the largest |skip|: the
+# same bf16-rounded operands summed in another order (expected <= 1e-3); a
+# flipped rounding of one activation can move a skip value by ~1e-2 of it.
+TP_RTOL = 1e-2
+TP_POOL, TP_POOL_CHUNK = 4, 256   # the mesh pool: 6 requests, two on recycled lanes
 
 
-KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss")
+KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss",
+                  "ar_tp")
 
 
 class SmokeFailure(Exception):
@@ -247,6 +277,16 @@ def frontend_cost(arch, b: int, t: int, backward: bool):
     if backward:   # d_w and d_e products, plus the scatter's adds
         return 4 * (b * t + params + b * t * C + params), 2 * taps + b * t * C
     return 4 * (b * t + params + b * t * C), taps
+
+
+def tp_cost(arch, b: int, s_l: int, wbytes: int):
+    """(bytes, flops) of one tp_fused_stack step on a skip slice of width
+    s_l: weights and biases, h0 in, the L ring rows read and written, the
+    local skip sum out."""
+    L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
+    w = L * (2 * G * 2 * C + (C + s_l) * G)
+    nbytes = w * wbytes + 4 * (L * (2 * G + C + s_l) + C * b + 2 * L * C * b + s_l * b)
+    return nbytes, 2 * L * b * (2 * G * 2 * C + (C + s_l) * G)
 
 
 def bound_ms(nbytes: int, flops: int):
@@ -527,17 +567,19 @@ def make_requests():
     ]
 
 
-def serve_pool(params, arch, requests, batch, first_wave, engine="mega"):
-    """Serve `requests` through a pipelined SessionPool; the first
-    `first_wave` go in at once, the rest as lanes free up (so they take
-    recycled lanes). Returns ({id: classes}, {id: lane}, stats, wall)."""
+def serve_pool(params, arch, requests, batch, first_wave, engine="mega", mesh=None,
+               chunk=CHUNK):
+    """Serve `requests` through a pipelined SessionPool (on `mesh`, if
+    given); the first `first_wave` go in at once, the rest as lanes free up
+    (so they take recycled lanes). Returns ({id: classes}, {id: lane},
+    stats, wall)."""
     import numpy as np
     import torch
 
     from lb_wavenet_tpu_torch.serving import SessionPool
 
-    pool = SessionPool(params, arch, batch, 0, engine=engine, chunk_size=CHUNK,
-                       temperature=1.0, pipeline=True, device="cuda")
+    pool = SessionPool(params, arch, batch, 0, engine=engine, chunk_size=chunk,
+                       temperature=1.0, pipeline=True, mesh=mesh, device="cuda")
     out, lanes, parts = {}, {}, {}
     queue = list(requests)
 
@@ -720,6 +762,404 @@ def phase_pallas_engine(params, arch, gpu):
                     "fused_stack_launches": launches,
                     "ms_per_step_end_to_end": 1000 * wall / steps}))
     return launches
+
+
+def tp_setup():
+    """(arch, params on the card) of the stress config, weights from a
+    numpy seed."""
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.utils.convert import params_from_jax
+
+    arch = Config.load(TP_CONFIG).arch
+    return arch, params_from_jax(numpy_params(arch, 5), device="cuda")
+
+
+def skip_half(lp: dict, arch, rank: int) -> dict:
+    """Layer params with w_skip/b_skip cut to model rank `rank` of two."""
+    s = arch.skip_channels // 2
+    sl = slice(rank * s, (rank + 1) * s)
+    return {**lp, "w_skip": lp["w_skip"][..., sl], "b_skip": lp["b_skip"][..., sl]}
+
+
+def tp_lanes():
+    """An explicit (2, TP_B) int32 lane block (seeds, lease times 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    return np.stack([rng.integers(0, 2**31 - 1, TP_B), np.zeros(TP_B)]).astype(np.int32)
+
+
+def tp_requests():
+    """6 requests with seeds and temperatures; the last two take recycled
+    lanes of the TP_POOL-lane mesh pool."""
+    return [{"id": f"m{i}", "n_samples": 500 + 123 * i, "seed": 70 + 11 * i,
+             "temperature": (0.0, 0.7, 1.0)[i % 3]} for i in range(6)]
+
+
+def hold_tp_choices(params, arch, classes, temperature, lane=None):
+    """check_choices for a (B, T) run of the model-sharded path: the plain
+    mega version teacher-forced on its classes (mega's accumulation
+    contract, which B7 keeps), then the gap of every choice."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega
+
+    cls = torch.as_tensor(classes).cuda().t().contiguous()
+    h0, e0 = G._fused_frontend_zero(params, arch, cls.shape[1])
+    carry = ar_mega.mega_zero_carry(arch, h0, e0)
+    lane = None if lane is None else torch.as_tensor(lane).cuda()
+    _, lg = ar_mega.mega_generate_plain(params, params["layers"], arch, carry, 0, cls,
+                                        temperature, True, lane, 0)
+    return check_choices(lg, cls, temperature, lane, torch.full_like(cls, -1))
+
+
+def compare_runs(a, b):
+    """(first divergent step or None, share of lanes equal) of two (B, T)
+    class runs."""
+    import torch
+
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    diff = (a != b).any(dim=0).nonzero()
+    return (int(diff[0]) if len(diff) else None), float((a == b).all(dim=1).float().mean())
+
+
+@contextlib.contextmanager
+def no_plain_tp():
+    """Fail if the model-sharded path runs B7's plain version."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+
+    def refuse(*_):
+        raise SmokeFailure("the model-sharded path ran tp_fused_stack's plain version")
+
+    saved = ar_tp.tp_fused_stack_plain
+    ar_tp.tp_fused_stack_plain = refuse
+    try:
+        yield
+    finally:
+        ar_tp.tp_fused_stack_plain = saved
+
+
+def phase_tp_kernel(params, arch, gpu):
+    """B7 against its plain version at B=256 on the whole skip width and on
+    each half (the two ranks of a model axis of 2)."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    c = arch.residual_channels
+    ring = torch.randn((sum(arch.dilations), c, TP_B), device="cuda", generator=g)
+    h0 = torch.randn((c, TP_B), device="cuda", generator=g)
+    slots = [o + TP_T % d for o, d in zip(G.buffer_offsets(arch), arch.dilations)]
+    untouched = torch.ones(len(ring), dtype=torch.bool, device="cuda")
+    untouched[slots] = False
+    lp = params["layers"]
+    skips, readings = {}, {}
+    for name, layers in (("S_l=512", lp), ("S_l=256 rank 0", skip_half(lp, arch, 0)),
+                         ("S_l=256 rank 1", skip_half(lp, arch, 1))):
+        fm = G._tp_weights(params, layers, compute_dtype(arch))
+        r_k, r_p = ring.clone(), ring.clone()
+        _, s_k = ar_tp.tp_fused_stack(fm, arch, h0, r_k, TP_T)
+        torch.cuda.synchronize()
+        _, s_p = ar_tp.tp_fused_stack_plain(fm, arch, h0, r_p, TP_T)
+        skips[name] = s_k
+        readings[name] = {
+            "ring_exact_where_unwritten_and_layer0": bool(
+                torch.equal(r_k[untouched], ring[untouched]) and torch.equal(r_k[slots[0]], h0)),
+            "ring_max_abs_err": abs_err(r_k, r_p), "skip_max_abs_err": abs_err(s_k, s_p),
+            "skip_rel_err": rel_err(s_k, s_p), "skip_max_abs": float(s_p.abs().max()),
+        }
+    halves_equal = bool(torch.equal(
+        torch.cat([skips["S_l=256 rank 0"], skips["S_l=256 rank 1"]]), skips["S_l=512"]))
+    log(json.dumps({"phase": "tp_kernel", "gpu": gpu, "config": "configs/stress_gen.json",
+                    "B": TP_B, "t": TP_T, "readings": readings,
+                    "halves_concatenate_to_whole": halves_equal,
+                    "rtol": TP_RTOL, "ring_atol": LOGIT_ATOL}))
+    for name, r in readings.items():
+        require(r["ring_exact_where_unwritten_and_layer0"] and r["ring_max_abs_err"] <= LOGIT_ATOL
+                and r["skip_rel_err"] <= TP_RTOL, f"tp_fused_stack ({name}) differs: {r}")
+    require(halves_equal, "the two halves' skip sums do not concatenate to the whole one")
+    return {"tp_fused_stack": max(r["skip_max_abs_err"] for r in readings.values())}
+
+
+def tp_step_split(fm, arch, mesh, params, steps: int):
+    """Device time (CUDA events) of the TP step's parts over `steps` steps
+    of a fresh greedy session: B7, the post network with its all-reduce,
+    sampling with the next step's frontend; and the host wall per step."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_tp
+
+    dt = compute_dtype(arch)
+    state = G._tp_zero_state(params, arch, TP_B)
+    free = torch.full((TP_B,), -1, dtype=torch.int32, device="cuda")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(steps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ev[i][0].record()
+        _, skip = ar_tp.tp_fused_stack(fm, arch, state["h"], state["bufs"], i)
+        ev[i][1].record()
+        logits = G._tp_logits(fm, skip, mesh.model_group, dt)
+        ev[i][2].record()
+        cls = ar_mega.sample_fm(logits, 0.0, None, i, 0, free)
+        G._tp_next_frontend(fm, state, cls, dt)
+        ev[i][3].record()
+    torch.cuda.synchronize()
+    wall = 1000.0 * (time.perf_counter() - t0) / steps
+    part = [sum(e[k].elapsed_time(e[k + 1]) for e in ev) / steps for k in range(3)]
+    return {"kernel_ms": part[0], "post_network_and_all_reduce_ms": part[1],
+            "sampling_and_frontend_ms": part[2], "host_wall_ms_per_step": wall}
+
+
+def phase_tp_serving_1rank(params, arch, gpu):
+    """The model-sharded path in this process: one NCCL rank, model axis 1,
+    B7 on the whole skip width (S_l = 512), a real one-rank all-reduce.
+    Returns (B7 launches of the main path, the readings phase 2 compares
+    with, timings)."""
+    import numpy as np
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_step, ar_tp
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+    from lb_wavenet_tpu_torch.parallel import synthesis as S
+    from lb_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from lb_wavenet_tpu_torch.utils.multihost import init_distributed, shutdown
+
+    work = os.path.join(BUILD, "chip_smoke_tp1")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        backend = init_distributed(device="cuda", init_method=f"file://{work}/store", rank=0,
+                                   world_size=1)
+        mesh = make_mesh(1, 1)
+        require(backend == "nccl", f"one rank on its own card should run NCCL, not {backend}")
+        ar_tp.tp_fused_stack.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_tp():
+            greedy = S.mesh_generate_classes(params, arch, TP_SEED, TP_B, TP_STEPS, mesh,
+                                             engine="mega", temperature=0.0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ar_tp.tp_fused_stack.launches
+        ref = G.generate_classes(params, arch, TP_SEED, TP_B, TP_STEPS, engine="mega",
+                                 temperature=0.0)
+        first, lanes_equal = compare_runs(greedy, ref)
+        gap = hold_tp_choices(params, arch, greedy, 0.0)
+        lane = tp_lanes()
+        sess = S.ShardedSession(params, arch, TP_B, TP_SEED, mesh, engine="mega")
+        sampled = sess.chunk(TP_STEPS, temperature=1.0, lane_seed=lane[0], lane_t0=lane[1])
+        sess = S.ShardedSession(params, arch, TP_B, TP_SEED, mesh, engine="mega")
+        chunks = torch.cat([sess.chunk(TP_CHUNK, temperature=1.0)
+                            for _ in range(TP_STEPS // TP_CHUNK)], 1)
+        one_shot = S.mesh_generate_classes(params, arch, TP_SEED, TP_B, TP_STEPS, mesh,
+                                           engine="mega", temperature=1.0)
+        chunked_equal = bool(torch.equal(chunks, one_shot))
+        # Reset half the lanes of a greedy session: they equal a fresh one's.
+        sess = S.ShardedSession(params, arch, TP_B, TP_SEED, mesh, engine="mega")
+        sess.chunk(TP_CHUNK, temperature=0.0)
+        half = np.arange(TP_B) % 2 == 0
+        sess.reset_lanes(half)
+        recycled = sess.chunk(TP_CHUNK, temperature=0.0)
+        fresh = S.ShardedSession(params, arch, TP_B, TP_SEED, mesh, engine="mega").chunk(
+            TP_CHUNK, temperature=0.0)
+        reset_equal = bool(torch.equal(recycled[half], fresh[half]))
+        # The pallas engine on the model group: B1 once per step, the same
+        # greedy classes as the single-device pallas engine.
+        n_pallas = 64
+        ar_step.fused_stack.launches = 0
+        pallas = S.mesh_generate_classes(params, arch, TP_SEED, TP_B, n_pallas, mesh,
+                                         engine="pallas", temperature=0.0)
+        pallas_launches = ar_step.fused_stack.launches
+        pallas_ref = G.generate_classes(params, arch, TP_SEED, TP_B, n_pallas,
+                                        engine="pallas", temperature=0.0)
+        pallas_equal = bool(torch.equal(pallas, pallas_ref))
+        counts = (ar_tp.tp_fused_stack.launches, ar_step.fused_stack.launches)
+        fm = G._tp_weights(params, params["layers"], compute_dtype(arch))
+        split = tp_step_split(fm, arch, mesh, params, 64)
+        # Delivered audio-sec/s at B=256: two 1024-step chunks after a
+        # warm-up chunk, the TP session against a single-device mega stream.
+        sess = S.ShardedSession(params, arch, TP_B, TP_SEED, mesh, engine="mega")
+        stream = G.start_stream(arch, TP_B, TP_SEED, engine="mega", params=params)
+        chunkers = {
+            "tp_session": lambda: sess.chunk(CHUNK, temperature=1.0),
+            "single_device_mega": lambda: G.stream_chunk(params, arch, stream, CHUNK,
+                                                         temperature=1.0, engine="mega"),
+        }
+        rates = {}
+        for name, chunk in chunkers.items():
+            chunk()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                chunk()
+            torch.cuda.synchronize()
+            rates[name] = TP_B * 2 * CHUNK / arch.sample_rate / (time.perf_counter() - t0)
+        ar_tp.tp_fused_stack.launches, ar_step.fused_stack.launches = counts
+    finally:
+        shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({
+        "phase": "tp_serving_1rank", "gpu": gpu, "mesh": mesh.describe(),
+        "device": str(mesh.device), "config": "configs/stress_gen.json", "B": TP_B,
+        "steps": TP_STEPS, "tp_launches": launches, "greedy_wall_s": wall,
+        "greedy_vs_single_device_mega": {"first_divergent_step": first,
+                                         "lanes_equal": lanes_equal,
+                                         "max_choice_gap": gap, "gap_tol": 2 * LOGIT_ATOL},
+        "chunked_equals_one_shot": chunked_equal, "reset_half_equals_fresh": reset_equal,
+        "pallas_engine": {"steps": n_pallas, "fused_stack_launches": pallas_launches,
+                          "classes_equal_single_device": pallas_equal},
+        "step_split_64_steps": split,
+        "delivered_audio_sec_per_s": rates,
+    }))
+    require(launches == TP_STEPS, f"B7 launched {launches} times in {TP_STEPS} steps")
+    require(greedy.shape == (TP_B, TP_STEPS) and int(greedy.min()) >= 0
+            and int(greedy.max()) < arch.quant_channels, "bad model-sharded classes")
+    require(gap <= 2 * LOGIT_ATOL, f"B7 chose a class {gap} below the plain max")
+    require(chunked_equal and reset_equal, "sharded streaming differs from one-shot/fresh")
+    require(pallas_launches == n_pallas and pallas_equal,
+            f"pallas engine on the model group: {pallas_launches} launches, "
+            f"equal={pallas_equal}")
+    return launches, {"greedy": greedy.cpu(), "sampled": sampled.cpu()}, \
+        {"split": split, "rates": rates}
+
+
+def tp_rank(rank, world, store, work):
+    """One of two ranks sharing the card (spawned by phase_tp_serving_2rank):
+    model axis 2 over gloo, B7 at S_l = 256; results saved under `work`."""
+    import torch
+
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+    from lb_wavenet_tpu_torch.parallel import synthesis as S
+    from lb_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from lb_wavenet_tpu_torch.utils.multihost import init_distributed, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = init_distributed(device="cuda", init_method=f"file://{store}", rank=rank,
+                               world_size=world, local_world_size=world)
+    mesh = make_mesh(1, world)
+    arch, params = tp_setup()
+    ar_tp.tp_fused_stack.launches = 0
+    greedy = S.mesh_generate_classes(params, arch, TP_SEED, TP_B, TP_STEPS, mesh,
+                                     engine="mega", temperature=0.0)
+    torch.cuda.synchronize()
+    launches = ar_tp.tp_fused_stack.launches
+    lane = tp_lanes()
+    sess = S.ShardedSession(params, arch, TP_B, TP_SEED, mesh, engine="mega")
+    sampled = sess.chunk(TP_STEPS, temperature=1.0, lane_seed=lane[0], lane_t0=lane[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.chunk(TP_CHUNK, temperature=0.0)
+    torch.cuda.synchronize()
+    step_ms = 1000.0 * (time.perf_counter() - t0) / TP_CHUNK
+    out, lanes, stats, wall = serve_pool(params, arch, tp_requests(), TP_POOL, 4,
+                                         engine="mega", mesh=mesh, chunk=TP_POOL_CHUNK)
+    torch.save({"backend": backend, "device": str(mesh.device), "mesh": mesh.describe(),
+                "greedy": greedy.cpu(), "sampled": sampled.cpu(), "launches": launches,
+                "step_ms": step_ms, "pool": out, "lanes": lanes, "pool_steps": stats["steps"],
+                "pool_wall_s": wall}, os.path.join(work, f"rank{rank}.pt"))
+    shutdown()
+
+
+def phase_tp_serving_2rank(params, arch, one_rank, gpu):
+    """Two processes on the one card over gloo (NCCL refuses two ranks on
+    one device), model axis 2: each runs B7 on its 256-wide skip half and
+    the post hidden is all-reduced through host memory every step."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+    from lb_wavenet_tpu_torch.ops.mulaw import mu_law_decode
+    from lb_wavenet_tpu_torch.utils.checkpoint import save_params
+
+    work = os.path.join(BUILD, "chip_smoke_tp2")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        t0 = time.perf_counter()
+        # A failing rank raises here (torch.multiprocessing.spawn checks
+        # every exit code and stops the other rank).
+        torch.multiprocessing.spawn(tp_rank, args=(2, os.path.join(work, "store"), work),
+                                    nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        readings = {}
+        for name in ("greedy", "sampled"):
+            require(torch.equal(ranks[0][name], ranks[1][name]),
+                    f"the two ranks' {name} classes differ")
+            first, lanes_equal = compare_runs(ranks[0][name], one_rank[name])
+            readings[name] = {"first_divergent_step_vs_1rank": first,
+                              "lanes_equal_vs_1rank": lanes_equal}
+            if first is not None:
+                # The skip split sums the post hidden in another order:
+                # hold each choice to the plain scores on its own history.
+                temp, lane = (0.0, None) if name == "greedy" else (1.0, tp_lanes())
+                gap = hold_tp_choices(params, arch, ranks[0][name], temp, lane)
+                readings[name]["max_choice_gap"] = gap
+                require(gap <= 2 * LOGIT_ATOL, f"2-rank {name}: a choice {gap} below the max")
+        pools = [r["pool"] for r in ranks]
+        reqs = tp_requests()
+        require(all(set(p) == {q["id"] for q in reqs} for p in pools), "a mesh request is missing")
+        for q in reqs:
+            require(np.array_equal(pools[0][q["id"]], pools[1][q["id"]])
+                    and pools[0][q["id"]].shape == (q["n_samples"],),
+                    f"mesh pool request {q['id']} differs between ranks")
+        recycled = [q["id"] for q in reqs[4:] if ranks[0]["lanes"][q["id"]] < 4]
+        # The same requests through the CLI under torchrun.
+        save_params(os.path.join(work, "ckpt"), params, 0)
+        req_path = os.path.join(work, "requests.jsonl")
+        with open(req_path, "w") as f:
+            f.writelines(json.dumps(q) + "\n" for q in reqs)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "lb_wavenet_tpu_torch.cli", "serve",
+               "--mesh-model", "2", "--config", TP_CONFIG, "--requests", req_path,
+               "--stream-chunk", str(TP_POOL_CHUNK),
+               "--set", f"gen.checkpoint_dir={os.path.join(work, 'ckpt')}",
+               "--set", f"gen.out_dir={os.path.join(work, 'wav')}",
+               "--set", f"gen.batch_size={TP_POOL}", "--set", "gen.temperature=1.0",
+               "--set", "gen.engine=mega"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600)
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"torchrun CLI serve failed:\n{proc.stderr[-4000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        for q in reqs:
+            _, wav = wavfile.read(os.path.join(work, "wav", f"{q['id']}.wav"))
+            ref = mu_law_decode(torch.from_numpy(pools[0][q["id"]])).numpy()
+            require(np.array_equal(wav, (np.clip(ref, -1, 1) * 32767.0).astype(np.int16)),
+                    f"torchrun CLI audio of {q['id']} differs from the mesh pool's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({
+        "phase": "tp_serving_2rank", "gpu": gpu, "ranks": 2,
+        "backends": [r["backend"] for r in ranks], "devices": [r["device"] for r in ranks],
+        "mesh": ranks[0]["mesh"], "config": "configs/stress_gen.json", "B": TP_B,
+        "steps": TP_STEPS, "tp_launches_per_rank": [r["launches"] for r in ranks],
+        "vs_1rank": readings,
+        "step_ms_shared_card_host_staged_gloo": [r["step_ms"] for r in ranks],
+        "pool": {"batch": TP_POOL, "chunk": TP_POOL_CHUNK, "requests": len(reqs),
+                 "recycled": recycled, "steps": ranks[0]["pool_steps"],
+                 "wall_s": ranks[0]["pool_wall_s"]},
+        "spawn_s": spawn_s, "torchrun_cli_s": cli_s, "cli_summary": summary,
+    }))
+    require([r["backend"] for r in ranks] == ["gloo", "gloo"]
+            and [r["device"] for r in ranks] == ["cuda:0", "cuda:0"],
+            "the two ranks did not share cuda:0 over gloo")
+    require(all(r["launches"] == TP_STEPS for r in ranks), "B7 did not launch once per step")
+    require(len(recycled) == 2, f"late mesh requests did not take recycled lanes: {recycled}")
+    require(summary["served"] == len(reqs) and summary["mesh"] == {
+        "data": 1, "model": 2, "backend": "gloo"}, f"torchrun CLI summary: {summary}")
+    return [r["step_ms"] for r in ranks]
 
 
 def abs_err(a, b) -> float:
@@ -1265,7 +1705,33 @@ def train_timings(params, arch):
     return out
 
 
-def phase_timing(params, arch, errs, launches, gpu):
+def tp_timings(params, arch):
+    """{S_l: (ms, plain ms, (bytes, flops))} of B7 at B=256 on the whole
+    skip width and on a 256-wide half (model axis 1 and 2)."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+
+    dt = compute_dtype(arch)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    c = arch.residual_channels
+    h0 = torch.randn((c, TP_B), device="cuda", generator=g)
+    ring = torch.randn((sum(arch.dilations), c, TP_B), device="cuda", generator=g)
+    counts = ar_tp.tp_fused_stack.launches
+    out = {}
+    for s_l, layers in ((arch.skip_channels, params["layers"]),
+                        (arch.skip_channels // 2, skip_half(params["layers"], arch, 0))):
+        fm = G._tp_weights(params, layers, dt)
+        out[s_l] = (cuda_ms(lambda: ar_tp.tp_fused_stack(fm, arch, h0, ring, 700), 50),
+                    cuda_ms(lambda: ar_tp.tp_fused_stack_plain(fm, arch, h0, ring, 700), 5),
+                    tp_cost(arch, TP_B, s_l, torch.finfo(dt).bits // 8))
+    ar_tp.tp_fused_stack.launches = counts
+    return out
+
+
+def phase_timing(params, arch, errs, launches, gpu, tp):
     import torch
 
     from lb_wavenet_tpu_torch.generate import _fused_frontend_zero
@@ -1314,6 +1780,21 @@ def phase_timing(params, arch, errs, launches, gpu):
     del state
 
     trained = train_timings(params, arch)
+    tp_arch, tp_params, tp_measured = tp
+    tp_times = tp_timings(tp_params, tp_arch)
+    s_whole = tp_arch.skip_channels
+    log(json.dumps({
+        "phase": "tp_timing", "gpu": gpu, "config": "configs/stress_gen.json", "B": TP_B,
+        "tp_fused_stack": {f"S_l={s_l}": {"ms": ms, "plain_ms": plain,
+                                          "bound_ms": bound_ms(*cost)[0],
+                                          "bound_by": bound_ms(*cost)[1]}
+                           for s_l, (ms, plain, cost) in tp_times.items()},
+        "one_rank_step_split_ms": tp_measured["split"],
+        "delivered_audio_sec_per_s_1rank_vs_single_device": tp_measured["rates"],
+        "two_rank_step_ms": {"per_rank": tp_measured["two_rank_step_ms"],
+                             "note": "two ranks sharing one card, all-reduce staged through "
+                                     "host memory over gloo; not a multi-card figure"},
+    }))
     kernels = []
     for name, src, rep, ms, plain, cost in (
         ("mega_generate", "lb_wavenet_tpu_torch/csrc/ar_mega.cu",
@@ -1337,6 +1818,8 @@ def phase_timing(params, arch, errs, launches, gpu):
          "lb_wavenet_tpu/ops/pallas/post_loss.py:50", *trained["post_loss_fwd"]),
         ("post_loss_bwd", "lb_wavenet_tpu_torch/csrc/post_loss.cu",
          "lb_wavenet_tpu/ops/pallas/post_loss.py:100", *trained["post_loss_bwd"]),
+        ("tp_fused_stack", "lb_wavenet_tpu_torch/csrc/ar_tp.cu",
+         "lb_wavenet_tpu/ops/pallas/ar_tp.py:112", *tp_times[s_whole]),
     ):
         bms, by = bound_ms(*cost)
         kernels.append({
@@ -1353,7 +1836,9 @@ def phase_timing(params, arch, errs, launches, gpu):
                     "frontend_fwd": train_shape, "frontend_bwd": train_shape,
                     "train_stack_fwd": train_shape,
                     "train_stack_bwd": train_shape, "post_loss_fwd": train_shape,
-                    "post_loss_bwd": train_shape}))
+                    "post_loss_bwd": train_shape,
+                    "tp_fused_stack": {"config": "configs/stress_gen.json", "B": TP_B,
+                                       "S_l": s_whole, "steps": 1}}))
     log(json.dumps({"kernels": kernels}))
 
 
@@ -1385,9 +1870,15 @@ def main() -> int:
         launches = {"mega_generate": phase_serving(params, arch, gpu),
                     "fused_stack": phase_pallas_engine(params, arch, gpu),
                     "turbo_step": phase_turbo_serving(params, arch, gpu)}
+        tp_arch, tp_params = tp_setup()
+        errs.update(phase_tp_kernel(tp_params, tp_arch, gpu))
+        launches["tp_fused_stack"], one_rank, tp_measured = phase_tp_serving_1rank(
+            tp_params, tp_arch, gpu)
+        tp_measured["two_rank_step_ms"] = phase_tp_serving_2rank(tp_params, tp_arch, one_rank,
+                                                                 gpu)
         train_launches, _ = phase_training(arch, gpu)
         launches.update(train_launches)
-        phase_timing(params, arch, errs, launches, gpu)
+        phase_timing(params, arch, errs, launches, gpu, (tp_arch, tp_params, tp_measured))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -11,6 +11,20 @@ and `generate` (the unconditioned, single-device parts of
     python -m lb_wavenet_tpu_torch.cli generate --config configs/wavenet30.json \
         --set gen.batch_size=8 --set gen.n_samples=16000 --set gen.engine=turbo
 
+Model-sharded serving and synthesis run one process per rank under
+torchrun (`torch.distributed`; NCCL when each rank has a card, gloo when
+ranks share one or run on the CPU):
+
+    torchrun --standalone --nproc-per-node 2 -m lb_wavenet_tpu_torch.cli serve \
+        --mesh-model 2 --config configs/stress_gen.json --requests requests.jsonl
+    torchrun --standalone --nproc-per-node 2 -m lb_wavenet_tpu_torch.cli generate \
+        --mesh-model 2 --device cpu --config configs/stress_gen.json
+
+`--mesh-model N` splits the model's skip width over N ranks (the data axis
+takes the rest of the ranks); `generate --fleet` shards the batch over every
+rank with the model replicated. Rank 0 writes the outputs and prints the
+summary, which states the mesh and its backend.
+
 `--set section.key=value` overrides any config field (values parsed as JSON,
 falling back to string). `--device` defaults to `cuda`; pass `--device cpu`
 to run the plain PyTorch paths. `train` writes its checkpoints to
@@ -18,8 +32,7 @@ train.checkpoint_dir and resumes from them; `generate`/`serve` read the
 params of the latest checkpoint in gen.checkpoint_dir (a training directory
 or `utils.checkpoint.save_params` files), and so does `eval`. The other
 subcommands (info, export, warm, pack), `train --profile` and the serving
-options (--listen, --artifact, --mesh-model, mel/speaker requests) are
-ROADMAP.md items.
+options (--listen, --artifact, mel/speaker requests) are ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -109,6 +122,27 @@ def _read_requests(path: str, cfg):
     return requests
 
 
+def _start_mesh(args, mesh_model: int):
+    """Join the ranks' process group (torchrun's environment, unless this
+    process already belongs to one) and make the (world / N, N) mesh.
+    Returns (mesh, whether this call started the group)."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .utils.multihost import init_distributed
+
+    started = not dist.is_initialized()
+    try:
+        init_distributed(device=args.device)
+        return make_mesh(-1, mesh_model, device=args.device), started
+    except ValueError as e:
+        raise SystemExit(f"--mesh-model {mesh_model}: {e}")
+
+
+def _distributed(args) -> bool:
+    return args.mesh_model > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
 def cmd_train(args) -> int:
     """Teacher-forced training from train.data_dir (JSONL metrics on
     stdout, checkpoints in train.checkpoint_dir)."""
@@ -156,6 +190,14 @@ def cmd_serve(args) -> int:
     params = restore_params(cfg.gen.checkpoint_dir)
     chunk = args.stream_chunk or 1024
     engine = _engine(cfg, "mega")
+    mesh, started = None, False
+    if _distributed(args):
+        # Model-sharded pool: skip-split sessions over the model axis.
+        mesh, started = _start_mesh(args, args.mesh_model)
+        if cfg.gen.global_rng and cfg.gen.temperature > 0:
+            raise SystemExit("mesh serving needs the per-lane sampling default "
+                             "(gen.global_rng=false) or temperature 0")
+    lead = mesh is None or (mesh.data_rank, mesh.model_rank) == (0, 0)
     acc = 0
     if args.deliver == "request":
         # Ring capacity: the longest request plus two chunks of slack.
@@ -166,9 +208,10 @@ def cmd_serve(args) -> int:
         engine=engine, chunk_size=chunk, temperature=cfg.gen.temperature,
         deliver=args.deliver, **({"acc_samples": acc} if acc else {}),
         per_lane_rng=not cfg.gen.global_rng, pipeline=args.pipeline,
-        device=args.device,
+        mesh=mesh, device=args.device,
     )
-    os.makedirs(cfg.gen.out_dir, exist_ok=True)
+    if lead:
+        os.makedirs(cfg.gen.out_dir, exist_ok=True)
 
     next_req = 0
     parts: dict = {}
@@ -195,7 +238,9 @@ def cmd_serve(args) -> int:
     while pool.active or next_req < len(requests):
         for rid, (classes, done) in pool.step().items():
             parts[rid].append(classes)
-            if done:
+            if done and not lead:
+                parts.pop(rid)
+            elif done:
                 wav = mu_law_decode(
                     torch.from_numpy(np.concatenate(parts.pop(rid))),
                     cfg.arch.quant_channels,
@@ -230,7 +275,14 @@ def cmd_serve(args) -> int:
     }
     if pool.device.type == "cuda":
         summary["gpu"] = torch.cuda.get_device_name(pool.device)
-    print(json.dumps(summary), flush=True)
+    if mesh is not None:
+        summary["mesh"] = mesh.describe()
+    if lead:
+        print(json.dumps(summary), flush=True)
+    if started:
+        from .utils.multihost import shutdown
+
+        shutdown()
     return 0
 
 
@@ -247,6 +299,11 @@ def cmd_generate(args) -> int:
     from .utils.checkpoint import restore_params
 
     params = restore_params(cfg.gen.checkpoint_dir)
+    if _distributed(args) or args.fleet:
+        if args.stream_chunk:
+            raise SystemExit("--stream-chunk sessions are single-process; drop it for "
+                             "mesh synthesis (or serve through `serve --mesh-model`)")
+        return _generate_mesh(args, cfg, params)
     engine = _engine(cfg, "xla")
     b = cfg.gen.batch_size
     if args.stream_chunk:
@@ -288,6 +345,45 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def _generate_mesh(args, cfg, params) -> int:
+    """Synthesis over a (data, model) process mesh: the GLOBAL
+    gen.batch_size is split over the data axis; --mesh-model N > 1 splits
+    the model's skip width over the model axis (mesh_generate_classes),
+    otherwise the model is replicated (fleet_generate_classes). The classes
+    are gathered on every rank; rank 0 writes the wavs and the summary."""
+    import numpy as np
+
+    from .data import write_wav
+    from .generate import mu_law_decode
+    from .ops.cuda.ar_mega import LANE_TILE
+    from .parallel.synthesis import fleet_generate_classes, mesh_generate_classes
+    from .utils.multihost import shutdown
+
+    mesh, started = _start_mesh(args, args.mesh_model)
+    batch = cfg.gen.batch_size
+    if batch % mesh.data:
+        raise SystemExit(f"gen.batch_size {batch} must divide by the data axis {mesh.data}")
+    engine = _engine(cfg, "mega" if (batch // mesh.data) % LANE_TILE == 0 else "turbo")
+    run = mesh_generate_classes if mesh.model > 1 else fleet_generate_classes
+    classes = run(params, cfg.arch, cfg.gen.seed, batch, cfg.gen.n_samples, mesh,
+                  engine=engine, temperature=cfg.gen.temperature,
+                  global_rng=cfg.gen.global_rng)
+    if (mesh.data_rank, mesh.model_rank) == (0, 0):
+        wav_np = mu_law_decode(classes, cfg.arch.quant_channels).cpu().numpy()
+        os.makedirs(cfg.gen.out_dir, exist_ok=True)
+        for i in range(wav_np.shape[0]):
+            write_wav(os.path.join(cfg.gen.out_dir, f"gen_{i:04d}.wav"), wav_np[i],
+                      cfg.arch.sample_rate)
+        print(json.dumps({
+            "generated": int(wav_np.shape[0]), "n_samples": int(wav_np.shape[1]),
+            "mesh": mesh.describe(), "engine": engine, "device": str(mesh.device),
+            "out_dir": cfg.gen.out_dir,
+        }), flush=True)
+    if started:
+        shutdown()
+    return 0
+
+
 def _add_common(p):
     p.add_argument("--config", default="", help="JSON config file")
     p.add_argument("--set", action="append", metavar="SECTION.KEY=VALUE",
@@ -316,6 +412,16 @@ def main(argv=None) -> int:
         help="emit audio incrementally in chunks of this many samples "
         "(streaming session; chunked output equals one-shot)",
     )
+    p_gen.add_argument(
+        "--mesh-model", default=1, type=int, metavar="N",
+        help="split the model's skip width over an N-rank model axis (run under "
+        "torchrun; the data axis takes the rest of the ranks)",
+    )
+    p_gen.add_argument(
+        "--fleet", action="store_true",
+        help="shard gen.batch_size over every rank with the model replicated "
+        "(implied under torchrun with more than one rank)",
+    )
     p_serve = sub.add_parser(
         "serve", help="continuous-batching request server over one streaming batch",
     )
@@ -333,6 +439,11 @@ def main(argv=None) -> int:
         "--pipeline", action=argparse.BooleanOptionalAction, default=True,
         help="double-buffer the serving loop (dispatch chunk t+1 while "
         "delivering chunk t; bit-identical output)",
+    )
+    p_serve.add_argument(
+        "--mesh-model", default=1, type=int, metavar="N",
+        help="serve a model-sharded pool: the skip width split over an N-rank "
+        "model axis (run under torchrun; the data axis takes the rest)",
     )
     p_serve.add_argument(
         "--deliver", choices=("chunk", "request"), default="chunk",

@@ -16,6 +16,16 @@ Engines:
   * engine="mega" — the whole generation loop in one CUDA kernel
     (ops/cuda/ar_mega.py); the serving default.
 
+Model-sharded synthesis (`model_axis`: the model axis's process group, or a
+`parallel.mesh.Mesh`; `parallel/synthesis.py` cuts each rank's skip slice
+of w_skip, b_skip and the rows of post.w1): every rank runs the whole stack
+down to its slice of the skip sum, and ONE all-reduce per sample step
+completes the post network's hidden layer (`post_network_sharded`). The
+xla and pallas engines keep their RingState; turbo and mega share the TP
+step (`_tp_scan`): kernel B7 (ops/cuda/ar_tp.py) through the local skip
+sum, then the all-reduce, sampling and the next step's frontend in
+PyTorch, in mega's op order, on a feature-major carry.
+
 Entry points run on the card (`device="cuda"`) unless the caller asks for
 the CPU; without a card they raise. On the CPU the kernel engines run their
 kernels' plain versions.
@@ -26,9 +36,9 @@ is not reproduced); `turbo` and `mega` sample from the stateless per-lane
 counter hash, whose bits equal the JAX package's, so per-lane seeds replay
 across frameworks and devices.
 
-Not ported yet (raise NotImplementedError, see ROADMAP.md A): model_axis
-(A queue item 7), cond/speaker_ids (A queue item 4), and the TPU VMEM-ring
-layout WAVENET_MEGA_VMEM_D > 1.
+Not ported yet (raise NotImplementedError, see ROADMAP.md A):
+cond/speaker_ids (A queue item 4) and the TPU VMEM-ring layout
+WAVENET_MEGA_VMEM_D > 1.
 """
 from __future__ import annotations
 
@@ -40,16 +50,19 @@ import torch
 
 from .config import ArchConfig
 from .models.wavenet import (
-    Params, _mm, compute_dtype, input_step, params_to, post_network,
+    Params, _mm, compute_dtype, input_step, params_to, post_network, rnd,
 )
-from .ops.cuda import ar_mega
+from .ops.cuda import ar_mega, build
 from .ops.cuda.ar_step import buffer_offsets, pallas_stack_step
+from .ops.cuda.ar_tp import tp_fused_stack
 from .ops.cuda.ar_turbo import turbo_generate
 from .ops.cuda.ar_mega import (
     LANE_TILE, _M32, _mix32, _mul32, _u32, estack_feature_major,
-    gumbel_from_bits, mega_generate, mega_zero_carry,
+    gumbel_from_bits, mega_generate, mega_zero_carry, sample_fm,
 )
+from .ops.cuda.train_stack import LAYER_KEYS
 from .ops.mulaw import mu_law_decode
+from .parallel.mesh import all_reduce_
 
 Rng = Union[int, torch.Generator]
 
@@ -67,6 +80,28 @@ def resolve_device(device) -> torch.device:
 
 def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A queue item {item})")
+
+
+def _model_group(model_axis):
+    """The process group of a model axis given as the group or as a
+    parallel.mesh.Mesh (the port's counterpart of a shard_map axis name)."""
+    if isinstance(model_axis, str):
+        raise TypeError(
+            f"model_axis={model_axis!r}: the port's model axis is a process group "
+            "(or a parallel.mesh.Mesh), not an axis name; see parallel/synthesis.py")
+    return getattr(model_axis, "model_group", model_axis)
+
+
+def post_network_sharded(params: Params, skip_local: torch.Tensor, dt, model_axis):
+    """Post network over a skip sum SHARDED on its channel dim: skip_local
+    is this rank's (B, S/n) slice, post.w1 its (S/n, S) row block. The
+    hidden pre-activation is completed with ONE all-reduce over the model
+    axis (b1 is added once, after it); w2 and b2 are whole. The entire
+    collective cost of model-sharded synthesis, per step."""
+    p = params["post"]
+    part = all_reduce_(_mm(torch.relu(skip_local), p["w1"], dt), _model_group(model_axis))
+    hidden = torch.relu(part + p["b1"])
+    return _mm(hidden, p["w2"], dt) + p["b2"]
 
 
 class RingState(NamedTuple):
@@ -108,17 +143,17 @@ def stack_step(
     x_class: torch.Tensor,
     cond_t: Optional[torch.Tensor] = None,
     gcond: Optional[torch.Tensor] = None,
-    model_axis: Optional[str] = None,
+    model_axis=None,
 ):
     """One incremental step: class (B,) at time t -> logits (B, Q).
 
     Mirrors models/wavenet.forward one timestep at a time, with ring reads
     standing in for the d-shifted activations. Returns (new embed_buf,
-    bufs (updated in place), logits)."""
+    bufs (updated in place), logits). With `model_axis` the skip width is
+    this rank's slice (w_skip's) and the post network is
+    post_network_sharded."""
     if cond_t is not None or gcond is not None:
         raise _not_ported("conditioning", 4)
-    if model_axis is not None:
-        raise _not_ported("model_axis", 7)
     dt = compute_dtype(arch)
     lp = params["layers"]
     h, new_embed_buf = input_step(params, arch, state.embed_buf, x_class)
@@ -136,6 +171,8 @@ def stack_step(
         z = torch.tanh(pre[..., :g]) * torch.sigmoid(pre[..., g:])
         h = h + _mm(z, lp["w_res"][i], dt) + lp["b_res"][i]
         skip_sum = skip_sum + _mm(z, lp["w_skip"][i], dt) + lp["b_skip"][i]
+    if model_axis is not None:
+        return new_embed_buf, bufs, post_network_sharded(params, skip_sum, dt, model_axis)
     return new_embed_buf, bufs, post_network(params, skip_sum, dt)
 
 
@@ -223,7 +260,7 @@ def generate_classes(
     return_logits: bool = False,
     engine: str = "xla",
     global_rng: bool = False,
-    model_axis: Optional[str] = None,
+    model_axis=None,
     device="cuda",
 ):
     """Sample n_samples steps. Returns classes (B, T) int32 [, logits
@@ -234,17 +271,34 @@ def generate_classes(
     Engines: "xla" | "pallas" | "turbo" | "mega". turbo and mega sample
     by default from the per-lane hash with seeds derived from the session
     seed; global_rng=True switches them to the batch-wide counter hash.
+
+    `model_axis` (the model axis's process group or Mesh; `params` hold this
+    rank's skip slice, as parallel/synthesis.py cuts them): model-sharded
+    synthesis, one all-reduce per step. turbo and mega then run the TP step
+    (kernel B7), which samples greedy or from the per-lane hash only.
     """
     _check_env()
     if cond is not None or speaker_ids is not None:
         raise _not_ported("conditioning", 4)
-    if model_axis is not None:
-        raise _not_ported("model_axis", 7)
     dev = resolve_device(device)
     params = params_to(params, dev)
     if forced is not None:
         forced = torch.as_tensor(forced, dtype=torch.int32).to(dev)
     b = int(batch)
+    if model_axis is not None:
+        _model_group(model_axis)
+    if model_axis is not None and engine in ("turbo", "mega"):
+        if return_logits:
+            raise ValueError(
+                "return_logits is not supported on the model-axis fused TP "
+                "path; use engine='pallas' (or 'xla') with model_axis for logits")
+        if global_rng and temperature > 0.0:
+            raise ValueError(
+                "global_rng sampling draws from the batch-wide counter hash inside "
+                "the fused kernels, which the TP path's sampler does not "
+                "reproduce; use the default per-lane hash (or greedy)")
+        return _generate_classes_tp(params, arch, rng, b, n_samples, forced,
+                                    temperature, model_axis)
     if engine == "mega":
         return _generate_classes_mega(
             params, arch, rng, b, n_samples, forced, temperature,
@@ -258,7 +312,7 @@ def generate_classes(
     state = init_ring_state(arch, b, rng, device=dev)
     _, out = _run_scan_engine(
         params, arch, state, 0, n_samples, forced, temperature,
-        return_logits, engine,
+        return_logits, engine, model_axis=model_axis,
     )
     if return_logits:
         classes, logits = out
@@ -277,7 +331,7 @@ def _resolve_step_fn(engine: str):
 def _run_scan_engine(params, arch: ArchConfig, state: RingState, t0: int,
                      n_samples: int, forced, temperature: float,
                      return_logits: bool, engine: str, lane_seed=None,
-                     lane_t0=None, lane_inv_temp=None):
+                     lane_t0=None, lane_inv_temp=None, model_axis=None):
     """Run n_samples steps from `state` at absolute time t0 (one-shot and
     streaming chunks share it: ring phase and RNG continue exactly).
 
@@ -290,7 +344,8 @@ def _run_scan_engine(params, arch: ArchConfig, state: RingState, t0: int,
     for i in range(n_samples):
         t = t0 + i
         embed_buf, _, logits = step_fn(
-            params, arch, state._replace(embed_buf=embed_buf), t, prev
+            params, arch, state._replace(embed_buf=embed_buf), t, prev,
+            model_axis=model_axis,
         )
         if lane_seed is not None:
             cls = _sample_class_perlane(
@@ -340,15 +395,19 @@ def _seed_base(rng: Rng) -> int:
                              generator=gen, device=gen.device))
 
 
+def _forced_ts(forced, n: int, b: int, device) -> torch.Tensor:
+    """(T, B) int32 time-major forced classes, -1 (free-running) when none."""
+    if forced is None:
+        return torch.full((n, b), -1, dtype=torch.int32, device=device)
+    return forced[:, :n].t().contiguous()
+
+
 def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
                            temperature, return_logits, global_rng):
     """One-shot mega: lanes padded to the kernel's lane tile (pad lanes are
     forced to class 0 and dropped)."""
     dev = params["embed"].device
-    if forced is None:
-        forced_ts = torch.full((n_samples, b), -1, dtype=torch.int32, device=dev)
-    else:
-        forced_ts = forced[:, :n_samples].t()
+    forced_ts = _forced_ts(forced, n_samples, b, dev)
     h0, e0 = _fused_frontend_zero(params, arch, b)
     seed_base = _seed_base(rng)
     pad = (-b) % LANE_TILE
@@ -381,10 +440,7 @@ def _generate_classes_turbo(params, arch, rng, b, n_samples, forced,
     """One-shot turbo from the zero-class frontend and empty rings; per-lane
     seeds derived from the session seed unless global_rng."""
     dev = params["embed"].device
-    if forced is None:
-        forced_ts = torch.full((n_samples, b), -1, dtype=torch.int32, device=dev)
-    else:
-        forced_ts = forced[:, :n_samples].t()
+    forced_ts = _forced_ts(forced, n_samples, b, dev)
     h0, e0 = _fused_frontend_zero(params, arch, b)
     state = {"bufs": torch.zeros((sum(arch.dilations), b, arch.residual_channels),
                                  device=dev), "e": e0, "h": h0}
@@ -400,11 +456,152 @@ def _generate_classes_turbo(params, arch, rng, b, n_samples, forced,
     return classes.t()
 
 
+# ---------------------------------------------------------------------------
+# Model-sharded turbo/mega: the TP step (JAX `_tp_scan` and its callers).
+
+def _tr(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+def _tp_weights(params: Params, lp: dict, dt: torch.dtype) -> dict:
+    """Feature-major weights of the TP step, made once per weight set. The
+    kernel's views are JAX's (`_tp_weights`): wcat (L, 2G, 2C), b, wrs
+    (L, C+S_l, G) (the skip part is this rank's slice) and brs. The post
+    network's and the frontend's matrices (w1T (S, S_l), w2T, embT, wicurT,
+    wipastT) are held already rounded to the compute dtype, which their
+    products would otherwise do on every step."""
+    pp, ic = params["post"], params["input_conv"]
+    k = ic["w"].shape[0]
+
+    def make():
+        return {
+            "wcat": _tr(torch.cat([lp["w_cur"], lp["w_prev"]], 1)),
+            "b": lp["b"][:, :, None],
+            "wrs": torch.cat([_tr(lp["w_res"]), _tr(lp["w_skip"])], 1),
+            "brs": torch.cat([lp["b_res"], lp["b_skip"]], 1)[:, :, None],
+            "w1T": rnd(_tr(pp["w1"]), dt).contiguous(),
+            "b1": pp["b1"][:, None],
+            "w2T": rnd(_tr(pp["w2"]), dt).contiguous(),
+            "b2": pp["b2"][:, None],
+            "embT": rnd(_tr(params["embed"]), dt).contiguous(),
+            "wicurT": rnd(_tr(ic["w"][k - 1]), dt).contiguous(),
+            "bi": ic["b"][:, None],
+            "wipastT": rnd(_tr(ic["w"][: k - 1]), dt).contiguous(),
+        }
+
+    sources = (*(lp[n] for n in LAYER_KEYS), *(pp[n] for n in ("w1", "b1", "w2", "b2")),
+               params["embed"], ic["w"], ic["b"])
+    return build.prepared(f"tp_weights {dt}", sources, make)
+
+
+def _tp_zero_state(params: Params, arch: ArchConfig, batch: int) -> dict:
+    """The TP carry of a fresh session, feature-major (lanes last) as JAX's:
+    empty rings (sum_d, C, B), h (C, B) and the embedding stack ((K-1)C, B)
+    from the zero class."""
+    h0, e0 = _fused_frontend_zero(params, arch, batch)
+    return {
+        "bufs": torch.zeros((sum(arch.dilations), arch.residual_channels, batch),
+                            device=h0.device),
+        "h": h0.t().to(torch.float32).contiguous(),
+        "e_s": estack_feature_major(e0).contiguous(),
+    }
+
+
+def _tp_logits(fm: dict, skip_local: torch.Tensor, group, dt) -> torch.Tensor:
+    """(Q, B) logits from the local skip sum: this rank's partial product
+    of the post network's first layer, ONE all-reduce over the model axis,
+    then relu(. + b1) and the second layer (post_network_sharded,
+    feature-major)."""
+    part = all_reduce_(fm["w1T"] @ rnd(torch.relu(skip_local), dt), group)
+    hidden = torch.relu(part + fm["b1"])
+    return fm["w2T"] @ rnd(hidden, dt) + fm["b2"]
+
+
+def _tp_next_frontend(fm: dict, state: dict, cls: torch.Tensor, dt) -> None:
+    """The next step's residual input from the sampled classes, in place:
+    h = (bi + wicurT @ e) + sum_j wipastT[j] @ e_s[j], then the embedding
+    stack shifts and takes e (mega's frontend)."""
+    e_s = state["e_s"]
+    c = state["h"].shape[0]
+    e_next = fm["embT"][:, cls.long()]
+    h = fm["bi"] + fm["wicurT"] @ e_next
+    for j in range(fm["wipastT"].shape[0]):
+        h = h + fm["wipastT"][j] @ rnd(e_s[j * c: (j + 1) * c], dt)
+    if e_s.shape[0]:
+        e_s[:-c] = e_s[c:].clone()
+        e_s[-c:] = e_next
+    state["h"].copy_(h)
+
+
+def _tp_scan(fm: dict, arch: ArchConfig, state: dict, t0: int, forced_ts,
+             temperature: float, model_axis, lane=None) -> torch.Tensor:
+    """Steps t0 .. t0 + T - 1 of the TP step: kernel B7 through the LOCAL
+    skip sum, one all-reduce completing the post hidden, sampling (greedy
+    or the per-lane hash with the (2|3, B) lane block: ar_mega.sample_fm,
+    JAX's `_perlane_gumbel_fm` noise and first-max argmax) and the next
+    step's frontend, in the JAX op order. state {"bufs" (sum_d, C, B), "h"
+    (C, B), "e_s" ((K-1)C, B)} is updated in place; forced_ts (T, B) int32.
+    Returns classes (T, B) int32."""
+    dt = compute_dtype(arch)
+    group = _model_group(model_axis)
+    classes = torch.empty(forced_ts.shape, dtype=torch.int32, device=state["h"].device)
+    for i in range(forced_ts.shape[0]):
+        t = t0 + i
+        _, skip_local = tp_fused_stack(fm, arch, state["h"], state["bufs"], t)
+        logits = _tp_logits(fm, skip_local, group, dt)
+        classes[i] = sample_fm(logits, temperature, lane, t, 0, forced_ts[i])
+        _tp_next_frontend(fm, state, classes[i], dt)
+    return classes
+
+
+def _generate_classes_tp(params, arch, rng, b, n_samples, forced, temperature,
+                         model_axis):
+    """One-shot model-sharded turbo/mega from a fresh TP carry; per-lane
+    seeds derived from the session seed when sampling."""
+    dev = params["embed"].device
+    state = _tp_zero_state(params, arch, b)
+    lane = None
+    if temperature > 0.0:
+        lane = torch.stack([derive_lane_seeds(_seed_base(rng), b, dev),
+                            torch.zeros((b,), dtype=torch.int32, device=dev)])
+    fm = _tp_weights(params, params["layers"], compute_dtype(arch))
+    return _tp_scan(fm, arch, state, 0, _forced_ts(forced, n_samples, b, dev),
+                    temperature, model_axis, lane).t()
+
+
+def _tp_stream_chunk(params, arch, stream, chunk_size: int, forced, temperature: float,
+                     model_axis, lane_seed=None, lane_t0=None, lane_inv_temp=None):
+    """One model-sharded chunk of the TP step at ABSOLUTE time stream.t + i
+    (ring slots and the per-lane hash), so chunked output equals the
+    one-shot TP run; the carry is updated in place."""
+    st = stream.state
+    b = st["h"].shape[-1]
+    fm = _tp_weights(params, params["layers"], compute_dtype(arch))
+    forced_ts = _forced_ts(forced, chunk_size, b, st["h"].device)
+    classes = _tp_scan(fm, arch, st, stream.t, forced_ts, temperature, model_axis,
+                       _pack_lane(lane_seed, lane_t0, lane_inv_temp))
+    return classes.t(), Stream(st, stream.t + chunk_size)
+
+
+def _tp_reset_lanes(params, arch, stream, mask):
+    """reset_lanes of the TP carry, in place: the masked lanes (columns)
+    take empty rings and the zero-class frontend."""
+    st = stream.state
+    h0, e0 = _fused_frontend_zero(params, arch, st["h"].shape[-1])
+    col = mask[None, :]
+    st["bufs"].masked_fill_(mask[None, None, :], 0.0)
+    st["h"].copy_(torch.where(col, h0.t(), st["h"]))
+    st["e_s"].copy_(torch.where(col, estack_feature_major(e0), st["e_s"]))
+    return stream
+
+
 class Stream(NamedTuple):
     """Carried state of a streaming session: a RingState (xla/pallas), a
-    {"bufs", "e", "h", "seed_base"} dict (turbo) or a {"carry",
-    "seed_base"} dict (mega). Pass the SAME engine to every stream_chunk of
-    a session. Chunks update the state in place."""
+    {"bufs", "e", "h", "seed_base"} dict (turbo), a {"carry", "seed_base"}
+    dict (mega) or, for model-sharded turbo/mega, the feature-major TP
+    carry {"bufs", "h", "e_s", "seed_base"}. Pass the SAME engine (and
+    model axis) to every stream_chunk of a session. Chunks update the state
+    in place."""
 
     state: object
     t: int  # absolute sample index of the next step
@@ -429,19 +626,24 @@ def padded_stream_batch(batch: int, engine: str) -> int:
 
 def start_stream(arch: ArchConfig, batch: int, rng: Rng, engine: str = "xla",
                  params: Optional[Params] = None,
-                 model_axis: Optional[str] = None, device="cuda") -> Stream:
+                 model_axis=None, device="cuda") -> Stream:
     """Open a streaming session (see stream_chunk). turbo and mega need
     `params` to seed their carry; mega needs batch % MEGA_LANE_MULTIPLE == 0
     (open it at padded_stream_batch and slice the pad lanes off, as
-    SessionPool does), turbo streams at any batch."""
+    SessionPool does), turbo streams at any batch. With `model_axis`
+    (params: this rank's skip slice) turbo and mega carry the TP step's
+    state instead, at any batch; xla and pallas keep their RingState."""
     _check_env()
-    if model_axis is not None:
-        raise _not_ported("model_axis", 7)
     dev = resolve_device(device)
     if engine in ("mega", "turbo"):
         if params is None:
             raise ValueError(f"start_stream(engine='{engine}') needs params")
         params = params_to(params, dev)
+        if model_axis is not None:
+            _model_group(model_axis)
+            state = _tp_zero_state(params, arch, batch)
+            state["seed_base"] = _seed_base(rng)
+            return Stream(state, 0)
         h0, e0 = _fused_frontend_zero(params, arch, batch)
         if engine == "mega":
             state = {"carry": mega_zero_carry(arch, h0, e0)}
@@ -474,7 +676,7 @@ def stream_chunk(
     lane_seed=None,                             # (B,) int32 per-lane seeds
     lane_t0=None,                               # (B,) int32 lane lease times
     global_rng: bool = False,
-    model_axis: Optional[str] = None,
+    model_axis=None,
     lane_inv_temp=None,                         # (B,) f32 1/tau (0 = greedy)
 ):
     """Emit the next chunk_size samples; returns (classes (B, chunk)[,
@@ -483,11 +685,20 @@ def stream_chunk(
     concatenated output equals one generate_classes call of the same
     length. turbo and mega default to per-lane seeds derived from the
     session seed (lane time == absolute time); explicit lane_seed/lane_t0
-    override them; global_rng=True uses the batch-wide counter hash."""
+    override them; global_rng=True uses the batch-wide counter hash.
+    `model_axis` as in generate_classes (turbo/mega: the TP step, greedy or
+    per-lane sampling only)."""
     if cond is not None or speaker_ids is not None:
         raise _not_ported("conditioning", 4)
+    tp = model_axis is not None and engine in ("mega", "turbo")
     if model_axis is not None:
-        raise _not_ported("model_axis", 7)
+        _model_group(model_axis)
+    if tp and return_logits:
+        raise ValueError("return_logits is not supported on the model-axis fused TP path")
+    if tp and global_rng and temperature > 0.0:
+        raise ValueError(
+            "global_rng sampling is not available under model-axis streaming; "
+            "use per-lane seeds (the default) or greedy")
     if forced is not None and forced.shape[1] != chunk_size:
         raise ValueError(
             f"stream_chunk forced must be (B, {chunk_size}), got "
@@ -504,11 +715,16 @@ def stream_chunk(
         if global_rng:
             raise ValueError("lane_inv_temp needs per-lane sampling, "
                              "not global_rng")
-    if engine == "mega":
+    if tp:
+        dev = stream.state["h"].device
+        b_dev = stream.state["h"].shape[-1]
+    elif engine == "mega":
         carry = stream.state["carry"]
         dev = carry["h_s"].device
+        b_dev = carry["h_s"].shape[-1]
     elif engine == "turbo":
         dev = stream.state["h"].device
+        b_dev = stream.state["h"].shape[0]
     else:
         dev = stream.state.bufs.device
     params = params_to(params, dev)
@@ -522,9 +738,11 @@ def stream_chunk(
             temperature > 0.0 and not global_rng):
         # The one-shot default: per-lane hash, seeds derived from the session
         # seed, lane time == absolute time (chunked output equals one-shot).
-        b_dev = carry["h_s"].shape[-1] if engine == "mega" else stream.state["h"].shape[0]
         lane_seed = derive_lane_seeds(stream.state["seed_base"], b_dev, dev)
         lane_t0 = torch.zeros((b_dev,), dtype=torch.int32, device=dev)
+    if tp:
+        return _tp_stream_chunk(params, arch, stream, chunk_size, forced, temperature,
+                                model_axis, lane_seed, lane_t0, lane_inv_temp)
     if engine == "mega":
         return _mega_stream_chunk(
             params, arch, stream, chunk_size, forced, temperature,
@@ -543,7 +761,7 @@ def stream_chunk(
     new_state, out = _run_scan_engine(
         params, arch, stream.state, stream.t, chunk_size, forced,
         temperature, return_logits, engine, lane_seed=lane_seed,
-        lane_t0=lane_t0, lane_inv_temp=lane_inv_temp,
+        lane_t0=lane_t0, lane_inv_temp=lane_inv_temp, model_axis=model_axis,
     )
     new_stream = Stream(new_state, stream.t + chunk_size)
     if return_logits:
@@ -565,11 +783,7 @@ def _mega_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
             f"mega streaming needs batch % {LANE_TILE} == 0, got {b}; open "
             "the session at padded_stream_batch(batch, 'mega')"
         )
-    if forced is None:
-        forced_ts = torch.full((chunk_size, b), -1, dtype=torch.int32,
-                               device=dev)
-    else:
-        forced_ts = forced.t()
+    forced_ts = _forced_ts(forced, chunk_size, b, dev)
     out = mega_generate(
         params, params["layers"], arch, None, None,
         stream.state["seed_base"], forced_ts[:, None, :], None, chunk_size,
@@ -600,11 +814,7 @@ def _turbo_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
     stack, h) between chunks in place."""
     st = stream.state
     b = st["h"].shape[0]
-    if forced is None:
-        forced_ts = torch.full((chunk_size, b), -1, dtype=torch.int32,
-                               device=st["h"].device)
-    else:
-        forced_ts = forced.t()
+    forced_ts = _forced_ts(forced, chunk_size, b, st["h"].device)
     classes, logits = turbo_generate(
         params, params["layers"], arch, st, stream.t, forced_ts, temperature,
         return_logits, _pack_lane(lane_seed, lane_t0, lane_inv_temp), st["seed_base"],
@@ -616,16 +826,19 @@ def _turbo_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
 
 
 def reset_lanes(params: Params, arch: ArchConfig, stream: Stream,
-                lane_mask, engine: str = "xla",
-                model_axis: Optional[str] = None) -> Stream:
+                lane_mask, engine: str = "xla", model_axis=None) -> Stream:
     """Continuous batching: reset the masked lanes to a fresh session start,
     in place. Each ring slot is read before it is written, so a lane whose
     ring columns are zero sees exactly the zero pre-start context of a t=0
     session at any global phase: a recycled lane's greedy/teacher-forced
-    (and per-lane sampled) output equals a fresh session's."""
-    if model_axis is not None:
-        raise _not_ported("model_axis", 7)
+    (and per-lane sampled) output equals a fresh session's. With
+    `model_axis`, turbo and mega reset the TP carry (params: this rank's
+    skip slice)."""
     # masked_fill_/where rather than boolean indexing: no host sync.
+    if model_axis is not None and engine in ("mega", "turbo"):
+        dev = stream.state["h"].device
+        return _tp_reset_lanes(params_to(params, dev), arch, stream,
+                               torch.as_tensor(lane_mask).to(dev, torch.bool))
     if engine in ("xla", "pallas"):
         rs: RingState = stream.state
         mask = torch.as_tensor(lane_mask).to(rs.bufs.device, torch.bool)

@@ -19,7 +19,7 @@ package's `mm_embed_grad` (a matmul formulation written for the TPU), so
 that training option is accepted and changes nothing here.
 
 Not ported yet (ROADMAP.md A): mel/speaker conditioning (A queue item 4)
-and the sequence-parallel input mask (A queue item 7).
+and the sequence-parallel input mask (A queue item 7b).
 """
 from __future__ import annotations
 

@@ -132,15 +132,21 @@ def pallas_stack_step(
     x_class: torch.Tensor,
     cond_t: Optional[torch.Tensor] = None,
     gcond: Optional[torch.Tensor] = None,
-    model_axis: Optional[str] = None,
+    model_axis=None,
 ):
-    """Drop-in replacement for generate.stack_step using fused_stack."""
+    """Drop-in replacement for generate.stack_step using fused_stack. With
+    `model_axis` the params hold this rank's skip slice: the kernel takes S
+    from w_skip's shape and the post network is
+    generate.post_network_sharded (one all-reduce)."""
     if cond_t is not None or gcond is not None:
         raise NotImplementedError(
             "conditioning waits for the mel/speaker slice (ROADMAP.md A queue item 4)"
         )
-    if model_axis is not None:
-        raise NotImplementedError("model_axis waits for ROADMAP.md A queue item 7")
     h, new_embed_buf = input_step(params, arch, state.embed_buf, x_class)
     bufs, skip = fused_stack(params["layers"], arch, h, state.bufs, t)
-    return new_embed_buf, bufs, post_network(params, skip, compute_dtype(arch))
+    dt = compute_dtype(arch)
+    if model_axis is not None:
+        from ...generate import post_network_sharded
+
+        return new_embed_buf, bufs, post_network_sharded(params, skip, dt, model_axis)
+    return new_embed_buf, bufs, post_network(params, skip, dt)

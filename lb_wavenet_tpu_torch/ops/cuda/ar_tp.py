@@ -1,0 +1,120 @@
+"""tp_fused_stack: one sample step of the model-sharded stack, all L layers
+through this rank's skip slice (CUDA kernel `csrc/ar_tp.cu`).
+
+Replaces `lb_wavenet_tpu/ops/pallas/ar_tp.py` (`tp_fused_stack`, body
+`_tp_kernel`). The TPU kernel walks a sequential grid over the layers with
+h, the local skip sum and the [h ; tap] pair in VMEM scratch; the CUDA
+kernel gives one block a tile of lanes for all layers and keeps them in
+shared memory (design and bound: the note at the top of `csrc/ar_tp.cu`).
+
+Arithmetic follows the TPU kernel, which keeps mega's accumulation
+contract: ONE merged [h ; tap] 2C-deep product against wcat, ONE merged
+z @ [w_res | w_skip_local] product, mega's bias order, operands in the
+compute dtype and fp32 sums. So greedy output of the model-sharded path
+tracks single-device mega.
+
+`fm` holds the weights in the JAX kernel's FEATURE-major views
+(`generate._tp_weights`): wcat (L, 2G, 2C), b (L, 2G, 1), wrs (L, C+S_l, G),
+brs (L, C+S_l, 1), where S_l is this rank's skip slice; the wrapper makes
+the kernel's k-major compute-dtype copies once per weight set
+(`build.prepared`). The step takes the absolute time t and the kernel
+computes each layer's ring slot offset_l + t mod d_l, as the port's
+fused_stack does (the JAX kernel takes the slots). The ring (sum_d, C, B) is
+updated IN PLACE (the JAX kernel aliases it onto its output). A CPU tensor
+takes `tp_fused_stack_plain`; a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ...config import ArchConfig
+from ...models.wavenet import compute_dtype, rnd
+from . import build
+from .ar_step import buffer_offsets
+
+
+def tp_fused_stack_plain(fm: dict, arch: ArchConfig, h0, bufs, t: int):
+    """PyTorch version of the kernel on any device, op for op as the JAX
+    kernel: (bufs, skip_local (S_l, B) fp32)."""
+    dt = compute_dtype(arch)
+    c = h0.shape[0]
+    s_l = fm["wrs"].shape[1] - c
+    h = h0.to(torch.float32)
+    skip = torch.zeros((s_l, h0.shape[1]), device=h0.device)
+    for l, (off, d) in enumerate(zip(buffer_offsets(arch), arch.dilations)):
+        slot = off + t % d
+        tap = bufs[slot].clone()
+        bufs[slot] = h
+        pre = rnd(fm["wcat"][l], dt) @ rnd(torch.cat([h, tap], 0), dt) + fm["b"][l]
+        g = pre.shape[0] // 2
+        z = torch.tanh(pre[:g]) * torch.sigmoid(pre[g:])
+        rs = rnd(fm["wrs"][l], dt) @ rnd(z, dt)
+        brs = fm["brs"][l]
+        h = h + rs[:c] + brs[:c]
+        skip = skip + (rs[c:] + brs[c:])
+    return bufs, skip
+
+
+class _TpArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "h0", "bufs", "dils", "wcat", "b", "wrs", "brs", "skip",
+    )] + [(n, ctypes.c_int) for n in ("B", "L", "C", "G", "S", "t", "bf16")]
+
+
+def _check(name, x, shape, dtype, device):
+    if x.shape != shape or x.dtype != dtype or x.device != device or not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {tuple(shape)} {dtype} on {device}, "
+                         f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def tp_fused_stack(
+    fm: dict,
+    arch: ArchConfig,
+    h0: torch.Tensor,          # (C, B) fp32 feature-major residual input
+    bufs: torch.Tensor,        # (sum_d, C, B) fp32 packed rings, in place
+    t: int,                    # absolute step: ring slot offset_l + t mod d_l
+    cond_t: Optional[torch.Tensor] = None,
+):
+    """Run all gated layers; returns (bufs, skip_local (S_l, B) fp32)."""
+    if cond_t is not None or "wcond" in fm:
+        raise NotImplementedError(
+            "conditioned tp_fused_stack waits for the mel slice (ROADMAP.md A queue item 4)")
+    if not build.on_card(h0.device, "tp_fused_stack"):
+        return tp_fused_stack_plain(fm, arch, h0, bufs, t)
+    dev = h0.device
+    dt = compute_dtype(arch)
+    c, b = h0.shape
+    L = len(arch.dilations)
+    two_g = fm["wcat"].shape[1]
+    s_l = fm["wrs"].shape[1] - c
+    _check("h0", h0, (c, b), torch.float32, dev)
+    _check("bufs", bufs, (sum(arch.dilations), c, b), torch.float32, dev)
+    names = ("wcat", "b", "wrs", "brs")
+
+    def kmajor():  # k-major weights in the compute dtype, biases fp32 (L, M)
+        return {
+            "wcat": fm["wcat"].transpose(1, 2).to(dev, dt).contiguous(),
+            "b": fm["b"][..., 0].to(dev, torch.float32).contiguous(),
+            "wrs": fm["wrs"].transpose(1, 2).to(dev, dt).contiguous(),
+            "brs": fm["brs"][..., 0].to(dev, torch.float32).contiguous(),
+        }
+
+    ops = build.prepared(f"tp_fused_stack {dev} {dt}", tuple(fm[k] for k in names), kmajor)
+    _check("wcat", ops["wcat"], (L, 2 * c, two_g), dt, dev)
+    _check("wrs", ops["wrs"], (L, two_g // 2, c + s_l), dt, dev)
+    skip = torch.empty((s_l, b), dtype=torch.float32, device=dev)
+    args = _TpArgs(
+        h0.data_ptr(), bufs.data_ptr(),
+        build.int32_table(tuple(arch.dilations), str(dev)).data_ptr(),
+        *(ops[k].data_ptr() for k in names), skip.data_ptr(),
+        b, L, c, two_g // 2, s_l, int(t), int(dt == torch.bfloat16),
+    )
+    tp_fused_stack.launches += build.launch(build.load("ar_tp"), "wn_tp_fused_stack",
+                                            args, dev)
+    return bufs, skip
+
+
+tp_fused_stack.launches = 0

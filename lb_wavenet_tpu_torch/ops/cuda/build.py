@@ -131,10 +131,12 @@ _prepared: "OrderedDict" = OrderedDict()
 def prepared(tag: str, sources: tuple, make):
     """`make()` (e.g. the weights cast to the compute dtype), computed once
     per `sources` and reused while each source tensor keeps its storage and
-    has not been written in place since (its version counter). The entry
-    holds the sources, so their storage cannot be reused by another tensor
-    while it is cached; the few newest entries are kept."""
-    key = (tag,) + tuple((t.data_ptr(), t._version, t.dtype, tuple(t.shape))
+    has not been written in place since (its version counter). A view keys
+    by its own shape and strides, so a slice of a weight (a rank's skip
+    slice) is keyed apart from the whole. The entry holds the sources, so
+    their storage cannot be reused by another tensor while it is cached; the
+    few newest entries are kept."""
+    key = (tag,) + tuple((t.data_ptr(), t._version, t.dtype, tuple(t.shape), t.stride())
                          for t in sources)
     hit = _prepared.get(key)
     if hit is None:

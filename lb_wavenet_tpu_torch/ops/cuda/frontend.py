@@ -185,6 +185,6 @@ def fused_frontend(embed: torch.Tensor, conv: dict, x_classes: torch.Tensor,
     if input_mask is not None:
         raise NotImplementedError(
             "the sequence-parallel input mask waits for the parallelism slice "
-            "(ROADMAP.md A queue item 7)")
+            "(ROADMAP.md A queue item 7b)")
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[str(compute_dtype)]
     return _Frontend.apply(dt, x_classes, embed, conv["w"], conv["b"])

@@ -235,7 +235,7 @@ def make_fused_stack(arch: ArchConfig, has_cond: bool = False, tapcat: bool = Fa
     if has_mask:
         raise NotImplementedError(
             "the sequence-parallel input mask waits for the parallelism slice "
-            "(ROADMAP.md A queue item 7)")
+            "(ROADMAP.md A queue item 7b)")
     dils = tuple(arch.dilations)
     dt = compute_dtype(arch)
 

@@ -13,8 +13,14 @@ batch to requests and recycles them in place as they finish.
     host (deliver="chunk"), or accumulated in a device-side uint8 time ring
     and gathered once per completed request (deliver="request").
 
-Not ported yet: frozen artifacts, model-sharded pools and mel/speaker
-requests (ROADMAP.md A queue items 4, 5 and 7).
+`mesh=` (a parallel.mesh.Mesh) serves a MODEL-SHARDED pool: the session is a
+parallel.synthesis.ShardedSession (skip split over `model`, lanes over
+`data`). Every rank of the mesh runs the pool with the same submits, so the
+lane bookkeeping is replicated; each chunk's classes are all-gathered over
+`data`, so every rank (the CLI: rank 0) can deliver.
+
+Not ported yet: frozen artifacts and mel/speaker requests (ROADMAP.md A
+queue items 4 and 5).
 """
 from __future__ import annotations
 
@@ -91,15 +97,20 @@ class SessionPool:
             raise NotImplementedError(
                 "serving artifacts are not ported yet (ROADMAP.md A queue item 5)"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "model-sharded pools are not ported yet (ROADMAP.md A queue item 7)"
-            )
         if arch.use_local_cond or arch.use_global_cond:
             raise NotImplementedError(
                 "mel/speaker serving is not ported yet (ROADMAP.md A queue item 4)"
             )
-        self.device = resolve_device(device)
+        self._session = None
+        if mesh is not None:
+            if not per_lane_rng and temperature > 0.0:
+                raise ValueError(
+                    "mesh pools need per_lane_rng=True (or greedy): the "
+                    "session-global chain is not available under model sharding"
+                )
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.params = params_to(params, self.device)
         self.arch = arch
         self.batch = batch
@@ -120,8 +131,9 @@ class SessionPool:
             0, np.iinfo(np.int32).max, (), generator=gen, device=gen.device
         ))
         # The device session is padded to the engine's lane multiple; pad
-        # lanes are free-running throwaways, never leased.
-        self._device_batch = padded_stream_batch(batch, engine)
+        # lanes are free-running throwaways, never leased. A mesh pool's TP
+        # step takes any batch: its device batch is the pool batch.
+        self._device_batch = batch if mesh is not None else padded_stream_batch(batch, engine)
         self._lane_seed = np.zeros(self._device_batch, np.int32)
         self._lane_t0 = np.zeros(self._device_batch, np.int32)
         # Host-computed float32(1.0 / tau) per lane; inv == 0 is greedy.
@@ -132,9 +144,15 @@ class SessionPool:
         self._lane_inv_temp = np.full(
             self._device_batch, self._default_inv, np.float32
         )
-        self.stream = start_stream(arch, self._device_batch, rng,
-                                   engine=engine, params=self.params,
-                                   device=self.device)
+        if mesh is not None:
+            from .parallel.synthesis import ShardedSession
+
+            self._session = ShardedSession(self.params, arch, batch, rng, mesh, engine=engine)
+            self.stream = None
+        else:
+            self.stream = start_stream(arch, self._device_batch, rng,
+                                       engine=engine, params=self.params,
+                                       device=self.device)
         self._lanes: List[Optional[_Lease]] = [None] * batch
         # Free-lane min-heap: submit() leases the LOWEST free index.
         self._free: List[int] = list(range(batch))
@@ -285,10 +303,13 @@ class SessionPool:
         (asynchronous on the card); returns (classes handle, metadata)."""
         t0 = time.perf_counter()
         if self._pending_reset.any():
-            self.stream = reset_lanes(
-                self.params, self.arch, self.stream,
-                self._to_device(self._pending_reset), engine=self.engine,
-            )
+            if self._session is not None:
+                self._session.reset_lanes(self._pending_reset.copy())
+            else:
+                self.stream = reset_lanes(
+                    self.params, self.arch, self.stream,
+                    self._to_device(self._pending_reset), engine=self.engine,
+                )
             self._pending_reset[:] = False
         t1 = time.perf_counter()
         self.stats["reset_s"] += t1 - t0
@@ -303,11 +324,15 @@ class SessionPool:
                 # Always ride the per-lane inverse temperature on sampled
                 # pools: logits * f32(1/tau) equals the folded constant.
                 lane_kw["lane_inv_temp"] = self._to_device(self._lane_inv_temp)
-        classes, self.stream = stream_chunk(
-            self.params, self.arch, self.stream, self.chunk_size,
-            temperature=self.temperature, engine=self.engine,
-            global_rng=not self.per_lane_rng, **lane_kw,
-        )
+        if self._session is not None:
+            classes = self._session.chunk(self.chunk_size, temperature=self.temperature,
+                                          **lane_kw)
+        else:
+            classes, self.stream = stream_chunk(
+                self.params, self.arch, self.stream, self.chunk_size,
+                temperature=self.temperature, engine=self.engine,
+                global_rng=not self.per_lane_rng, **lane_kw,
+            )
         if self.arch.quant_channels <= 256:
             classes = classes.to(torch.uint8)
         if self._acc is not None:

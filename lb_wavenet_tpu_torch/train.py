@@ -20,7 +20,7 @@ passes device="cpu" (then the kernels' plain versions run).
 `run_training` evaluates on a held-out corpus every train.eval_every steps
 (eval.py). Not ported yet, and raising NotImplementedError (ROADMAP.md A):
 model and sequence parallelism (mesh_model > 1, mesh_data > 1,
-seq_parallel; A queue item 7), TensorBoard (A queue item 8) and mel/speaker
+seq_parallel; A queue item 7b), TensorBoard (A queue item 8) and mel/speaker
 conditioning (A queue item 4).
 """
 from __future__ import annotations
@@ -260,7 +260,7 @@ def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
     if train.mesh_model > 1 or train.mesh_data > 1 or train.seq_parallel:
         raise NotImplementedError(
             "model, data and sequence parallelism (train.mesh_model > 1, "
-            "mesh_data > 1, seq_parallel) wait for ROADMAP.md A queue item 7; "
+            "mesh_data > 1, seq_parallel) wait for ROADMAP.md A queue item 7b; "
             "the port trains on one device")
     if train.tensorboard_dir:
         raise NotImplementedError(

@@ -60,7 +60,10 @@ def test_mu_law_bit_exact():
 def _port_sources():
     files = glob.glob(os.path.join(ROOT, "lb_wavenet_tpu_torch", "**", "*.py"),
                       recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+    # The rank worker of tests/test_torch_tp.py runs in processes that must
+    # not import JAX either.
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
+                            os.path.join(ROOT, "tests", "torch_tp_ranks.py")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -90,6 +93,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "lb_wavenet_tpu_torch/ops/cuda/post_loss.py", "chip_smoke.py",
         "lb_wavenet_tpu_torch/eval.py", "lb_wavenet_tpu_torch/ops/cuda/frontend.py",
         "lb_wavenet_tpu_torch/ops/cuda/ar_turbo.py",
+        "lb_wavenet_tpu_torch/ops/cuda/ar_tp.py", "lb_wavenet_tpu_torch/parallel/mesh.py",
+        "lb_wavenet_tpu_torch/parallel/synthesis.py",
+        "lb_wavenet_tpu_torch/utils/multihost.py", "tests/torch_tp_ranks.py",
     }
     assert training_slice <= scanned, training_slice - scanned
     assert len(scanned) > 15
@@ -127,10 +133,13 @@ def test_kernel_wrappers_refuse_unknown_devices_and_unported_options():
     h = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_stack(params["layers"], arch, h, torch.zeros((3, 2, 8), device="meta"), 0)
-    for kw, item in ((dict(model_axis="model"), "A queue item 7"),
+    for kw, item in ((dict(cond=torch.zeros(2, 4, 3)), "A queue item 4"),
                      (dict(speaker_ids=torch.zeros(2)), "A queue item 4")):
         with pytest.raises(NotImplementedError, match=item):
             generate_classes(params, arch, 0, 2, 4, device="cpu", **kw)
+    # The model axis is ported; it is a process group, not an axis name.
+    with pytest.raises(TypeError, match="process group"):
+        generate_classes(params, arch, 0, 2, 4, device="cpu", model_axis="model")
 
 
 def test_vmem_ring_layout_is_not_ported(monkeypatch):

@@ -313,3 +313,111 @@ def test_recipe_training_step_on_card(cuda):
     assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
     for a, b in zip(PT.tree_leaves(grads_g), PT.tree_leaves(grads_c)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
+
+
+def _tp_inputs(arch, b, seed, cuda):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = arch.residual_channels
+    return (torch.randn((c, b), device=cuda, generator=g),
+            torch.randn((sum(arch.dilations), c, b), device=cuda, generator=g))
+
+
+@pytest.mark.parametrize("width", ["small", "stress"])
+def test_tp_fused_stack_kernel_matches_plain(cuda, width):
+    """B7 against its plain version: the small fp32 arch at a ragged and a
+    whole lane tile, and configs/stress_gen.json (bf16, B=256) on the whole
+    skip width and on each half. Rows no layer wrote and layer 0's slot
+    exactly; the rest within atol (fp32: sums in another order; bf16: a
+    flipped rounding of an activation moves a value by ~1e-2)."""
+    import os
+
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.generate import _tp_weights
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+
+    if width == "small":
+        arch, cases, atol = SMALL, [(5, None), (24, None)], 1e-4
+    else:
+        arch = Config.load(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                        "stress_gen.json")).arch
+        cases, atol = [(256, None), (256, 0), (256, 1)], 5e-2
+    whole = init_params(9, arch, cuda)
+    s = arch.skip_channels
+    for b, half in cases:
+        lp = dict(whole["layers"])
+        if half is not None:   # model rank `half` of two
+            sl = slice(half * s // 2, (half + 1) * s // 2)
+            lp["w_skip"], lp["b_skip"] = lp["w_skip"][..., sl], lp["b_skip"][..., sl]
+        fm = _tp_weights(whole, lp, compute_dtype(arch))
+        h0, ring = _tp_inputs(arch, b, 11 + b, cuda)
+        r_k, r_p = ring.clone(), ring.clone()
+        n = ar_tp.tp_fused_stack.launches
+        _, s_k = ar_tp.tp_fused_stack(fm, arch, h0, r_k, 1000)
+        torch.cuda.synchronize()
+        assert ar_tp.tp_fused_stack.launches == n + 1
+        _, s_p = ar_tp.tp_fused_stack_plain(fm, arch, h0, r_p, 1000)
+        slots = [o + 1000 % d for o, d in zip(ar_step.buffer_offsets(arch), arch.dilations)]
+        untouched = torch.ones(len(ring), dtype=torch.bool, device=cuda)
+        untouched[slots] = False
+        assert torch.equal(r_k[untouched], ring[untouched]) and torch.equal(r_k[slots[0]], h0)
+        torch.testing.assert_close(r_k, r_p, rtol=0, atol=atol)
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=atol)
+
+
+def test_sharded_session_one_rank_nccl(cuda, tmp_path):
+    """One NCCL rank (model axis 1): a ShardedSession's chunks equal the
+    one-shot mesh run, one B7 launch per step, and the greedy classes equal
+    single-device mega."""
+    import torch.distributed as dist
+
+    from lb_wavenet_tpu_torch.generate import generate_classes
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+    from lb_wavenet_tpu_torch.parallel import synthesis as S
+    from lb_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from lb_wavenet_tpu_torch.utils.multihost import init_distributed, shutdown
+
+    if dist.is_initialized():
+        pytest.skip("this process already belongs to a process group")
+    p = init_params(10, SMALL, cuda)
+    assert init_distributed(init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1) == "nccl"
+    try:
+        mesh = make_mesh(1, 1)
+        for temperature in (0.0, 1.0):
+            n = ar_tp.tp_fused_stack.launches
+            sess = S.ShardedSession(p, SMALL, 16, 4, mesh, engine="mega")
+            chunks = torch.cat([sess.chunk(16, temperature=temperature) for _ in range(3)], 1)
+            one = S.mesh_generate_classes(p, SMALL, 4, 16, 48, mesh, engine="mega",
+                                          temperature=temperature)
+            torch.cuda.synchronize()
+            assert ar_tp.tp_fused_stack.launches == n + 96
+            assert torch.equal(chunks, one)
+        ref = generate_classes(p, SMALL, 4, 16, 48, engine="mega", temperature=0.0)
+        assert torch.equal(S.mesh_generate_classes(p, SMALL, 4, 16, 48, mesh, engine="mega",
+                                                   temperature=0.0), ref)
+    finally:
+        shutdown()
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two processes on cuda:0 over gloo (NCCL refuses two ranks on one
+    device), model axis 2: both ranks launch B7 once per step and emit the
+    same greedy classes, equal to single-device mega's."""
+    from lb_wavenet_tpu_torch.generate import generate_classes
+    from lb_wavenet_tpu_torch.utils.convert import params_to_numpy
+
+    from . import torch_tp_ranks as R
+
+    p = init_params(11, SMALL)
+    torch.multiprocessing.spawn(
+        R.run_cuda_rank, args=(2, str(tmp_path / "store"), dataclasses.asdict(SMALL),
+                               params_to_numpy(p), str(tmp_path)),
+        nprocs=2, join=True)
+    out = [torch.load(tmp_path / f"cuda_rank{r}.pt") for r in range(2)]
+    assert [o["backend"] for o in out] == ["gloo", "gloo"]
+    assert [o["device"] for o in out] == ["cuda:0", "cuda:0"]
+    assert all(o["launches"] == 32 for o in out)
+    ref = generate_classes(p, SMALL, 3, 16, 32, engine="mega", temperature=0.0, device=cuda)
+    assert torch.equal(out[0]["classes"], out[1]["classes"])
+    assert torch.equal(out[0]["classes"], ref.cpu())
