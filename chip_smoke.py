@@ -9,8 +9,12 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
 
   1. environment: CUDA, the card and its power limit, triton, nvcc; build
      every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a), one
-     nvcc per source, all started together;
-  2. each kernel against its plain PyTorch version on the card at B=512:
+     nvcc per source, all started together; the ptxas report (registers,
+     stack, spills) of the two bf16 tensor-core kernels;
+  2. each kernel against its plain PyTorch version on the card at B=512
+     (the bf16 mega and turbo kernels sum on tensor cores and their plain
+     versions reproduce those sums, so they are expected bit-identical;
+     the mega check also reports how far the one-fp32-sum order moves):
      fused_stack (one step at a mid-stream t: ring and skip), mega_generate
      (teacher-forced logits and carry over one 1024-step streaming chunk at
      a mid-stream t0 with a 3-row lane block, as the pool calls it; greedy,
@@ -64,9 +68,11 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      recycled lanes), and `torchrun --nproc-per-node 2 -m
      lb_wavenet_tpu_torch.cli serve --mesh-model 2` writing that pool's
      audio;
- 10. timings at the serving and training shapes and the `kernels` JSON
-     line, the card's name and power limit, and last the {"ok": true, ...}
-     line.
+ 10. timings at the serving and training shapes (mega and turbo at B=512
+     and at wavenet30.json's gen batch 64) and the `kernels` JSON line,
+     each row with its unit (rows B3-B5 time a whole call of several
+     launches), the card's name and power limit, and last the
+     {"ok": true, ...} line.
 
 Launch counts are set to 0 right before each path is driven and read right
 after; comparison launches are not counted.
@@ -88,6 +94,7 @@ CHUNK = 1024        # samples per serving step
 T_CHECK = 256       # steps of the kernel-vs-plain mega checks
 T_TURBO = 128       # steps of the turbo free-run checks
 TURBO_POOL = 100    # turbo pool batch: not a multiple of the lane tile
+GEN_B = 64          # configs/wavenet30.json gen.batch_size: timed beside B
 LOGIT_ATOL = 5e-2   # bf16 operands: a flipped rounding moves logits ~1e-2
 TRAIN_B, TRAIN_W = 8, 10240   # wavenet30.json train batch and window
 TRAIN_STEPS = 20
@@ -321,6 +328,23 @@ def phase_environment():
            for k, v in build.build_log.items()}
     log(json.dumps({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
                     "ptxas": res}))
+    log(json.dumps({"phase": "ptxas_bf16_sampling_kernels", "report": tc_ptxas()}))
+
+
+def tc_ptxas() -> dict:
+    """The ptxas report (registers, stack, spills) of the two bf16
+    tensor-core kernels, from this process's build log."""
+    from lb_wavenet_tpu_torch.ops.cuda import build
+
+    out = {}
+    for src in ("ar_mega", "ar_turbo"):
+        lines = build.build_log.get(src, "").splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry function" in ln and "tc_kernel" in ln:
+                out[ln.split("'")[1]] = [x.replace("ptxas info    :", "").strip()
+                                          for x in lines[i + 1:i + 4]
+                                          if "Compiling" not in x and "Compile time" not in x]
+    return out
 
 
 def check_choices(plain_logits, cls_k, temperature, lane, forced):
@@ -393,6 +417,7 @@ def phase_kernels(params, arch, gpu):
     ck = ar_mega.mega_zero_carry(arch, h0, e0)
     for k in ("bufs", "hstate"):
         ck[k].normal_(generator=gen)
+    base = {k: v.clone() for k, v in ck.items()}
     cp = {k: v.clone() for k, v in ck.items()}
     inv = torch.tensor([0.0, 1 / 0.7, 1.0], dtype=torch.float32).repeat(B // 3 + 1)[:B]
     lane = torch.stack([
@@ -409,14 +434,23 @@ def phase_kernels(params, arch, gpu):
                                          1.0, True, lane, 12345)
     err = float((lk - lpl).abs().max())
     carry_err = max(float((ck[k] - cp[k]).abs().max()) for k in ck)
+    # The same plain run with each product as one fp32 sum (the order of B7
+    # and the fp32 kernels): how far another valid summation order moves
+    # this chaotic network.
+    co = {k: v.clone() for k, v in base.items()}
+    _, lo = ar_mega.mega_generate_plain(params, lp, arch, co, t0, forced[:, 0], 1.0, True,
+                                        lane, 12345, tensor_cores=False)
     log(json.dumps({"phase": "mega_teacher_forced_vs_plain", "gpu": gpu,
                     "B": B, "T": CHUNK, "t0": t0, "lane_rows": 3,
                     "max_abs_err": err, "carry_max_abs_err": carry_err,
-                    "atol": LOGIT_ATOL}))
+                    "bit_identical": err == 0.0 and carry_err == 0.0, "atol": LOGIT_ATOL,
+                    "one_fp32_sum_order_vs_tensor_core_order": {
+                        "logits_max_abs_diff": abs_err(lo, lpl),
+                        "carry_max_abs_diff": max(abs_err(co[k], cp[k]) for k in co)}}))
     require(err <= LOGIT_ATOL and carry_err <= LOGIT_ATOL,
             f"mega teacher-forced logits/carry differ: {err}, {carry_err}")
     report["mega_generate"] = err
-    del ck, cp, lk, lpl
+    del ck, cp, co, base, lk, lpl, lo
 
     seeds = torch.randint(0, 2**31 - 1, (B,), device="cuda", dtype=torch.int32,
                           generator=gen)
@@ -513,7 +547,8 @@ def phase_turbo_kernels(params, arch, gpu):
     state_err = max(abs_err(sk[k], st[k]) for k in st)
     log(json.dumps({"phase": "turbo_teacher_forced_vs_plain", "gpu": gpu, "B": B,
                     "T": T_CHECK, "t0": 5000, "max_abs_err": err,
-                    "state_max_abs_err": state_err, "atol": LOGIT_ATOL}))
+                    "state_max_abs_err": state_err,
+                    "bit_identical": err == 0.0 and state_err == 0.0, "atol": LOGIT_ATOL}))
     require(err <= LOGIT_ATOL and state_err <= LOGIT_ATOL,
             f"turbo teacher-forced logits/state differ: {err}, {state_err}")
     report = {"turbo_step": max(step_err, err)}
@@ -798,8 +833,9 @@ def tp_requests():
 
 def hold_tp_choices(params, arch, classes, temperature, lane=None):
     """check_choices for a (B, T) run of the model-sharded path: the plain
-    mega version teacher-forced on its classes (mega's accumulation
-    contract, which B7 keeps), then the gap of every choice."""
+    mega version teacher-forced on its classes, each product in one fp32
+    sum (B7's accumulation, not the bf16 mega kernel's tensor-core order),
+    then the gap of every choice."""
     import torch
 
     from lb_wavenet_tpu_torch import generate as G
@@ -810,7 +846,7 @@ def hold_tp_choices(params, arch, classes, temperature, lane=None):
     carry = ar_mega.mega_zero_carry(arch, h0, e0)
     lane = None if lane is None else torch.as_tensor(lane).cuda()
     _, lg = ar_mega.mega_generate_plain(params, params["layers"], arch, carry, 0, cls,
-                                        temperature, True, lane, 0)
+                                        temperature, True, lane, 0, tensor_cores=False)
     return check_choices(lg, cls, temperature, lane, torch.full_like(cls, -1))
 
 
@@ -1731,12 +1767,69 @@ def tp_timings(params, arch):
     return out
 
 
-def phase_timing(params, arch, errs, launches, gpu, tp):
+def tc_smem() -> dict:
+    """Dynamic shared memory of the last bf16 mega and turbo launches."""
+    from lb_wavenet_tpu_torch.ops.cuda import build
+
+    import ctypes
+
+    out = {}
+    for name, src, fn in (("mega_tc_kernel", "ar_mega", "wn_mega_tc_smem"),
+                          ("turbo_tc_kernel", "ar_turbo", "wn_turbo_tc_smem")):
+        f = getattr(build.load(src), fn)
+        f.argtypes, f.restype = [], ctypes.c_int
+        out[name] = f()
+    return out
+
+
+def sampling_timings(params, arch, b: int, plain: bool) -> dict:
+    """{"mega": (ms per CHUNK-step launch, plain ms or None), "turbo": (ms
+    per step, plain ms per step or None)} at batch b, the lane block as the
+    pool's (3 rows), from the zero carry."""
     import torch
 
     from lb_wavenet_tpu_torch.generate import _fused_frontend_zero
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_turbo
+
+    lp = params["layers"]
+    h0, e0 = _fused_frontend_zero(params, arch, b)
+    carry = ar_mega.mega_zero_carry(arch, h0, e0)
+    free = torch.full((CHUNK, b), -1, device="cuda", dtype=torch.int32)
+    inv = torch.full((b,), 1 / 0.7, device="cuda")
+    lane = torch.stack([torch.arange(b, device="cuda", dtype=torch.int32),
+                        torch.zeros(b, device="cuda", dtype=torch.int32),
+                        inv.view(torch.int32)])
+    counts = ar_mega.mega_generate.launches, ar_turbo.turbo_step.launches
+    mega_ms = cuda_ms(lambda: ar_mega.mega_generate_cuda(
+        params, lp, arch, carry, 0, free, 1.0, False, lane, 0), 2)
+    mega_plain = None
+    if plain:
+        t0 = time.perf_counter()
+        ar_mega.mega_generate_plain(params, lp, arch, carry, 0, free, 1.0, False, lane, 0)
+        torch.cuda.synchronize()
+        mega_plain = 1000 * (time.perf_counter() - t0)
+    # turbo: ms per step (one launch), from 64-step runs.
+    state = {"bufs": torch.zeros((sum(arch.dilations), b, arch.residual_channels),
+                                 device="cuda"), "h": h0.clone(), "e": e0.clone()}
+    n = 64
+    turbo_ms = cuda_ms(lambda: ar_turbo.turbo_generate_cuda(
+        params, lp, arch, state, 0, free[:n], 1.0, False, lane, 0), 3) / n
+    turbo_plain = None
+    if plain:
+        t0 = time.perf_counter()
+        ar_turbo.turbo_generate_plain(params, lp, arch, state, 0, free[:8], 1.0, False, lane,
+                                      0)
+        torch.cuda.synchronize()
+        turbo_plain = 1000 * (time.perf_counter() - t0) / 8
+    ar_mega.mega_generate.launches, ar_turbo.turbo_step.launches = counts
+    return {"mega": (mega_ms, mega_plain), "turbo": (turbo_ms, turbo_plain)}
+
+
+def phase_timing(params, arch, errs, launches, gpu, tp):
+    import torch
+
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
-    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_step, ar_turbo
+    from lb_wavenet_tpu_torch.ops.cuda import ar_step
 
     wbytes = torch.finfo(compute_dtype(arch)).bits // 8
     lp = params["layers"]
@@ -1749,35 +1842,18 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
     stack_plain = cuda_ms(lambda: ar_step.fused_stack_plain(lp, arch, h, ring, 700), 5)
     ar_step.fused_stack.launches = counts
 
-    h0, e0 = _fused_frontend_zero(params, arch, B)
-    carry = ar_mega.mega_zero_carry(arch, h0, e0)
-    free = torch.full((CHUNK, B), -1, device="cuda", dtype=torch.int32)
-    inv = torch.full((B,), 1 / 0.7, device="cuda")
-    lane = torch.stack([torch.arange(B, device="cuda", dtype=torch.int32),
-                        torch.zeros(B, device="cuda", dtype=torch.int32),
-                        inv.view(torch.int32)])
-    counts = ar_mega.mega_generate.launches
-    mega_ms = cuda_ms(lambda: ar_mega.mega_generate_cuda(
-        params, lp, arch, carry, 0, free, 1.0, False, lane, 0), 2)
-    t0 = time.perf_counter()
-    ar_mega.mega_generate_plain(params, lp, arch, carry, 0, free, 1.0, False, lane, 0)
-    torch.cuda.synchronize()
-    mega_plain = 1000 * (time.perf_counter() - t0)
-    ar_mega.mega_generate.launches = counts
-
-    # turbo: ms per step (one launch), from 64-step runs; lanes as the pool's.
-    state = {"bufs": torch.zeros((sum(arch.dilations), B, arch.residual_channels),
-                                 device="cuda"), "h": h0.clone(), "e": e0.clone()}
-    counts = ar_turbo.turbo_step.launches
-    n = 64
-    turbo_ms = cuda_ms(lambda: ar_turbo.turbo_generate_cuda(
-        params, lp, arch, state, 0, free[:n], 1.0, False, lane, 0), 3) / n
-    t0 = time.perf_counter()
-    ar_turbo.turbo_generate_plain(params, lp, arch, state, 0, free[:8], 1.0, False, lane, 0)
-    torch.cuda.synchronize()
-    turbo_plain = 1000 * (time.perf_counter() - t0) / 8
-    ar_turbo.turbo_step.launches = counts
-    del state
+    sampling = {bb: sampling_timings(params, arch, bb, plain=bb == B) for bb in (B, GEN_B)}
+    (mega_ms, mega_plain), (turbo_ms, turbo_plain) = sampling[B]["mega"], sampling[B]["turbo"]
+    log(json.dumps({
+        "phase": "sampling_timing", "gpu": gpu, "mega_ms_per_chunk": {
+            f"B={bb}": v["mega"][0] for bb, v in sampling.items()},
+        "turbo_ms_per_step": {f"B={bb}": v["turbo"][0] for bb, v in sampling.items()},
+        "chunk": CHUNK, "lane_rows": 3,
+        "bound_ms": {f"B={bb}": {"mega": bound_ms(*mega_cost(arch, bb, CHUNK, 3, wbytes))[0],
+                                 "turbo": bound_ms(*turbo_cost(arch, bb, 3, wbytes))[0]}
+                     for bb in sampling},
+        "dynamic_smem_bytes": tc_smem(),
+    }))
 
     trained = train_timings(params, arch)
     tp_arch, tp_params, tp_measured = tp
@@ -1795,6 +1871,17 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
                              "note": "two ranks sharing one card, all-reduce staged through "
                                      "host memory over gloo; not a multi-card figure"},
     }))
+    # What one "ms" and one launch count of each row is: rows B3-B5 time a
+    # whole autograd call of several launches.
+    L = len(arch.dilations)
+    per_call = {"frontend_fwd": 1, "frontend_bwd": 4, "train_stack_fwd": L + 1,
+                "train_stack_bwd": 3 * L + 1, "post_loss_fwd": 2, "post_loss_bwd": 3}
+    units = {"mega_generate": f"ms per launch ({CHUNK} steps, B={B})",
+             "fused_stack": f"ms per launch (1 step, B={B})",
+             "turbo_step": f"ms per launch (1 step, B={B})",
+             "tp_fused_stack": f"ms per launch (1 step, B={TP_B}, S_l={tp_arch.skip_channels})",
+             **{k: f"ms per call of {n} launches (B={TRAIN_B}, W={TRAIN_W})"
+                for k, n in per_call.items()}}
     kernels = []
     for name, src, rep, ms, plain, cost in (
         ("mega_generate", "lb_wavenet_tpu_torch/csrc/ar_mega.cu",
@@ -1822,15 +1909,23 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
          "lb_wavenet_tpu/ops/pallas/ar_tp.py:112", *tp_times[s_whole]),
     ):
         bms, by = bound_ms(*cost)
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": None,
-        })
+            "library_ms": None, "unit": units[name],
+            "launches_per_call": per_call.get(name, 1),
+        }
+        if name in ("mega_generate", "turbo_step"):   # the config's own gen batch too
+            row[f"ms_B{GEN_B}"] = sampling[GEN_B][name.split("_")[0]][0]
+            cost_b = (mega_cost(arch, GEN_B, CHUNK, 3, wbytes) if name == "mega_generate"
+                      else turbo_cost(arch, GEN_B, 3, wbytes))
+            row[f"bound_ms_B{GEN_B}"] = bound_ms(*cost_b)[0]
+        kernels.append(row)
     train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
                    "tapcat": True}
-    log(json.dumps({"phase": "shapes", "gpu": gpu, "mega_generate": {"B": B, "T": CHUNK, "lane_rows": 3},
+    log(json.dumps({"phase": "shapes", "gpu": gpu,
+                    "mega_generate": {"B": B, "T": CHUNK, "lane_rows": 3},
                     "fused_stack": {"B": B, "steps": 1},
                     "turbo_step": {"B": B, "steps": 1, "lane_rows": 3, "ms": "per step"},
                     "frontend_fwd": train_shape, "frontend_bwd": train_shape,

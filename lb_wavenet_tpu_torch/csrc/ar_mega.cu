@@ -18,13 +18,33 @@
 // written back at the end IN PLACE, in the JAX layout (feature-major, lanes
 // last), so reset_lanes and chunk-to-chunk resume work unchanged.
 //
-// Bound on an H100 at the serving shapes (WaveNet-30, B = 512, T = 1024):
-// 2 B T (L (2C 2G + G (C+S)) + S S + S Q + K C C) ~ 1.3 TFLOP of bf16
-// products (1.3 ms at 989 TFLOP/s) against ~0.8 GB of carry (0.25 ms at
-// 3.35 TB/s): operations bound. This first version multiplies on CUDA cores
-// in fp32 (no tensor cores yet) and reads each layer's ~72 KB of bf16 weights
-// from L2 once per block and step; intermediates never leave the SM.
-#include "common.cuh"
+// Bound on an H100 (WaveNet-30: L = 30, C = G = 64, S = Q = 256, K = 2;
+// chip_smoke.py `mega_cost`): per 1024-step launch 2 B T (L (2C 2G + G
+// (C+S)) + S S + S Q + K C C) of bf16 products against the weights and the
+// carry read once: 1.320 ms at B = 512 (1.31 TFLOP at 989 TFLOP/s) and
+// 0.165 ms at B = 64, operations bound at both.
+//
+// Two instantiations, chosen by dtype (not a fallback):
+//   * fp32: mega_kernel<float>, CUDA-core FMAs in k order through
+//     common.cuh (block_mm), as since PR 1.
+//   * bf16: mega_tc_kernel, the tensor-core design of ar_tc.cuh, for the
+//     five holds of the CUDA-core version: (1) the dependent chain of
+//     2-byte weight loads from L2 becomes a producer warp streaming the
+//     step's packed weights (ar_tc.py) through a ring of 32 KB shared-memory
+//     slots by cp.async.bulk, consumers reading 16-byte fragments one
+//     k-step ahead; (2) each weight byte feeds all 8 lanes of the block
+//     through one mma fragment; (3) products on tensor cores (mma.sync
+//     m16n8k16 bf16 -> fp32, one mma per 16-deep k-step from zero, added
+//     in k order; the plain version reproduces those sums bit for bit);
+//     (4) a block still owns 8 lanes (64 blocks at B = 512, 8 at B = 64:
+//     the cluster and multicast options are reckoned in PERF.md, PR 5);
+//     (5) three block barriers per layer (the gate runs in the pre
+//     product's epilogue on tile pairs held by one warp), biases loaded
+//     before a product's first wait, each layer's ring taps prefetched by
+//     cp.async during the layer before, and no spills in the 3-tiles-per-
+//     warp instantiation that WaveNet-30 selects (chip_smoke.py prints the
+//     ptxas report). Measured: PERF.md, PR 5.
+#include "ar_tc.cuh"
 
 namespace wn {
 
@@ -53,6 +73,9 @@ struct MegaArgs {
   int lane_rows, seed_base, mode;  // mode: 0 greedy, 1 per-lane, 2 global
   float inv_temp;
   int bf16, n_d1;
+  const void* wpk;     // bf16: the step's weights packed for the tensor cores
+  const int* prods;    // bf16: (n_prod, 2) (M, K) of each packed product
+  int n_prod, grid;    // bf16: products per step; blocks (lane tiles)
 };
 
 template <typename T>
@@ -195,6 +218,206 @@ static cudaError_t launch(const MegaArgs& a, cudaStream_t stream, int* launches)
   return err;
 }
 
+// ---- bf16: the tensor-core kernel (ar_tc.cuh) -------------------------------
+
+static int tc_smem = 0;  // dynamic shared memory of the last launch (bytes)
+
+struct MegaTc {  // the block's shared memory
+  float *x, *skip, *lg, *d1, *es, *tap[2];
+  int* dl;
+  tc::bf16 *xb, *zb, *ab, *hb, *eb;
+  int* cls;
+  tc::Ring ring;
+};
+
+__host__ __device__ inline MegaTc mega_tc_carve(const MegaArgs& a, char* base, int n_slots,
+                                               size_t* bytes) {
+  tc::Carve cv{base, 0};
+  MegaTc s;
+  s.ring.full = cv.take<uint64_t>(tc::MAX_SLOTS);
+  s.ring.empty = cv.take<uint64_t>(tc::MAX_SLOTS);
+  s.ring.slots = cv.take<char>((size_t)n_slots * tc::SLOT);
+  s.ring.n = n_slots;
+  s.ring.i = 0;
+  s.x = cv.take<float>(a.C * TB);
+  s.skip = cv.take<float>(a.S * TB);
+  s.lg = cv.take<float>(a.Q * TB);
+  s.d1 = cv.take<float>(a.n_d1 * a.C * TB);
+  s.es = cv.take<float>((a.K - 1) * a.C * TB);
+  s.tap[0] = cv.take<float>(a.C * TB);
+  s.tap[1] = cv.take<float>(a.C * TB);
+  s.dl = cv.take<int>(a.L);
+  s.xb = cv.take<tc::bf16>(TB * (2 * a.C + 8));
+  s.zb = cv.take<tc::bf16>(TB * (a.G + 8));
+  s.ab = cv.take<tc::bf16>(TB * (a.S + 8));
+  s.hb = cv.take<tc::bf16>(TB * (a.S + 8));
+  s.eb = cv.take<tc::bf16>(TB * (a.C + 8));
+  s.cls = cv.take<int>(TB);
+  *bytes = cv.off;
+  return s;
+}
+
+template <int TPW>
+__global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_slots) {
+  extern __shared__ __align__(128) char smem[];
+  const int C = a.C, G = a.G, S = a.S, Q = a.Q, K = a.K, B = a.B;
+  const int CS = C + S, lda = 2 * C + 8, ldg = G + 8;
+  size_t bytes;
+  MegaTc s = mega_tc_carve(a, smem, n_slots, &bytes);
+  tc::Ring ring = s.ring;  // locals: no lambda captures the struct
+  tc::bf16 *xb = s.xb, *zb = s.zb, *ab = s.ab, *hb = s.hb, *eb = s.eb;
+  int *cls = s.cls, *dl = s.dl;
+  float *lg = s.lg, *tap0 = s.tap[0], *tap1 = s.tap[1];
+  tc::ring_init(ring);
+  __syncthreads();
+  if (threadIdx.x >= tc::NC) {
+    if (threadIdx.x == tc::NC)
+      tc::produce(ring, static_cast<const char*>(a.wpk), a.prods, a.n_prod, a.T);
+    return;
+  }
+  float *x = s.x, *skip = s.skip, *d1 = s.d1, *es = s.es;
+  const int b0 = blockIdx.x * TB;
+  const Sampler sp = {a.lane, a.lane_rows, a.mode, a.seed_base, a.inv_temp, B, 1};
+  // Layer l's taps (ring row off + t mod d, lanes b0..b0+7) go to tap[q & 1]
+  // by cp.async while the layer before it computes (q counts layers).
+  auto prefetch = [&](int l, int t_abs, int off, float* dst) {
+    const int d = dl[l];
+    if (d == 1) return;
+    const float* src = a.bufs + (size_t)(off + t_abs % d) * C * B + b0;
+    for (int i = threadIdx.x; i < 2 * C; i += tc::NC) {
+      tc::cp_async16(dst + i * 4, src + (size_t)(i >> 1) * B + (i & 1) * 4);
+    }
+  };
+
+  for (int l = threadIdx.x; l < a.L; l += tc::NC) dl[l] = a.dils[l];
+  for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
+    x[i] = a.h_s[(size_t)(i / TB) * B + b0 + i % TB];
+  }
+  for (int i = threadIdx.x; i < (K - 1) * C * TB; i += tc::NC) {
+    es[i] = a.e_s[(size_t)(i / TB) * B + b0 + i % TB];
+  }
+  for (int l = 0, i1 = 0; l < a.L; ++l) {
+    if (a.dils[l] != 1) continue;
+    for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
+      d1[i1 * C * TB + i] = a.hstate[((size_t)l * 2 * C + i / TB) * B + b0 + i % TB];
+    }
+    ++i1;
+  }
+  tc::csync();
+  if (a.T > 0) prefetch(0, a.t0, 0, tap0);
+  tc::cp_async_wait_all();
+  tc::csync();
+
+  for (int t = 0, q = 0; t < a.T; ++t) {
+    const int t_abs = a.t0 + t;
+    const bool last = t == a.T - 1;
+    int off = 0, i1 = 0;
+    for (int l = 0; l < a.L; ++l, ++q) {
+      const int d = dl[l];
+      const float* tp = q & 1 ? tap1 : tap0;  // no dynamic index
+      // Stage bf16 [h | tap] per lane; h takes the tap's ring row.
+      for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
+        const int c = i / TB, j = i % TB, b = b0 + j;
+        const float h = x[i];
+        float tap;
+        if (d > 1) {
+          tap = tp[i];
+          a.bufs[((size_t)(off + t_abs % d) * C + c) * B + b] = h;
+        } else {
+          float* p = d1 + i1 * C * TB + i;
+          tap = *p;
+          *p = h;
+        }
+        xb[j * lda + c] = __float2bfloat16_rn(h);
+        xb[j * lda + C + c] = __float2bfloat16_rn(tap);
+        if (last) {
+          a.hstate[((size_t)l * 2 * C + c) * B + b] = h;
+          a.hstate[((size_t)l * 2 * C + C + c) * B + b] = tap;
+        }
+      }
+      float* next = q & 1 ? tap0 : tap1;
+      if (l + 1 < a.L) {
+        prefetch(l + 1, t_abs, off + d, next);
+      } else if (!last) {
+        prefetch(0, t_abs + 1, 0, next);
+      }
+      tc::csync();
+      // pre = [h ; tap] @ wcat + b: ONE 2C-deep sum (mega's merged tap);
+      // z = tanh(pre[m]) sigmoid(pre[G + m]) from the same thread's pair.
+      tc::mm<TPW, true>(ring, 2 * G, 2 * C, xb, lda, a.bcat + l * 2 * G,
+                   [&](int m, int j, float at, float bt, float as, float bs) {
+                     zb[j * ldg + m] =
+                         __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
+                   });
+      tc::csync();
+      // One z @ [w_res | w_skip] product: h = (h + rs) + b_res,
+      // skip += rs + b_skip.
+      tc::mm<TPW>(ring, CS, G, zb, ldg, a.brs + l * CS, [&](int m, int j, float acc,
+                                                           float bias) {
+        if (m < C) {
+          x[m * TB + j] = (x[m * TB + j] + acc) + bias;
+        } else {
+          const float contrib = acc + bias;
+          float* sk = skip + (m - C) * TB + j;
+          *sk = l == 0 ? contrib : *sk + contrib;
+        }
+      });
+      tc::cp_async_wait_all();
+      tc::csync();
+      off += d;
+      if (d == 1) ++i1;
+    }
+
+    tc::post_logits<TPW>(ring, skip, ab, hb, lg, a.b1, a.b2, S, Q,
+                    [&](int m, int j, float v) {
+                      if (a.logits) a.logits[((size_t)t * Q + m) * B + b0 + j] = v;
+                    });
+    tc::sample(lg, sp, B, b0, Q, t_abs, a.forced + (size_t)t * B, cls,
+               a.classes + (size_t)t * B);
+    tc::next_frontend<TPW>(ring, x, es, eb, xb, cls, static_cast<const tc::bf16*>(a.emb),
+                      a.b_in, C, K);
+  }
+
+  for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
+    a.h_s[(size_t)(i / TB) * B + b0 + i % TB] = x[i];
+  }
+  for (int i = threadIdx.x; i < (K - 1) * C * TB; i += tc::NC) {
+    a.e_s[(size_t)(i / TB) * B + b0 + i % TB] = es[i];
+  }
+}
+
+template <int TPW>
+static cudaError_t launch_nt(const MegaArgs& a, int n_slots, size_t smem, cudaStream_t stream,
+                             int* launches) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mega_tc_kernel<TPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  mega_tc_kernel<TPW><<<a.grid, tc::NTH, smem, stream>>>(a, n_slots);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
+}
+
+static cudaError_t launch_tc(const MegaArgs& a, cudaStream_t stream, int* launches) {
+  if (a.grid * TB != a.B || !a.wpk || !a.prods) return cudaErrorInvalidValue;
+  size_t fixed;
+  mega_tc_carve(a, nullptr, 0, &fixed);
+  const int n_slots = (int)std::min<size_t>(
+      tc::MAX_SLOTS, (size_t)std::max<long>(0, tc::smem_optin() - (long)fixed) / tc::SLOT);
+  if (n_slots < 2) return cudaErrorInvalidValue;
+  const size_t smem = fixed + (size_t)n_slots * tc::SLOT;
+  tc_smem = (int)smem;
+  const int need = std::max({tc::tiles_per_warp(2 * a.G, true),
+                             tc::tiles_per_warp(a.C + a.S, false),
+                             tc::tiles_per_warp(a.S, false), tc::tiles_per_warp(a.Q, false),
+                             tc::tiles_per_warp(a.C, false)});
+  switch (tc::pick_tpw(need)) {
+    case 3: return launch_nt<3>(a, n_slots, smem, stream, launches);
+    case tc::MAX_MT: return launch_nt<tc::MAX_MT>(a, n_slots, smem, stream, launches);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace wn
 
 extern "C" int wn_mega_lane_tile() { return wn::TB; }
@@ -202,6 +425,9 @@ extern "C" int wn_mega_lane_tile() { return wn::TB; }
 // Returns a CUDA error code and adds the kernels it launched to *launches.
 extern "C" int wn_mega_generate(const wn::MegaArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a->bf16 ? wn::launch<__nv_bfloat16>(*a, s, launches)
-                       : wn::launch<float>(*a, s, launches));
+  return (int)(a->bf16 ? wn::launch_tc(*a, s, launches) : wn::launch<float>(*a, s, launches));
 }
+
+// Dynamic shared memory (bytes) of the last bf16 launch: activations plus
+// the weight ring.
+extern "C" int wn_mega_tc_smem() { return wn::tc_smem; }

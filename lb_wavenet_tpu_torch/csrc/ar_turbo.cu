@@ -6,8 +6,7 @@
 // finale in the last grid step: the post network, Gumbel-max sampling, the
 // forced-class override, the next class's embedding and the next step's K-tap
 // input conv. Here one block owns a tile of TB lanes and runs all L layers,
-// then the finale, so no grid-wide synchronisation is needed (the design of
-// ar_step.cu and ar_mega.cu, whose device code it shares through common.cuh):
+// then the finale, so no grid-wide synchronisation is needed:
 //   * layers in turbo's split order, pre = (h @ w_cur + tap @ w_prev) + b,
 //     each lane's tap read from ring row offset_l + t mod d_l before that row
 //     takes h (the JAX kernel aliases the ring onto its output);
@@ -24,13 +23,21 @@
 // embedding stack are carried in place from step to step (a block reads its
 // lanes before it writes them).
 //
-// Bound on an H100 at the serving shapes (WaveNet-30, B = 512): per step
-// 2 B (L (2C 2G + G C + G S) + S S + S Q + K C C) ~ 1.3 GFLOP of bf16 products
-// (1.3 us at 989 TFLOP/s) against ~2.5 MB of bf16 weights and 2 L B C fp32
-// ring values (~7.9 MB, 2.4 us at 3.35 TB/s): bytes bound. Like ar_step.cu
-// the step is latency-bound in this first version: CUDA-core fp32 FMAs on
-// weights read from L2 in a dependent k-loop, 64 blocks at B = 512.
-#include "common.cuh"
+// Bound on an H100 (WaveNet-30; chip_smoke.py `turbo_cost`): per step the
+// bf16 weights (2.5 MB), h, the embedding stack and the L ring rows read and
+// written once: 3.28 us at B = 512 and 1.08 us at B = 64 (bytes bound;
+// the 1.3 GFLOP of products take 1.3 us at B = 512).
+//
+// Two instantiations, chosen by dtype (not a fallback): fp32 keeps the
+// CUDA-core path of common.cuh (split_layer, post_logits, sample_tile,
+// next_frontend); bf16 runs turbo_tc_kernel, the tensor-core design of
+// ar_tc.cuh shared with ar_mega.cu (see its note): weights streamed through
+// a shared-memory ring by a producer warp, mma.sync m16n8k16 products per
+// 16-deep k-step in turbo's split order (two accumulators for the w_cur
+// and w_prev products, paired tiles so that one thread holds both pre
+// halves of a gate), taps prefetched by cp.async, any batch (the last
+// block masks lanes past B). One launch per sample step.
+#include "ar_tc.cuh"
 
 namespace wn {
 
@@ -61,6 +68,9 @@ struct TurboArgs {
   int lane_rows, seed_base, mode;  // mode: 0 greedy, 1 per-lane, 2 global
   float inv_temp;
   int bf16;
+  const void* wpk;      // bf16: the step's weights packed for the tensor cores
+  const int* prods;     // bf16: (n_prod, 2) (M, K) of each packed product
+  int n_prod, grid;     // bf16: products per step; blocks (lane tiles)
 };
 
 template <typename T>
@@ -145,6 +155,208 @@ static cudaError_t steps(const TurboArgs& a, int t0, int n, cudaStream_t stream,
   return cudaSuccess;
 }
 
+// ---- bf16: the tensor-core kernel (ar_tc.cuh) -------------------------------
+
+static int tc_smem = 0;  // dynamic shared memory of the last launch (bytes)
+
+struct TurboTc {  // the block's shared memory
+  float *x, *pre, *skip, *lg, *es, *tap[2];
+  int* dl;
+  tc::bf16 *xb, *tb, *zb, *ab, *hb, *eb;
+  int* cls;
+  tc::Ring ring;
+};
+
+__host__ __device__ inline TurboTc turbo_tc_carve(const TurboArgs& a, char* base, int n_slots,
+                                                 size_t* bytes) {
+  tc::Carve cv{base, 0};
+  TurboTc s;
+  s.ring.full = cv.take<uint64_t>(tc::MAX_SLOTS);
+  s.ring.empty = cv.take<uint64_t>(tc::MAX_SLOTS);
+  s.ring.slots = cv.take<char>((size_t)n_slots * tc::SLOT);
+  s.ring.n = n_slots;
+  s.ring.i = 0;
+  s.x = cv.take<float>(a.C * TB);
+  s.pre = cv.take<float>(2 * a.G * TB);
+  s.skip = cv.take<float>(a.S * TB);
+  s.lg = cv.take<float>(a.Q * TB);
+  s.es = cv.take<float>((a.K - 1) * a.C * TB);
+  s.tap[0] = cv.take<float>(a.C * TB);
+  s.tap[1] = cv.take<float>(a.C * TB);
+  s.dl = cv.take<int>(a.L);
+  s.xb = cv.take<tc::bf16>(TB * (a.C + 8));
+  s.tb = cv.take<tc::bf16>(TB * (a.C + 8));
+  s.zb = cv.take<tc::bf16>(TB * (a.G + 8));
+  s.ab = cv.take<tc::bf16>(TB * (a.S + 8));
+  s.hb = cv.take<tc::bf16>(TB * (a.S + 8));
+  s.eb = cv.take<tc::bf16>(TB * (a.C + 8));
+  s.cls = cv.take<int>(TB);
+  *bytes = cv.off;
+  return s;
+}
+
+template <int TPW>
+__global__ void __launch_bounds__(tc::NTH, 1) turbo_tc_kernel(TurboArgs a, int t, int step,
+                                                              int n_slots) {
+  extern __shared__ __align__(128) char smem[];
+  const int C = a.C, G = a.G, S = a.S, Q = a.Q, K = a.K, B = a.B;
+  const int ldc = C + 8, ldg = G + 8;
+  size_t bytes;
+  TurboTc s = turbo_tc_carve(a, smem, n_slots, &bytes);
+  tc::Ring ring = s.ring;  // locals: no lambda captures the struct
+  tc::bf16 *xb = s.xb, *zb = s.zb, *ab = s.ab, *hb = s.hb, *eb = s.eb, *tb = s.tb;
+  int *cls = s.cls, *dl = s.dl;
+  float *lg = s.lg, *tap0 = s.tap[0], *tap1 = s.tap[1];
+  tc::ring_init(ring);
+  __syncthreads();
+  // The next step's launch may start its prologue (barriers, weight
+  // stream) on free SMs while this one runs; the producer streams weights
+  // at once, the consumers wait for the previous step's state.
+  tc::pdl_launch_dependents();
+  if (threadIdx.x >= tc::NC) {
+    if (threadIdx.x == tc::NC)
+      tc::produce(ring, static_cast<const char*>(a.wpk), a.prods, a.n_prod, 1);
+    return;
+  }
+  tc::pdl_wait();
+  float *x = s.x, *pre = s.pre, *skip = s.skip, *es = s.es;
+  const int b0 = blockIdx.x * TB;
+  // Layer l's taps (ring row off + t mod d, lane-major [TB][C]; 0 past B)
+  // go to tap[l & 1] by cp.async while the layer before it computes.
+  auto prefetch = [&](int l, int off, float* dst) {
+    const float* src = a.bufs + (size_t)(off + t % dl[l]) * B * C;
+    for (int i = threadIdx.x; i < TB * C / 4; i += tc::NC) {
+      const int j = i / (C / 4), b = b0 + j;
+      if (b < B) {
+        tc::cp_async16(dst + i * 4, src + (size_t)b * C + (i % (C / 4)) * 4);
+      } else {
+        *reinterpret_cast<float4*>(dst + i * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+
+  for (int l = threadIdx.x; l < a.L; l += tc::NC) dl[l] = a.dils[l];
+  for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
+    const int j = i / C, c = i % C, b = b0 + j;
+    x[c * TB + j] = b < B ? a.h[(size_t)b * C + c] : 0.f;
+  }
+  for (int i = threadIdx.x; i < (K - 1) * C * TB; i += tc::NC) {
+    const int p = i / (C * TB), j = (i / C) % TB, c = i % C, b = b0 + j;
+    es[(p * C + c) * TB + j] = b < B ? a.e[((size_t)p * B + b) * C + c] : 0.f;
+  }
+  for (int i = threadIdx.x; i < S * TB; i += tc::NC) skip[i] = 0.f;
+  tc::csync();
+  prefetch(0, 0, tap0);
+  tc::cp_async_wait_all();
+  tc::csync();
+
+  int off = 0;
+  for (int l = 0; l < a.L; ++l) {
+    const int d = dl[l];
+    float* row = a.bufs + (size_t)(off + t % d) * B * C;  // this layer's ring row
+    const float* tp = l & 1 ? tap1 : tap0;  // no dynamic index
+    // Stage bf16 h and tap per lane; h takes the tap's ring row.
+    for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
+      const int j = i / C, c = i % C, b = b0 + j;
+      const float h = x[c * TB + j];
+      if (b < B) row[(size_t)b * C + c] = h;
+      xb[j * ldc + c] = __float2bfloat16_rn(h);
+      tb[j * ldc + c] = __float2bfloat16_rn(tp[i]);
+    }
+    if (l + 1 < a.L) prefetch(l + 1, off + d, l & 1 ? tap0 : tap1);
+    tc::csync();
+    // pre = (h @ w_cur + tap @ w_prev) + b: two sums (turbo's split order);
+    // the same thread holds pre[m] and pre[G + m] of both products, then
+    // z = tanh(pre[m]) sigmoid(pre[G + m]).
+    tc::mm<TPW, true>(ring, 2 * G, C, xb, ldc, nullptr,
+                 [&](int m, int j, float at, float, float as, float) {
+                   pre[m * TB + j] = at;
+                   pre[(G + m) * TB + j] = as;
+                 });
+    tc::mm<TPW, true>(ring, 2 * G, C, tb, ldc, a.b + l * 2 * G,
+                 [&](int m, int j, float at, float bt, float as, float bs) {
+                   const float pt = (pre[m * TB + j] + at) + bt;
+                   const float ps = (pre[(G + m) * TB + j] + as) + bs;
+                   zb[j * ldg + m] = __float2bfloat16_rn(tanhf(pt) * sigmoidf(ps));
+                 });
+    tc::csync();
+    tc::mm<TPW>(ring, C, G, zb, ldg, a.b_res + l * C, [&](int m, int j, float acc, float b) {
+      x[m * TB + j] = (x[m * TB + j] + acc) + b;
+    });
+    tc::mm<TPW>(ring, S, G, zb, ldg, a.b_skip + l * S, [&](int m, int j, float acc, float b) {
+      skip[m * TB + j] = (skip[m * TB + j] + acc) + b;
+    });
+    tc::cp_async_wait_all();
+    tc::csync();
+    off += d;
+  }
+
+  float* logits = a.logits ? a.logits + (size_t)step * B * Q : nullptr;
+  tc::post_logits<TPW>(ring, skip, ab, hb, lg, a.b1, a.b2, S, Q, [&](int m, int j, float v) {
+    if (logits && b0 + j < B) logits[(size_t)(b0 + j) * Q + m] = v;
+  });
+  // The global counter hash runs over (b, q) batch-major: b * Q + q.
+  const Sampler sp = {a.lane, a.lane_rows, a.mode, a.seed_base, a.inv_temp, 1, Q};
+  tc::sample(lg, sp, B, b0, Q, t, a.forced + (size_t)step * B, cls,
+             a.classes + (size_t)step * B);
+  tc::next_frontend<TPW>(ring, x, es, eb, xb, cls, static_cast<const tc::bf16*>(a.emb),
+                    a.b_in, C, K);
+
+  for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
+    const int j = i / C, c = i % C, b = b0 + j;
+    if (b < B) a.h[(size_t)b * C + c] = x[c * TB + j];
+  }
+  for (int i = threadIdx.x; i < (K - 1) * C * TB; i += tc::NC) {
+    const int p = i / (C * TB), j = (i / C) % TB, c = i % C, b = b0 + j;
+    if (b < B) a.e[((size_t)p * B + b) * C + c] = es[(p * C + c) * TB + j];
+  }
+}
+
+template <int TPW>
+static cudaError_t steps_nt(const TurboArgs& a, int t0, int n, int n_slots, size_t smem,
+                            cudaStream_t stream, int* launches) {
+  cudaError_t err = cudaFuncSetAttribute(
+      turbo_tc_kernel<TPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.grid);
+  cfg.blockDim = dim3(tc::NTH);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  for (int i = 0; i < n; ++i) {
+    err = cudaLaunchKernelEx(&cfg, turbo_tc_kernel<TPW>, a, t0 + i, i, n_slots);
+    if (err == cudaSuccess) err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launches;
+  }
+  return cudaSuccess;
+}
+
+static cudaError_t steps_tc(const TurboArgs& a, int t0, int n, cudaStream_t stream,
+                            int* launches) {
+  if (a.grid * TB < a.B || (a.grid - 1) * TB >= a.B || !a.wpk || !a.prods)
+    return cudaErrorInvalidValue;
+  size_t fixed;
+  turbo_tc_carve(a, nullptr, 0, &fixed);
+  const int n_slots = (int)std::min<size_t>(
+      tc::MAX_SLOTS, (size_t)std::max<long>(0, tc::smem_optin() - (long)fixed) / tc::SLOT);
+  if (n_slots < 2) return cudaErrorInvalidValue;
+  const size_t smem = fixed + (size_t)n_slots * tc::SLOT;
+  tc_smem = (int)smem;
+  const int need = std::max({tc::tiles_per_warp(2 * a.G, true), tc::tiles_per_warp(a.C, false),
+                             tc::tiles_per_warp(a.S, false), tc::tiles_per_warp(a.Q, false)});
+  switch (tc::pick_tpw(need)) {
+    case 3: return steps_nt<3>(a, t0, n, n_slots, smem, stream, launches);
+    case tc::MAX_MT: return steps_nt<tc::MAX_MT>(a, t0, n, n_slots, smem, stream, launches);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace wn
 
 // Steps t0 .. t0 + n - 1, one launch each. Returns a CUDA error code and adds
@@ -152,6 +364,10 @@ static cudaError_t steps(const TurboArgs& a, int t0, int n, cudaStream_t stream,
 extern "C" int wn_turbo_steps(const wn::TurboArgs* a, int t0, int n, void* stream,
                               int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a->bf16 ? wn::steps<__nv_bfloat16>(*a, t0, n, s, launches)
+  return (int)(a->bf16 ? wn::steps_tc(*a, t0, n, s, launches)
                        : wn::steps<float>(*a, t0, n, s, launches));
 }
+
+// Dynamic shared memory (bytes) of the last bf16 launch: activations plus
+// the weight ring.
+extern "C" int wn_turbo_tc_smem() { return wn::tc_smem; }

@@ -27,7 +27,7 @@ import torch
 
 from ...config import ArchConfig
 from ...models.wavenet import compute_dtype, rnd
-from . import build
+from . import ar_tc, build
 from .ar_step import buffer_offsets
 
 LANE_TILE = 8  # lanes per block: the batch must be a multiple (wn::TB)
@@ -147,19 +147,26 @@ def mega_zero_carry(arch: ArchConfig, h0: torch.Tensor, estack0: torch.Tensor):
 
 def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
                         forced: torch.Tensor, temperature: float,
-                        emit_logits: bool, lane, seed_base: int):
+                        emit_logits: bool, lane, seed_base: int,
+                        tensor_cores: Optional[bool] = None):
     """PyTorch version of the kernel on any device, op for op as the JAX
     kernel. forced (T, B) int32. Updates `carry` in place; returns
-    (classes (T, B) int32, logits (T, Q, B) or None)."""
+    (classes (T, B) int32, logits (T, Q, B) or None). With tensor_cores
+    (the default in bf16 at widths the kernel takes) each product is summed
+    as the bf16 kernel sums it on the tensor cores (ar_tc.tc_product), so
+    the two agree bit for bit; otherwise in one fp32 product, as the fp32
+    kernel's in-order sums (and kernel B7's) come out."""
     dt = compute_dtype(arch)
     dils = arch.dilations
     c = arch.residual_channels
     k_taps = arch.input_kernel
     pp = params["post"]
     w_in = params["input_conv"]["w"]
+    if tensor_cores is None:
+        tensor_cores = ar_tc.default_order(arch, dt)
 
     def mm(w, a):  # (M, K) @ (K, B), weights pre-rounded
-        return w @ rnd(a, dt)
+        return ar_tc.tc_product(w, rnd(a, dt)) if tensor_cores else w @ rnd(a, dt)
 
     wcat = rnd(torch.cat([lp["w_cur"], lp["w_prev"]], 1).transpose(1, 2), dt)
     wrs = rnd(torch.cat([lp["w_res"], lp["w_skip"]], 2).transpose(1, 2), dt)
@@ -229,6 +236,8 @@ class _MegaArgs(ctypes.Structure):
         "seed_base", "mode",
     )] + [("inv_temp", ctypes.c_float)] + [
         (n, ctypes.c_int) for n in ("bf16", "n_d1")
+    ] + [(n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
+        (n, ctypes.c_int) for n in ("n_prod", "grid")
     ]
 
 
@@ -275,8 +284,14 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
     def f(x):
         return x.to(dev, torch.float32).contiguous()
 
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        ar_tc.check_dims(arch)
+
     def merge():  # the kernel's weight layout, made once per weight set
-        return {
+        packed = (ar_tc.pack_stream(ar_tc.mega_stream(params, lp, arch), dev) if bf16
+                  else {"wpk": None, "prods": None})
+        return {**packed,
             "wcat": w(torch.cat([lp["w_cur"], lp["w_prev"]], 1)),
             "bcat": f(lp["b"]),
             "wrs": w(torch.cat([lp["w_res"], lp["w_skip"]], 2)),
@@ -319,7 +334,9 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         b, n_steps, int(t0), L, c, arch.gate_channels, s, q, k,
         0 if lane is None else lane.shape[0], int(seed_base), mode,
         _inv_temp(temperature) if temperature > 0.0 else 0.0,
-        int(dt == torch.bfloat16), sum(1 for d in arch.dilations if d == 1),
+        int(bf16), sum(1 for d in arch.dilations if d == 1),
+        ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
+        ar_tc.launch_shape(b)[0],
     )
     mega_generate.launches += build.launch(_library(), "wn_mega_generate", args, dev)
     return classes, logits

@@ -38,9 +38,14 @@ def buffer_offsets(arch: ArchConfig) -> tuple:
     return tuple(offs)
 
 
-def fused_stack_plain(lp: dict, arch: ArchConfig, h0, bufs, t: int):
-    """PyTorch version of the kernel, on any device: (bufs, skip (B, S))."""
+def fused_stack_plain(lp: dict, arch: ArchConfig, h0, bufs, t: int, mm=None):
+    """PyTorch version of the kernel, on any device: (bufs, skip (B, S)).
+    `mm(x, w)` takes each product (default: bf16 operands, one fp32 sum;
+    turbo's plain version passes its tensor-core order)."""
     dt = compute_dtype(arch)
+    if mm is None:
+        def mm(x, w):
+            return _mm(x, w, dt)
     g = lp["w_cur"].shape[-1] // 2
     h = h0
     skip = torch.zeros(h0.shape[0], lp["w_skip"].shape[-1], device=h0.device)
@@ -48,10 +53,10 @@ def fused_stack_plain(lp: dict, arch: ArchConfig, h0, bufs, t: int):
         slot = off + t % d
         tap = bufs[slot].clone()
         bufs[slot] = h
-        pre = _mm(h, lp["w_cur"][i], dt) + _mm(tap, lp["w_prev"][i], dt) + lp["b"][i]
+        pre = mm(h, lp["w_cur"][i]) + mm(tap, lp["w_prev"][i]) + lp["b"][i]
         z = torch.tanh(pre[:, :g]) * torch.sigmoid(pre[:, g:])
-        h = h + _mm(z, lp["w_res"][i], dt) + lp["b_res"][i]
-        skip = skip + _mm(z, lp["w_skip"][i], dt) + lp["b_skip"][i]
+        h = h + mm(z, lp["w_res"][i]) + lp["b_res"][i]
+        skip = skip + mm(z, lp["w_skip"][i]) + lp["b_skip"][i]
     return bufs, skip
 
 

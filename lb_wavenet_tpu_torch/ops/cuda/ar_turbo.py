@@ -31,8 +31,8 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import _mm, compute_dtype, post_network, rnd
-from . import build
+from ...models.wavenet import _mm, compute_dtype, rnd
+from . import ar_tc, build
 from .ar_mega import _gumbel_bits, _inv_temp, _perlane_bits, gumbel_from_bits
 from .ar_step import fused_stack_plain
 from .train_stack import LAYER_KEYS
@@ -63,28 +63,40 @@ def sample_bm(logits, temperature: float, lane, t: int, seed_base: int, forced):
 
 def turbo_generate_plain(params, lp, arch: ArchConfig, state: dict, t0: int,
                          forced: torch.Tensor, temperature: float, emit_logits: bool,
-                         lane, seed_base: int):
+                         lane, seed_base: int, tensor_cores: Optional[bool] = None):
     """PyTorch version of the kernel on any device, step for step as the JAX
     kernel. state {"bufs", "h", "e"} is updated in place; forced (T, B)
-    int32. Returns (classes (T, B) int32, logits (T, B, Q) or None)."""
+    int32. Returns (classes (T, B) int32, logits (T, B, Q) or None). With
+    tensor_cores (the default in bf16 at widths the kernel takes) each
+    product is summed as the bf16 kernel sums it (ar_tc.tc_mm), so the two
+    agree bit for bit; otherwise in one fp32 product, as the fp32 kernel's
+    in-order sums come out."""
     dt = compute_dtype(arch)
+    if tensor_cores is None:
+        tensor_cores = ar_tc.default_order(arch, dt)
+
+    def mm(x, w):
+        return ar_tc.tc_mm(rnd(x, dt), rnd(w, dt)) if tensor_cores else _mm(x, w, dt)
+
     k_taps = arch.input_kernel
     w_in, b_in = params["input_conv"]["w"], params["input_conv"]["b"]
+    pp = params["post"]
     embr = rnd(params["embed"], dt)
     h, e = state["h"], state["e"]
     classes, logits_all = [], []
     for i in range(forced.shape[0]):
         t = t0 + i
-        _, skip = fused_stack_plain(lp, arch, h, state["bufs"], t)
-        logits = post_network(params, skip, dt)
+        _, skip = fused_stack_plain(lp, arch, h, state["bufs"], t, mm)
+        hidden = torch.relu(mm(torch.relu(skip), pp["w1"]) + pp["b1"])
+        logits = mm(hidden, pp["w2"]) + pp["b2"]
         if emit_logits:
             logits_all.append(logits)
         cls = sample_bm(logits, temperature, lane, t, seed_base, forced[i])
         classes.append(cls)
         e_next = embr[cls.long()]
-        h = b_in + _mm(e_next, w_in[k_taps - 1], dt)
+        h = b_in + mm(e_next, w_in[k_taps - 1])
         for j in range(k_taps - 1):
-            h = h + _mm(e[j], w_in[j], dt)
+            h = h + mm(e[j], w_in[j])
         if k_taps > 1:
             e = torch.cat([e[1:], e_next[None]], 0)
     state["h"].copy_(h)
@@ -99,7 +111,9 @@ class _TurboArgs(ctypes.Structure):
         "logits",
     )] + [(n, ctypes.c_int) for n in (
         "B", "L", "C", "G", "S", "Q", "K", "lane_rows", "seed_base", "mode",
-    )] + [("inv_temp", ctypes.c_float), ("bf16", ctypes.c_int)]
+    )] + [("inv_temp", ctypes.c_float), ("bf16", ctypes.c_int)] + [
+        (n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
+        (n, ctypes.c_int) for n in ("n_prod", "grid")]
 
 
 def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
@@ -123,12 +137,19 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
     pp = params["post"]
     names = ("w1", "b1", "w2", "b2")
 
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        ar_tc.check_dims(arch)
+
     def cast():  # weights in the compute dtype, biases fp32, once per weight set
         out = {n: lp[n] for n in LAYER_KEYS}
         out.update({n: pp[n] for n in names}, emb=params["embed"],
                    w_in=params["input_conv"]["w"], b_in=params["input_conv"]["b"])
-        return {n: v.to(dev, torch.float32 if n.startswith("b") else dt).contiguous()
-                for n, v in out.items()}
+        out = {n: v.to(dev, torch.float32 if n.startswith("b") else dt).contiguous()
+               for n, v in out.items()}
+        out.update(ar_tc.pack_stream(ar_tc.turbo_stream(params, lp, arch), dev) if bf16
+                   else {"wpk": None, "prods": None})
+        return out
 
     sources = (*(lp[n] for n in LAYER_KEYS), *(pp[n] for n in names), params["embed"],
                params["input_conv"]["w"], params["input_conv"]["b"])
@@ -152,7 +173,9 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
         b, L, c, arch.gate_channels, arch.skip_channels, q, k,
         0 if lane is None else lane.shape[0], int(seed_base),
         0 if temperature <= 0.0 else (1 if lane is not None else 2),
-        _inv_temp(temperature) if temperature > 0.0 else 0.0, int(dt == torch.bfloat16),
+        _inv_temp(temperature) if temperature > 0.0 else 0.0, int(bf16),
+        ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
+        ar_tc.launch_shape(b)[0],
     )
     lib = build.load("ar_turbo")
     fn = lib.wn_turbo_steps

@@ -421,3 +421,120 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
     ref = generate_classes(p, SMALL, 3, 16, 32, engine="mega", temperature=0.0, device=cuda)
     assert torch.equal(out[0]["classes"], out[1]["classes"])
     assert torch.equal(out[0]["classes"], ref.cpu())
+
+
+def _near_argmax_gap(logits_tf, cls, lane, temperature):
+    """Largest gap between the best score and the chosen class's score,
+    scores from the plain version's teacher-forced logits (T, Q, B)."""
+    gap = 0.0
+    for t in range(cls.shape[0]):
+        s = logits_tf[t]
+        if temperature > 0.0:
+            q = s.shape[0]
+            s = s * ar_mega._inv_temp(temperature) + ar_mega.gumbel_from_bits(
+                ar_mega._perlane_bits(q, lane, t))
+        chosen = s.gather(0, cls[t].long()[None, :])[0]
+        gap = max(gap, float((s.max(dim=0).values - chosen).max()))
+    return gap
+
+
+@pytest.mark.parametrize("engine", ["mega", "turbo"])
+def test_bf16_tensor_core_kernels_match_plain(cuda, engine):
+    """bf16 SMALL: the tensor-core kernel against its plain version (which
+    sums as the tensor cores do): teacher-forced logits and carry within
+    5e-2 (a flipped bf16 rounding moves a logit by ~1e-2; read 0.0), and a
+    per-lane sampled free run whose every choice is a near-argmax (gap
+    <= 0.1) of the plain scores on the kernel's own history."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_turbo
+
+    arch = dataclasses.replace(SMALL, compute_dtype="bfloat16")
+    p = init_params(12, arch, cuda)
+    b, t = 24, 40
+    g = torch.Generator(device=cuda).manual_seed(12)
+    lane = torch.stack([torch.randint(0, 2**31 - 1, (b,), generator=g, device=cuda),
+                        torch.zeros(b, device=cuda, dtype=torch.int64)]).to(torch.int32)
+    h0, e0 = _fused_frontend_zero(p, arch, b)
+    if engine == "mega":
+        def state():
+            return ar_mega.mega_zero_carry(arch, h0, e0)
+        kernel, plain = ar_mega.mega_generate_cuda, ar_mega.mega_generate_plain
+        counter = ar_mega.mega_generate
+    else:
+        def state():
+            return {"bufs": torch.zeros((sum(arch.dilations), b, 16), device=cuda),
+                    "h": h0.clone(), "e": e0.clone()}
+        kernel, plain = ar_turbo.turbo_generate_cuda, ar_turbo.turbo_generate_plain
+        counter = ar_turbo.turbo_step
+
+    def run(fn, forced, emit):
+        st = state()
+        cls, lg = fn(p, p["layers"], arch, st, 0, forced, 1.0, emit, lane, 3)
+        torch.cuda.synchronize()
+        if lg is not None and engine == "turbo":
+            lg = lg.transpose(1, 2)      # (T, Q, B) as mega's
+        return cls, lg, st
+
+    forced = torch.randint(0, 256, (t, b), generator=g, device=cuda, dtype=torch.int32)
+    n = counter.launches
+    _, lk, sk = run(kernel, forced, True)
+    assert counter.launches == n + (1 if engine == "mega" else t)
+    _, lp, sp = run(plain, forced, True)
+    torch.testing.assert_close(lk, lp, rtol=0, atol=5e-2)
+    for k in sk:
+        torch.testing.assert_close(sk[k], sp[k], rtol=0, atol=5e-2)
+    free = torch.full((t, b), -1, device=cuda, dtype=torch.int32)
+    cls, _, _ = run(kernel, free, False)
+    _, lg_tf, _ = run(plain, cls, True)
+    assert _near_argmax_gap(lg_tf, cls, lane, 1.0) <= 0.1
+
+
+@pytest.mark.parametrize("engine", ["mega", "turbo"])
+def test_bf16_lane_result_does_not_depend_on_the_batch(cuda, engine):
+    """The same lane state at lane 301 of B=512 and at lane 2 of B=8 gives
+    bit-identical logits and classes over 12 steps (per-lane sampling):
+    the tensor-core kernels' sums do not depend on B or the lane's place."""
+    import os
+
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.ops.cuda import ar_turbo
+
+    arch = Config.load(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                    "wavenet30.json")).arch
+    p = init_params(13, arch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    big, small, at, to = 512, 8, 301, 2
+    t = 12
+    c, k, sd = arch.residual_channels, arch.input_kernel, sum(arch.dilations)
+    lane_big = torch.stack([torch.randint(0, 2**31 - 1, (big,), generator=g, device=cuda),
+                            torch.randint(-50, 50, (big,), generator=g, device=cuda)]
+                           ).to(torch.int32)
+    lane_small = torch.stack([torch.randint(0, 2**31 - 1, (small,), generator=g, device=cuda),
+                              torch.zeros(small, device=cuda, dtype=torch.int64)]
+                             ).to(torch.int32)
+    lane_small[:, to] = lane_big[:, at]
+    if engine == "mega":
+        shapes = {"bufs": sd * c, "hstate": 2 * len(arch.dilations) * c, "h_s": c,
+                  "e_s": (k - 1) * c}
+        s_big = {n: torch.randn((r, big), device=cuda, generator=g) for n, r in shapes.items()}
+        s_small = {n: torch.randn((r, small), device=cuda, generator=g) for n, r in shapes.items()}
+        for n in shapes:
+            s_small[n][:, to] = s_big[n][:, at]
+        fn, lane_axis = ar_mega.mega_generate_cuda, 2
+    else:
+        def rnd_state(bb):
+            return {"bufs": torch.randn((sd, bb, c), device=cuda, generator=g),
+                    "h": torch.randn((bb, c), device=cuda, generator=g),
+                    "e": torch.randn((k - 1, bb, c), device=cuda, generator=g)}
+        s_big, s_small = rnd_state(big), rnd_state(small)
+        s_small["bufs"][:, to] = s_big["bufs"][:, at]
+        s_small["h"][to] = s_big["h"][at]
+        s_small["e"][:, to] = s_big["e"][:, at]
+        fn, lane_axis = ar_turbo.turbo_generate_cuda, 1
+    outs = []
+    for st, lane, bb in ((s_big, lane_big, big), (s_small, lane_small, small)):
+        free = torch.full((t, bb), -1, device=cuda, dtype=torch.int32)
+        outs.append(fn(p, p["layers"], arch, st, 4000, free, 1.0, True, lane, 0))
+    torch.cuda.synchronize()
+    (cls_b, lg_b), (cls_s, lg_s) = outs
+    assert torch.equal(cls_b[:, at], cls_s[:, to])
+    assert torch.equal(lg_b.select(lane_axis, at), lg_s.select(lane_axis, to))
