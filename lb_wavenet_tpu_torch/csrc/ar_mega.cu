@@ -26,24 +26,27 @@
 //
 // Two instantiations, chosen by dtype (not a fallback):
 //   * fp32: mega_kernel<float>, CUDA-core FMAs in k order through
-//     common.cuh (block_mm), as since PR 1.
+//     common.cuh (block_mm), as in the first port.
 //   * bf16: mega_tc_kernel, the tensor-core design of ar_tc.cuh, for the
 //     five holds of the CUDA-core version: (1) the dependent chain of
 //     2-byte weight loads from L2 becomes a producer warp streaming the
 //     step's packed weights (ar_tc.py) through a ring of 32 KB shared-memory
-//     slots by cp.async.bulk, consumers reading 16-byte fragments one
-//     k-step ahead; (2) each weight byte feeds all 8 lanes of the block
+//     slots by cp.async.bulk, consumers reading 16-byte fragments by
+//     32-bit shared-memory address, two k-steps per turn in two register
+//     sets; (2) each weight byte feeds all 8 lanes of the block
 //     through one mma fragment; (3) products on tensor cores (mma.sync
 //     m16n8k16 bf16 -> fp32, one mma per 16-deep k-step from zero, added
 //     in k order; the plain version reproduces those sums bit for bit);
 //     (4) a block still owns 8 lanes (64 blocks at B = 512, 8 at B = 64:
-//     the cluster and multicast options are reckoned in PERF.md, PR 5);
+//     the cluster and multicast options are reckoned in PERF.md);
 //     (5) three block barriers per layer (the gate runs in the pre
 //     product's epilogue on tile pairs held by one warp), biases loaded
 //     before a product's first wait, each layer's ring taps prefetched by
-//     cp.async during the layer before, and no spills in the 3-tiles-per-
-//     warp instantiation that WaveNet-30 selects (chip_smoke.py prints the
-//     ptxas report). Measured: PERF.md, PR 5.
+//     cp.async during the layer before. ptxas (chip_smoke.py prints the
+//     report): 157 registers, no spills in the 3-tiles-per-warp
+//     instantiation WaveNet-30 selects; 168 registers and 180/552 bytes of
+//     spills at 6 (the stress config); 207,744 bytes of dynamic shared
+//     memory at WaveNet-30. Measured: PERF.md, Findings.
 #include "ar_tc.cuh"
 
 namespace wn {
@@ -402,16 +405,11 @@ static cudaError_t launch_tc(const MegaArgs& a, cudaStream_t stream, int* launch
   if (a.grid * TB != a.B || !a.wpk || !a.prods) return cudaErrorInvalidValue;
   size_t fixed;
   mega_tc_carve(a, nullptr, 0, &fixed);
-  const int n_slots = (int)std::min<size_t>(
-      tc::MAX_SLOTS, (size_t)std::max<long>(0, tc::smem_optin() - (long)fixed) / tc::SLOT);
+  const int n_slots = tc::ring_slots(fixed);
   if (n_slots < 2) return cudaErrorInvalidValue;
   const size_t smem = fixed + (size_t)n_slots * tc::SLOT;
   tc_smem = (int)smem;
-  const int need = std::max({tc::tiles_per_warp(2 * a.G, true),
-                             tc::tiles_per_warp(a.C + a.S, false),
-                             tc::tiles_per_warp(a.S, false), tc::tiles_per_warp(a.Q, false),
-                             tc::tiles_per_warp(a.C, false)});
-  switch (tc::pick_tpw(need)) {
+  switch (tc::step_tpw(a.C, a.G, a.S, a.Q)) {
     case 3: return launch_nt<3>(a, n_slots, smem, stream, launches);
     case tc::MAX_MT: return launch_nt<tc::MAX_MT>(a, n_slots, smem, stream, launches);
     default: return cudaErrorInvalidValue;

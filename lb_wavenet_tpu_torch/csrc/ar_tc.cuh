@@ -199,6 +199,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // Programmatic dependent launch: let the next launch on the stream start
 // its prologue now; wait until the launch before this one has finished and
 // its writes are visible.
@@ -217,19 +231,32 @@ __device__ __forceinline__ int tile_of(int warp, int i, int MT) {
   return u < MT / 2 ? u + (i & 1) * (MT / 2) : MT;
 }
 
-// mm with TPW tile entries per warp (a compile-time count, so the fragments
-// and sums stay in registers).
-template <int TPW, bool PAIRED, typename Epi>
-__device__ __forceinline__ void mm_n(Ring& r, int M, int K, const bf16* act, int lda,
-                                     const float* bias, Epi epi) {
+// out[m][lane] = sum_k W[k][m] act[lane][k] for the next (M x K) product of
+// the stream; act is bf16 [TB][lda], bias fp32 (or null: 0). Each k-step is
+// one mma from zero, added to the fp32 sum in k-step order: acc = ((s_0 +
+// s_1) + s_2) + ..., the order ar_tc.py `tc_product` reproduces. The
+// fragments of the next k-step load (ld.shared by 32-bit address, two
+// k-steps per turn in two register sets) while the current one multiplies; the
+// biases load before the first wait. epi(m, lane, acc, bias[m]) consumes
+// each sum, or with PAIRED epi(m, lane, acc, bias[m], acc', bias[m']) each
+// pair m < M/2, m' = m + M/2. With SPLIT the two halves of K are summed
+// apart and then added, (first + second), turbo's split order for
+// [h | tap] @ [w_cur ; w_prev]. TPW >= tiles_per_warp(M, PAIRED), a
+// compile-time count so that fragments and sums stay in registers: the
+// kernels are instantiated per TPW and the host picks one for all of a
+// step's products, so each call site is compiled once.
+template <int TPW, bool PAIRED = false, bool SPLIT = false, typename Epi>
+__device__ __forceinline__ void mm(Ring& r, int M, int K, const bf16* act, int lda,
+                                   const float* bias, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int MT = M / 16, ks = K / 16, kg = kgroup(M, K);
   int mt[TPW];
-  float acc[TPW][4], bv[TPW][2];
+  float acc[TPW][4], acc2[SPLIT ? TPW : 1][4], bv[TPW][2];
 #pragma unroll
   for (int i = 0; i < TPW; ++i) {
     mt[i] = tile_of<PAIRED>(warp, i, MT);
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    if constexpr (SPLIT) acc2[i][0] = acc2[i][1] = acc2[i][2] = acc2[i][3] = 0.f;
     bv[i][0] = bv[i][1] = 0.f;
     if (bias && mt[i] < MT) {
       bv[i][0] = bias[mt[i] * 16 + g];
@@ -239,46 +266,70 @@ __device__ __forceinline__ void mm_n(Ring& r, int M, int K, const bf16* act, int
     // the epilogue where their latency would add to the layer's.
     asm volatile("" : "+f"(bv[i][0]), "+f"(bv[i][1]));
   }
-  const bf16* brow = act + g * lda + 2 * t;
-  for (int k0 = 0; k0 < ks; k0 += kg) {
-    const char* slot = r.acquire() + lane * 16;
-    const int kn = kg < ks - k0 ? kg : ks - k0;
-    uint32_t b0 = *reinterpret_cast<const uint32_t*>(brow + k0 * 16);
-    uint32_t b1 = *reinterpret_cast<const uint32_t*>(brow + k0 * 16 + 8);
-    uint4 a[TPW];
+  // Operands by 32-bit shared-memory address: B of k-step k at bb + 32 k
+  // (rows 2t..2t+1, then 2t+8..2t+9 of column g), A tile (k, m) of a piece
+  // at sb + (k MT + m) FRAG.
+  const uint32_t bb = saddr(act + g * lda + 2 * t);
+  // acc (or, with SPLIT, acc2 over the second half of K) += s, in k order.
+  auto add = [&](const float (&s)[TPW][4], int k) {
+    const bool upper = SPLIT && 2 * k >= ks;
 #pragma unroll
     for (int i = 0; i < TPW; ++i) {
-      if (mt[i] < MT) a[i] = *reinterpret_cast<const uint4*>(slot + mt[i] * FRAG);
-    }
-    for (int kk = 0; kk < kn; ++kk) {
-      uint32_t nb0 = 0, nb1 = 0;
-      uint4 na[TPW];
-      if (kk + 1 < kn) {
-        const bf16* bp = brow + (k0 + kk + 1) * 16;
-        nb0 = *reinterpret_cast<const uint32_t*>(bp);
-        nb1 = *reinterpret_cast<const uint32_t*>(bp + 8);
+      if (mt[i] < MT) {
 #pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          if (mt[i] < MT)
-            na[i] = *reinterpret_cast<const uint4*>(slot + ((kk + 1) * MT + mt[i]) * FRAG);
+        for (int v = 0; v < 4; ++v) {
+          if (upper) {
+            acc2[SPLIT ? i : 0][v] += s[i][v];
+          } else {
+            acc[i][v] += s[i][v];
+          }
         }
       }
+    }
+  };
+  auto mma_all = [&](float (&s)[TPW][4], const uint4 (&a)[TPW], uint32_t b0, uint32_t b1) {
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      if (mt[i] < MT) mma16816(s[i], a[i], b0, b1);
+    }
+  };
+#pragma unroll 1
+  for (int k0 = 0; k0 < ks; k0 += kg) {
+    const uint32_t sb = saddr(r.acquire()) + lane * 16;
+    const int kn = kg < ks - k0 ? kg : ks - k0;
+    auto load = [&](uint4 (&a)[TPW], uint32_t& b0, uint32_t& b1, int kk) {
+      b0 = lds32(bb + (k0 + kk) * 32);
+      b1 = lds32(bb + (k0 + kk) * 32 + 16);
 #pragma unroll
       for (int i = 0; i < TPW; ++i) {
-        if (mt[i] < MT) {
-          float s4[4] = {0.f, 0.f, 0.f, 0.f};
-          mma16816(s4, a[i], b0, b1);
-          acc[i][0] += s4[0];
-          acc[i][1] += s4[1];
-          acc[i][2] += s4[2];
-          acc[i][3] += s4[3];
-        }
-        a[i] = na[i];
+        if (mt[i] < MT) a[i] = lds128(sb + (kk * MT + mt[i]) * FRAG);
       }
-      b0 = nb0;
-      b1 = nb1;
+    };
+    // Two k-steps per turn in two register sets, the next set's loads in
+    // flight while the current one multiplies.
+    uint4 a0[TPW], a1[TPW];
+    uint32_t b00, b01, b10 = 0, b11 = 0;
+    load(a0, b00, b01, 0);
+#pragma unroll 1
+    for (int kk = 0; kk < kn; kk += 2) {
+      const bool two = kk + 1 < kn;
+      if (two) load(a1, b10, b11, kk + 1);
+      float s0[TPW][4], s1[TPW][4];
+      mma_all(s0, a0, b00, b01);
+      if (kk + 2 < kn) load(a0, b00, b01, kk + 2);
+      add(s0, k0 + kk);
+      if (two) {
+        mma_all(s1, a1, b10, b11);
+        add(s1, k0 + kk + 1);
+      }
     }
     r.release();
+  }
+  if constexpr (SPLIT) {  // (sum over the first half + sum over the second)
+#pragma unroll
+    for (int i = 0; i < TPW; ++i)
+      for (int v = 0; v < 4; ++v) acc[i][v] = acc[i][v] + acc2[i][v];
   }
   const int n = 2 * t;
   if constexpr (PAIRED) {
@@ -312,26 +363,14 @@ __host__ __device__ inline int tiles_per_warp(int M, bool paired) {
   return (units + NCW - 1) / NCW * (paired ? 2 : 1);
 }
 
-// out[m][lane] = sum_k W[k][m] act[lane][k] for the next (M x K) product of
-// the stream; act is bf16 [TB][lda], bias fp32 (or null: 0). Each k-step is
-// one mma from zero, added to the fp32 sum in k-step order: acc = ((s_0 +
-// s_1) + s_2) + ..., the order ar_tc.py `tc_product` reproduces. The
-// fragments of the next k-step load while the current one multiplies; the
-// biases load before the first wait. epi(m, lane, acc, bias[m]) consumes
-// each sum, or with PAIRED epi(m, lane, acc, bias[m], acc', bias[m']) each
-// pair m < M/2, m' = m + M/2. Two calls with the same M and PAIRED hand
-// each (m, lane) to the same thread. TPW >= tiles_per_warp(M, PAIRED): the
-// kernels are instantiated per TPW and the host picks one for all of a
-// step's products, so each call site is compiled once.
-template <int TPW, bool PAIRED = false, typename Epi>
-__device__ __forceinline__ void mm(Ring& r, int M, int K, const bf16* act, int lda,
-                                   const float* bias, Epi epi) {
-  mm_n<TPW, PAIRED>(r, M, K, act, lda, bias, epi);
+// The instantiated TPW that covers every product of a sample step (the
+// gate pairs, [w_res | w_skip], w1, w2 and the frontend's C x C), or 0: 3
+// serves WaveNet-30, MAX_MT the 512-skip stress config.
+inline int step_tpw(int C, int G, int S, int Q) {
+  const int need = std::max(
+      {tiles_per_warp(2 * G, true), tiles_per_warp(C + S, false), tiles_per_warp(Q, false)});
+  return need <= 3 ? 3 : need <= MAX_MT ? MAX_MT : 0;
 }
-
-// The instantiated TPW that covers tiles_per_warp `need` (3 serves
-// WaveNet-30, MAX_MT the 512-skip stress config), or 0.
-inline int pick_tpw(int need) { return need <= 3 ? 3 : need <= MAX_MT ? MAX_MT : 0; }
 
 // The post network of the tile: ab = bf16(relu(skip)), hb = bf16(relu(ab @
 // w1 + b1)), lg [Q][TB] = hb @ w2 + b2; emit(m, j, v) sees each logit.
@@ -439,12 +478,13 @@ __device__ __forceinline__ void next_frontend(Ring& r, float* x, float* es, bf16
   }
 }
 
-// Dynamic shared memory a block may use on this device.
-inline int smem_optin() {
+// Weight slots (at most MAX_SLOTS) that fit in the dynamic shared memory a
+// block may use on this device beside `fixed` bytes of activations.
+inline int ring_slots(size_t fixed) {
   int dev = 0, bytes = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
+  return (int)std::min<long>(MAX_SLOTS, std::max<long>(0, bytes - (long)fixed) / SLOT);
 }
 
 }  // namespace tc

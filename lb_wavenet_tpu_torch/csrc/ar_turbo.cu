@@ -33,10 +33,15 @@
 // next_frontend); bf16 runs turbo_tc_kernel, the tensor-core design of
 // ar_tc.cuh shared with ar_mega.cu (see its note): weights streamed through
 // a shared-memory ring by a producer warp, mma.sync m16n8k16 products per
-// 16-deep k-step in turbo's split order (two accumulators for the w_cur
-// and w_prev products, paired tiles so that one thread holds both pre
-// halves of a gate), taps prefetched by cp.async, any batch (the last
-// block masks lanes past B). One launch per sample step.
+// 16-deep k-step, the same packed step stream as mega's: [h | tap] @
+// [w_cur ; w_prev] with its two halves summed apart (turbo's split order,
+// (h @ w_cur + tap @ w_prev) + b) on paired tiles so that one thread holds
+// both halves of a gate, then one z @ [w_res | w_skip] product; taps
+// prefetched by cp.async, any batch (the last block masks lanes past B).
+// One launch per sample step, with programmatic dependent launch. ptxas
+// (chip_smoke.py prints the report): 128 registers, no spills at 3 tiles
+// per warp (WaveNet-30); 168 registers, 12/20 bytes of spills at 6; 201,600
+// bytes of dynamic shared memory at WaveNet-30.
 #include "ar_tc.cuh"
 
 namespace wn {
@@ -71,6 +76,7 @@ struct TurboArgs {
   const void* wpk;      // bf16: the step's weights packed for the tensor cores
   const int* prods;     // bf16: (n_prod, 2) (M, K) of each packed product
   int n_prod, grid;     // bf16: products per step; blocks (lane tiles)
+  const float* brs;     // bf16: (L, C+S) [b_res | b_skip]
 };
 
 template <typename T>
@@ -160,9 +166,9 @@ static cudaError_t steps(const TurboArgs& a, int t0, int n, cudaStream_t stream,
 static int tc_smem = 0;  // dynamic shared memory of the last launch (bytes)
 
 struct TurboTc {  // the block's shared memory
-  float *x, *pre, *skip, *lg, *es, *tap[2];
+  float *x, *skip, *lg, *es, *tap[2];
   int* dl;
-  tc::bf16 *xb, *tb, *zb, *ab, *hb, *eb;
+  tc::bf16 *xb, *zb, *ab, *hb, *eb;
   int* cls;
   tc::Ring ring;
 };
@@ -177,15 +183,13 @@ __host__ __device__ inline TurboTc turbo_tc_carve(const TurboArgs& a, char* base
   s.ring.n = n_slots;
   s.ring.i = 0;
   s.x = cv.take<float>(a.C * TB);
-  s.pre = cv.take<float>(2 * a.G * TB);
   s.skip = cv.take<float>(a.S * TB);
   s.lg = cv.take<float>(a.Q * TB);
   s.es = cv.take<float>((a.K - 1) * a.C * TB);
   s.tap[0] = cv.take<float>(a.C * TB);
   s.tap[1] = cv.take<float>(a.C * TB);
   s.dl = cv.take<int>(a.L);
-  s.xb = cv.take<tc::bf16>(TB * (a.C + 8));
-  s.tb = cv.take<tc::bf16>(TB * (a.C + 8));
+  s.xb = cv.take<tc::bf16>(TB * (2 * a.C + 8));
   s.zb = cv.take<tc::bf16>(TB * (a.G + 8));
   s.ab = cv.take<tc::bf16>(TB * (a.S + 8));
   s.hb = cv.take<tc::bf16>(TB * (a.S + 8));
@@ -200,11 +204,11 @@ __global__ void __launch_bounds__(tc::NTH, 1) turbo_tc_kernel(TurboArgs a, int t
                                                               int n_slots) {
   extern __shared__ __align__(128) char smem[];
   const int C = a.C, G = a.G, S = a.S, Q = a.Q, K = a.K, B = a.B;
-  const int ldc = C + 8, ldg = G + 8;
+  const int CS = C + S, lda = 2 * C + 8, ldg = G + 8;
   size_t bytes;
   TurboTc s = turbo_tc_carve(a, smem, n_slots, &bytes);
   tc::Ring ring = s.ring;  // locals: no lambda captures the struct
-  tc::bf16 *xb = s.xb, *zb = s.zb, *ab = s.ab, *hb = s.hb, *eb = s.eb, *tb = s.tb;
+  tc::bf16 *xb = s.xb, *zb = s.zb, *ab = s.ab, *hb = s.hb, *eb = s.eb;
   int *cls = s.cls, *dl = s.dl;
   float *lg = s.lg, *tap0 = s.tap[0], *tap1 = s.tap[1];
   tc::ring_init(ring);
@@ -219,7 +223,7 @@ __global__ void __launch_bounds__(tc::NTH, 1) turbo_tc_kernel(TurboArgs a, int t
     return;
   }
   tc::pdl_wait();
-  float *x = s.x, *pre = s.pre, *skip = s.skip, *es = s.es;
+  float *x = s.x, *skip = s.skip, *es = s.es;
   const int b0 = blockIdx.x * TB;
   // Layer l's taps (ring row off + t mod d, lane-major [TB][C]; 0 past B)
   // go to tap[l & 1] by cp.async while the layer before it computes.
@@ -255,36 +259,30 @@ __global__ void __launch_bounds__(tc::NTH, 1) turbo_tc_kernel(TurboArgs a, int t
     const int d = dl[l];
     float* row = a.bufs + (size_t)(off + t % d) * B * C;  // this layer's ring row
     const float* tp = l & 1 ? tap1 : tap0;  // no dynamic index
-    // Stage bf16 h and tap per lane; h takes the tap's ring row.
+    // Stage bf16 [h | tap] per lane; h takes the tap's ring row.
     for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
       const int j = i / C, c = i % C, b = b0 + j;
       const float h = x[c * TB + j];
       if (b < B) row[(size_t)b * C + c] = h;
-      xb[j * ldc + c] = __float2bfloat16_rn(h);
-      tb[j * ldc + c] = __float2bfloat16_rn(tp[i]);
+      xb[j * lda + c] = __float2bfloat16_rn(h);
+      xb[j * lda + C + c] = __float2bfloat16_rn(tp[i]);
     }
     if (l + 1 < a.L) prefetch(l + 1, off + d, l & 1 ? tap0 : tap1);
     tc::csync();
-    // pre = (h @ w_cur + tap @ w_prev) + b: two sums (turbo's split order);
-    // the same thread holds pre[m] and pre[G + m] of both products, then
-    // z = tanh(pre[m]) sigmoid(pre[G + m]).
-    tc::mm<TPW, true>(ring, 2 * G, C, xb, ldc, nullptr,
-                 [&](int m, int j, float at, float, float as, float) {
-                   pre[m * TB + j] = at;
-                   pre[(G + m) * TB + j] = as;
-                 });
-    tc::mm<TPW, true>(ring, 2 * G, C, tb, ldc, a.b + l * 2 * G,
-                 [&](int m, int j, float at, float bt, float as, float bs) {
-                   const float pt = (pre[m * TB + j] + at) + bt;
-                   const float ps = (pre[(G + m) * TB + j] + as) + bs;
-                   zb[j * ldg + m] = __float2bfloat16_rn(tanhf(pt) * sigmoidf(ps));
-                 });
+    // pre = (h @ w_cur + tap @ w_prev) + b, turbo's split order: the two
+    // halves of [h | tap] @ [w_cur ; w_prev] summed apart (SPLIT), then
+    // z = tanh(pre[m]) sigmoid(pre[G + m]) from the same thread's pair.
+    tc::mm<TPW, true, true>(ring, 2 * G, 2 * C, xb, lda, a.b + l * 2 * G,
+                            [&](int m, int j, float at, float bt, float as, float bs) {
+                              zb[j * ldg + m] =
+                                  __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
+                            });
     tc::csync();
-    tc::mm<TPW>(ring, C, G, zb, ldg, a.b_res + l * C, [&](int m, int j, float acc, float b) {
-      x[m * TB + j] = (x[m * TB + j] + acc) + b;
-    });
-    tc::mm<TPW>(ring, S, G, zb, ldg, a.b_skip + l * S, [&](int m, int j, float acc, float b) {
-      skip[m * TB + j] = (skip[m * TB + j] + acc) + b;
+    // One z @ [w_res | w_skip] product: h = (h + res) + b_res,
+    // skip = (skip + sk) + b_skip.
+    tc::mm<TPW>(ring, CS, G, zb, ldg, a.brs + l * CS, [&](int m, int j, float acc, float b) {
+      float* o = m < C ? x + m * TB + j : skip + (m - C) * TB + j;
+      *o = (*o + acc) + b;
     });
     tc::cp_async_wait_all();
     tc::csync();
@@ -339,18 +337,15 @@ static cudaError_t steps_nt(const TurboArgs& a, int t0, int n, int n_slots, size
 
 static cudaError_t steps_tc(const TurboArgs& a, int t0, int n, cudaStream_t stream,
                             int* launches) {
-  if (a.grid * TB < a.B || (a.grid - 1) * TB >= a.B || !a.wpk || !a.prods)
+  if (a.grid * TB < a.B || (a.grid - 1) * TB >= a.B || !a.wpk || !a.prods || !a.brs)
     return cudaErrorInvalidValue;
   size_t fixed;
   turbo_tc_carve(a, nullptr, 0, &fixed);
-  const int n_slots = (int)std::min<size_t>(
-      tc::MAX_SLOTS, (size_t)std::max<long>(0, tc::smem_optin() - (long)fixed) / tc::SLOT);
+  const int n_slots = tc::ring_slots(fixed);
   if (n_slots < 2) return cudaErrorInvalidValue;
   const size_t smem = fixed + (size_t)n_slots * tc::SLOT;
   tc_smem = (int)smem;
-  const int need = std::max({tc::tiles_per_warp(2 * a.G, true), tc::tiles_per_warp(a.C, false),
-                             tc::tiles_per_warp(a.S, false), tc::tiles_per_warp(a.Q, false)});
-  switch (tc::pick_tpw(need)) {
+  switch (tc::step_tpw(a.C, a.G, a.S, a.Q)) {
     case 3: return steps_nt<3>(a, t0, n, n_slots, smem, stream, launches);
     case tc::MAX_MT: return steps_nt<tc::MAX_MT>(a, t0, n, n_slots, smem, stream, launches);
     default: return cudaErrorInvalidValue;

@@ -289,7 +289,7 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         ar_tc.check_dims(arch)
 
     def merge():  # the kernel's weight layout, made once per weight set
-        packed = (ar_tc.pack_stream(ar_tc.mega_stream(params, lp, arch), dev) if bf16
+        packed = (ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev) if bf16
                   else {"wpk": None, "prods": None})
         return {**packed,
             "wcat": w(torch.cat([lp["w_cur"], lp["w_prev"]], 1)),

@@ -19,7 +19,7 @@ toward zero to TC_BITS bits below it, and rounds the total toward zero to
 fp32. That model matched every one of 2,097,152 mma results on an H100 (a
 calibration run of random tiles with exponents spread over 2^-12..2^12);
 the sampling network is chaotic enough that any other order moves logits by
-a few hundredths within a few steps (PERF.md, PR 5).
+a few hundredths within a few steps (PERF.md, Findings).
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ def launch_shape(batch: int) -> tuple:
     """(blocks, lanes per block) of a launch at `batch`: one block per tile
     of TB lanes, the last tile masked where TB does not divide the batch.
     More lanes per block would divide the weight bytes the card moves per
-    step but idle more SMs at the served batches (PERF.md, PR 5)."""
+    step but idle more SMs at the served batches (PERF.md, Findings)."""
     if batch < 1:
         raise ValueError(f"batch must be positive, got {batch}")
     return -(-batch // TB), TB
@@ -126,23 +126,14 @@ def _finale(params: dict, arch) -> list:
             *(w_in[j] for j in range(k - 1))]
 
 
-def mega_stream(params: dict, lp: dict, arch) -> list:
-    """The (K, M) matrices of one mega step in the order of use: per layer
-    [w_cur ; w_prev] (2C, 2G) and [w_res | w_skip] (G, C+S), then the
-    finale."""
+def step_stream(params: dict, lp: dict, arch) -> list:
+    """The (K, M) matrices of one sample step in the order the kernels use
+    them (mega and turbo alike): per layer [w_cur ; w_prev] (2C, 2G) and
+    [w_res | w_skip] (G, C+S), then the finale."""
     mats = []
     for l in range(len(arch.dilations)):
         mats.append(torch.cat([lp["w_cur"][l], lp["w_prev"][l]], 0))
         mats.append(torch.cat([lp["w_res"][l], lp["w_skip"][l]], 1))
-    return mats + _finale(params, arch)
-
-
-def turbo_stream(params: dict, lp: dict, arch) -> list:
-    """The (K, M) matrices of one turbo step in the order of use: per layer
-    w_cur, w_prev, w_res, w_skip, then the finale."""
-    mats = []
-    for l in range(len(arch.dilations)):
-        mats += [lp[k][l] for k in ("w_cur", "w_prev", "w_res", "w_skip")]
     return mats + _finale(params, arch)
 
 

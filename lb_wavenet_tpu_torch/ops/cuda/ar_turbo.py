@@ -113,7 +113,7 @@ class _TurboArgs(ctypes.Structure):
         "B", "L", "C", "G", "S", "Q", "K", "lane_rows", "seed_base", "mode",
     )] + [("inv_temp", ctypes.c_float), ("bf16", ctypes.c_int)] + [
         (n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
-        (n, ctypes.c_int) for n in ("n_prod", "grid")]
+        (n, ctypes.c_int) for n in ("n_prod", "grid")] + [("brs", ctypes.c_void_p)]
 
 
 def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
@@ -147,8 +147,11 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
                    w_in=params["input_conv"]["w"], b_in=params["input_conv"]["b"])
         out = {n: v.to(dev, torch.float32 if n.startswith("b") else dt).contiguous()
                for n, v in out.items()}
-        out.update(ar_tc.pack_stream(ar_tc.turbo_stream(params, lp, arch), dev) if bf16
-                   else {"wpk": None, "prods": None})
+        if bf16:
+            out.update(ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev),
+                       brs=torch.cat([out["b_res"], out["b_skip"]], 1).contiguous())
+        else:
+            out.update(wpk=None, prods=None, brs=None)
         return out
 
     sources = (*(lp[n] for n in LAYER_KEYS), *(pp[n] for n in names), params["embed"],
@@ -175,7 +178,7 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
         0 if temperature <= 0.0 else (1 if lane is not None else 2),
         _inv_temp(temperature) if temperature > 0.0 else 0.0, int(bf16),
         ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
-        ar_tc.launch_shape(b)[0],
+        ar_tc.launch_shape(b)[0], ptr(ops["brs"]),
     )
     lib = build.load("ar_turbo")
     fn = lib.wn_turbo_steps

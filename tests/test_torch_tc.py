@@ -23,7 +23,8 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "torch_goldens", "tc_mma_h100.n
 
 
 def _stream_shapes(arch):
-    """(K, M) of every matrix of a mega and a turbo step at `arch`."""
+    """(K, M) of every matrix of a sample step at `arch`, and of the
+    per-layer weights they are made of."""
     c, g, s, q, k = (arch.residual_channels, arch.gate_channels, arch.skip_channels,
                      arch.quant_channels, arch.input_kernel)
     finale = [(s, s), (s, q)] + [(c, c)] * k
