@@ -265,7 +265,10 @@ def make_batches(
 def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     """Run `iterator` in a daemon thread, keeping `depth` items ready; an
     exception in the producer is raised on the consumer side. Closing the
-    returned generator (or dropping it) stops the thread within 0.1 s."""
+    returned generator (or dropping it) stops the thread and waits for it:
+    a daemon thread still inside native code when the interpreter exits
+    can abort the process ("terminate called without an active
+    exception")."""
     import queue
     import threading
 
@@ -291,7 +294,8 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
             put(e)
         put(stop)
 
-    threading.Thread(target=worker, daemon=True).start()
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -302,6 +306,7 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
             yield item
     finally:
         closed.set()
+        thread.join(timeout=60.0)  # the item in hand, then at most 0.1 s
 
 
 def synthetic_corpus(
