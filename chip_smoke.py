@@ -432,6 +432,7 @@ def phase_kernels(params, arch, gpu):
     torch.cuda.synchronize()
     _, lpl = ar_mega.mega_generate_plain(params, lp, arch, cp, t0, forced[:, 0],
                                          1.0, True, lane, 12345)
+    atol = sampling_atol(arch)
     err = float((lk - lpl).abs().max())
     carry_err = max(float((ck[k] - cp[k]).abs().max()) for k in ck)
     # The same plain run with each product as one fp32 sum (the order of B7
@@ -443,11 +444,11 @@ def phase_kernels(params, arch, gpu):
     log(json.dumps({"phase": "mega_teacher_forced_vs_plain", "gpu": gpu,
                     "B": B, "T": CHUNK, "t0": t0, "lane_rows": 3,
                     "max_abs_err": err, "carry_max_abs_err": carry_err,
-                    "bit_identical": err == 0.0 and carry_err == 0.0, "atol": LOGIT_ATOL,
+                    "bit_identical": err == 0.0 and carry_err == 0.0, "atol": atol,
                     "one_fp32_sum_order_vs_tensor_core_order": {
                         "logits_max_abs_diff": abs_err(lo, lpl),
                         "carry_max_abs_diff": max(abs_err(co[k], cp[k]) for k in co)}}))
-    require(err <= LOGIT_ATOL and carry_err <= LOGIT_ATOL,
+    require(err <= atol and carry_err <= atol,
             f"mega teacher-forced logits/carry differ: {err}, {carry_err}")
     report["mega_generate"] = err
     del ck, cp, co, base, lk, lpl, lo
@@ -523,6 +524,7 @@ def phase_turbo_kernels(params, arch, gpu):
     cp, _ = ar_turbo.turbo_generate_plain(
         params, lp, arch, {"bufs": st["bufs"].clone(), "h": st["h"].clone(),
                            "e": st["e"].clone()}, 1000, forced[None], 1.0, False, lane3, 12345)
+    atol = sampling_atol(arch)
     step_err = max(abs_err(bk, bp), abs_err(hk, sp["h"]), abs_err(ek, sp["e"]),
                    abs_err(lk, lpl[0]))
     gap = check_choices(lpl.transpose(1, 2), ck[None], 1.0, _shift_lane(lane3, 1000),
@@ -530,8 +532,8 @@ def phase_turbo_kernels(params, arch, gpu):
     log(json.dumps({"phase": "turbo_step_vs_plain", "gpu": gpu, "B": B, "t": 1000,
                     "lane_rows": 3, "max_abs_err": step_err, "classes_equal":
                     bool(torch.equal(ck, cp[0])), "max_choice_gap": gap,
-                    "atol": LOGIT_ATOL}))
-    require(step_err <= LOGIT_ATOL and gap <= 2 * LOGIT_ATOL,
+                    "atol": atol}))
+    require(step_err <= atol and gap <= 2 * LOGIT_ATOL,
             f"turbo_step differs from plain: {step_err}, choice gap {gap}")
 
     # Teacher-forced over a T_CHECK-step chunk at a mid-stream t0.
@@ -548,8 +550,8 @@ def phase_turbo_kernels(params, arch, gpu):
     log(json.dumps({"phase": "turbo_teacher_forced_vs_plain", "gpu": gpu, "B": B,
                     "T": T_CHECK, "t0": 5000, "max_abs_err": err,
                     "state_max_abs_err": state_err,
-                    "bit_identical": err == 0.0 and state_err == 0.0, "atol": LOGIT_ATOL}))
-    require(err <= LOGIT_ATOL and state_err <= LOGIT_ATOL,
+                    "bit_identical": err == 0.0 and state_err == 0.0, "atol": atol}))
+    require(err <= atol and state_err <= atol,
             f"turbo teacher-forced logits/state differ: {err}, {state_err}")
     report = {"turbo_step": max(step_err, err)}
     del st, sk, lk, lpl
@@ -1200,6 +1202,16 @@ def phase_tp_serving_2rank(params, arch, one_rank, gpu):
 
 def abs_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def sampling_atol(arch) -> float:
+    """Tolerance of the mega and turbo kernels against their plain versions
+    on the card: 0 where the kernels run on tensor cores, since the plain
+    versions then sum as they do (ar_tc.default_order); LOGIT_ATOL else."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc
+
+    return 0.0 if ar_tc.default_order(arch, compute_dtype(arch), "cuda") else LOGIT_ATOL
 
 
 def rel_err(a, b) -> float:

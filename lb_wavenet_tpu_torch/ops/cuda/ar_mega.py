@@ -152,10 +152,11 @@ def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
     """PyTorch version of the kernel on any device, op for op as the JAX
     kernel. forced (T, B) int32. Updates `carry` in place; returns
     (classes (T, B) int32, logits (T, Q, B) or None). With tensor_cores
-    (the default in bf16 at widths the kernel takes) each product is summed
-    as the bf16 kernel sums it on the tensor cores (ar_tc.tc_product), so
-    the two agree bit for bit; otherwise in one fp32 product, as the fp32
-    kernel's in-order sums (and kernel B7's) come out."""
+    (the default on a CUDA carry in bf16 at widths the kernel takes,
+    ar_tc.default_order) each product is summed as the bf16 kernel sums it
+    on the tensor cores (ar_tc.tc_product), so the two agree bit for bit;
+    otherwise in one fp32 product, as the fp32 kernel's in-order sums (and
+    kernel B7's) come out."""
     dt = compute_dtype(arch)
     dils = arch.dilations
     c = arch.residual_channels
@@ -163,7 +164,7 @@ def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
     pp = params["post"]
     w_in = params["input_conv"]["w"]
     if tensor_cores is None:
-        tensor_cores = ar_tc.default_order(arch, dt)
+        tensor_cores = ar_tc.default_order(arch, dt, carry["h_s"].device)
 
     def mm(w, a):  # (M, K) @ (K, B), weights pre-rounded
         return ar_tc.tc_product(w, rnd(a, dt)) if tensor_cores else w @ rnd(a, dt)
@@ -289,19 +290,21 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         ar_tc.check_dims(arch)
 
     def merge():  # the kernel's weight layout, made once per weight set
-        packed = (ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev) if bf16
-                  else {"wpk": None, "prods": None})
-        return {**packed,
-            "wcat": w(torch.cat([lp["w_cur"], lp["w_prev"]], 1)),
+        out = {
             "bcat": f(lp["b"]),
-            "wrs": w(torch.cat([lp["w_res"], lp["w_skip"]], 2)),
             "brs": f(torch.cat([lp["b_res"], lp["b_skip"]], 1)),
-            "w1": w(pp["w1"]), "b1": f(pp["b1"]),
-            "w2": w(pp["w2"]), "b2": f(pp["b2"]),
+            "b1": f(pp["b1"]), "b2": f(pp["b2"]),
             "emb": w(params["embed"]),
-            "w_in": w(params["input_conv"]["w"]),
             "b_in": f(params["input_conv"]["b"]),
         }
+        if bf16:   # the tensor-core kernel streams every product's weights from wpk
+            return {**out, **ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev),
+                    **dict.fromkeys(("wcat", "wrs", "w1", "w2", "w_in"))}
+        return {**out, "wpk": None, "prods": None,
+                "wcat": w(torch.cat([lp["w_cur"], lp["w_prev"]], 1)),
+                "wrs": w(torch.cat([lp["w_res"], lp["w_skip"]], 2)),
+                "w1": w(pp["w1"]), "w2": w(pp["w2"]),
+                "w_in": w(params["input_conv"]["w"])}
 
     sources = (
         *(lp[k] for k in ("w_cur", "w_prev", "b", "w_res", "w_skip",
@@ -309,11 +312,12 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         *(pp[k] for k in ("w1", "b1", "w2", "b2")), params["embed"],
         params["input_conv"]["w"], params["input_conv"]["b"],
     )
+    if lp["w_cur"].shape != (L, c, 2 * arch.gate_channels) \
+            or lp["w_prev"].shape != lp["w_cur"].shape:
+        raise ValueError(f"w_cur/w_prev do not match the arch: {lp['w_cur'].shape}")
     ops = dict(build.prepared(f"mega_generate {dev} {dt}", sources, merge))
     ops["forced"] = forced.to(dev, torch.int32).contiguous()
     ops["lane"] = None if lane is None else lane.to(dev, torch.int32).contiguous()
-    if ops["wcat"].shape != (L, 2 * c, 2 * arch.gate_channels):
-        raise ValueError(f"w_cur/w_prev do not match the arch: {lp['w_cur'].shape}")
     if ops["forced"].shape != (n_steps, b):
         raise ValueError(f"forced must be (T, {b}), got {tuple(forced.shape)}")
     classes = torch.empty((n_steps, b), dtype=torch.int32, device=dev)

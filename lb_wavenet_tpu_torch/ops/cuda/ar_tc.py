@@ -113,10 +113,14 @@ def check_dims(arch) -> None:
         raise ValueError(why)
 
 
-def default_order(arch, dt) -> bool:
-    """Whether a plain version sums as the tensor-core kernels do: in bf16,
-    at widths those kernels take."""
-    return dt == torch.bfloat16 and unsupported(arch) is None
+def default_order(arch, dt, device) -> bool:
+    """Whether a plain version sums as the tensor-core kernels do: on a CUDA
+    tensor, where it is the kernels' reference, in bf16, at widths those
+    kernels take. On the CPU it sums each product in one fp32 product: the
+    float64 emulation of tc_product is several times slower and only a
+    bit-for-bit comparison with the kernels needs it."""
+    return (torch.device(device).type == "cuda" and dt == torch.bfloat16
+            and unsupported(arch) is None)
 
 
 def _finale(params: dict, arch) -> list:

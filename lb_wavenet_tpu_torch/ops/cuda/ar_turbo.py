@@ -67,13 +67,13 @@ def turbo_generate_plain(params, lp, arch: ArchConfig, state: dict, t0: int,
     """PyTorch version of the kernel on any device, step for step as the JAX
     kernel. state {"bufs", "h", "e"} is updated in place; forced (T, B)
     int32. Returns (classes (T, B) int32, logits (T, B, Q) or None). With
-    tensor_cores (the default in bf16 at widths the kernel takes) each
-    product is summed as the bf16 kernel sums it (ar_tc.tc_mm), so the two
-    agree bit for bit; otherwise in one fp32 product, as the fp32 kernel's
-    in-order sums come out."""
+    tensor_cores (the default on a CUDA state in bf16 at widths the kernel
+    takes, ar_tc.default_order) each product is summed as the bf16 kernel
+    sums it (ar_tc.tc_mm), so the two agree bit for bit; otherwise in one
+    fp32 product, as the fp32 kernel's in-order sums come out."""
     dt = compute_dtype(arch)
     if tensor_cores is None:
-        tensor_cores = ar_tc.default_order(arch, dt)
+        tensor_cores = ar_tc.default_order(arch, dt, state["h"].device)
 
     def mm(x, w):
         return ar_tc.tc_mm(rnd(x, dt), rnd(w, dt)) if tensor_cores else _mm(x, w, dt)
@@ -144,21 +144,23 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
     def cast():  # weights in the compute dtype, biases fp32, once per weight set
         out = {n: lp[n] for n in LAYER_KEYS}
         out.update({n: pp[n] for n in names}, emb=params["embed"],
-                   w_in=params["input_conv"]["w"], b_in=params["input_conv"]["b"])
-        out = {n: v.to(dev, torch.float32 if n.startswith("b") else dt).contiguous()
+                   w_in=params["input_conv"]["w"], b_in=params["input_conv"]["b"],
+                   brs=torch.cat([lp["b_res"], lp["b_skip"]], 1) if bf16 else None)
+        if bf16:   # the tensor-core kernel reads every product's weights from wpk
+            out = {n: v if n in ("b", "b1", "b2", "brs", "emb", "b_in") else None
+                   for n, v in out.items()}
+        out = {n: None if v is None else
+               v.to(dev, torch.float32 if n.startswith("b") else dt).contiguous()
                for n, v in out.items()}
-        if bf16:
-            out.update(ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev),
-                       brs=torch.cat([out["b_res"], out["b_skip"]], 1).contiguous())
-        else:
-            out.update(wpk=None, prods=None, brs=None)
+        out.update(ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev) if bf16
+                   else {"wpk": None, "prods": None})
         return out
 
+    if lp["w_cur"].shape != (L, c, 2 * arch.gate_channels):
+        raise ValueError(f"w_cur does not match the arch: {tuple(lp['w_cur'].shape)}")
     sources = (*(lp[n] for n in LAYER_KEYS), *(pp[n] for n in names), params["embed"],
                params["input_conv"]["w"], params["input_conv"]["b"])
     ops = dict(build.prepared(f"turbo_step {dev} {dt}", sources, cast))
-    if ops["w_cur"].shape != (L, c, 2 * arch.gate_channels):
-        raise ValueError(f"w_cur does not match the arch: {tuple(ops['w_cur'].shape)}")
     ops["forced"] = forced.to(dev, torch.int32).contiguous()
     if ops["forced"].shape != (n_steps, b):
         raise ValueError(f"forced must be (T, {b}), got {tuple(forced.shape)}")

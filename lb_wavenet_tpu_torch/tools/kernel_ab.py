@@ -32,8 +32,7 @@ def main() -> int:
         return 1
     import chip_smoke as CS
     from lb_wavenet_tpu_torch.config import Config
-    from lb_wavenet_tpu_torch.generate import _fused_frontend_zero
-    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_step, ar_turbo, build
+    from lb_wavenet_tpu_torch.ops.cuda import ar_step, build
     from lb_wavenet_tpu_torch.utils.convert import params_from_jax
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -43,19 +42,9 @@ def main() -> int:
     lp = params["layers"]
     out = {"tag": args.tag, "root": root, "gpu": CS.gpu_line()}
     for b in (512, 64):
-        h0, e0 = _fused_frontend_zero(params, arch, b)
-        carry = ar_mega.mega_zero_carry(arch, h0, e0)
-        free = torch.full((1024, b), -1, device="cuda", dtype=torch.int32)
-        inv = torch.full((b,), 1 / 0.7, device="cuda")
-        lane = torch.stack([torch.arange(b, device="cuda", dtype=torch.int32),
-                            torch.zeros(b, device="cuda", dtype=torch.int32),
-                            inv.view(torch.int32)])
-        out[f"mega_generate B={b}"] = CS.cuda_ms(lambda: ar_mega.mega_generate_cuda(
-            params, lp, arch, carry, 0, free, 1.0, False, lane, 0), 3)
-        state = {"bufs": torch.zeros((sum(arch.dilations), b, arch.residual_channels),
-                                     device="cuda"), "h": h0.clone(), "e": e0.clone()}
-        out[f"turbo_step B={b}"] = CS.cuda_ms(lambda: ar_turbo.turbo_generate_cuda(
-            params, lp, arch, state, 0, free[:64], 1.0, False, lane, 0), 5) / 64
+        times = CS.sampling_timings(params, arch, b, plain=False)
+        out[f"mega_generate B={b}"] = times["mega"][0]
+        out[f"turbo_step B={b}"] = times["turbo"][0]
     g = torch.Generator(device="cuda").manual_seed(3)
     ring = torch.randn((sum(arch.dilations), 512, arch.residual_channels), device="cuda",
                        generator=g)

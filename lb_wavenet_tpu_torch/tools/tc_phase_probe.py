@@ -10,7 +10,12 @@ sampling, frontend, and the time spent waiting for weight slots), runs
 WaveNet-30 (configs/wavenet30.json, random weights) for 256 teacher-forced
 steps at B=64 and B=512 with the real and the probed library, and prints
 one JSON line: microseconds per step of each, and cycles per step by
-phase. ncu does not run on the chip machine; this is its stand-in.
+phase. It stands in for ncu where ncu cannot run.
+
+A development aid, kept in step with `csrc/ar_mega.cu` and `csrc/ar_tc.cuh`
+by hand: it patches them at literal source anchors, so an edit to those
+sources may move an anchor, and the probe then stops and names it. Nothing
+in the package or its tests runs it.
 """
 import ctypes
 import json

@@ -3,7 +3,9 @@
 a permutation, a product read through the packed layout equals the plain
 product, the launch shape covers every lane once, and `tc_product` (the
 plain versions' model of the kernels' sums) reproduces mma results
-recorded on an H100 and sums within fp32 rounding of the exact product.
+recorded on an H100 and sums within fp32 rounding of the exact product;
+at widths the kernels take, the bf16 plain versions in both summation
+orders against the JAX package's mega and turbo kernels (interpret mode).
 The sampling kernels themselves run in `tests/test_torch_cuda.py`."""
 import dataclasses
 import os
@@ -105,6 +107,63 @@ def test_unsupported_widths_raise_with_the_reason():
     gates = dataclasses.replace(WAVENET30, gate_channels=400)
     with pytest.raises(ValueError, match="384 gate channels"):
         ar_tc.check_dims(gates)
-    assert not ar_tc.default_order(odd, torch.bfloat16)
-    assert not ar_tc.default_order(SMALL, torch.float32)
-    assert ar_tc.default_order(SMALL, torch.bfloat16)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert not ar_tc.default_order(odd, torch.bfloat16, cuda)
+    assert not ar_tc.default_order(SMALL, torch.float32, cuda)
+    assert ar_tc.default_order(SMALL, torch.bfloat16, cuda)
+    assert not ar_tc.default_order(SMALL, torch.bfloat16, cpu)
+
+
+def _jax_pair(arch):
+    import jax
+
+    from lb_wavenet_tpu.config import ArchConfig as JArch
+    from lb_wavenet_tpu.models.wavenet import init_params as jinit
+    from lb_wavenet_tpu_torch.utils.convert import params_from_jax
+
+    jarch = JArch(**dataclasses.asdict(arch))
+    jp = jinit(jax.random.key(5), jarch)
+    return jp, jarch, params_from_jax(jax.tree.map(np.asarray, jp))
+
+
+@pytest.mark.parametrize("engine", ["mega", "turbo"])
+@pytest.mark.parametrize("order", ["tensor_cores", "cpu_default"])
+def test_bf16_sampling_at_tensor_core_widths_matches_jax(engine, order):
+    """bf16 at widths the tensor-core kernels take (SMALL: C = G = 16,
+    S = 32, Q = 256): teacher-forced logits of the plain versions, summed as
+    the kernels sum on the card (tensor_cores=True) or as the CPU entry
+    point sums by default (one fp32 product), against JAX's generate_classes
+    (its Pallas kernel in interpret mode) on the same weights, within 2e-2:
+    the same bf16-rounded operands, fp32 sums in another order."""
+    import jax
+    import jax.numpy as jnp
+
+    from lb_wavenet_tpu import generate as JG
+    from lb_wavenet_tpu_torch import generate as PG
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_turbo
+
+    jp, jarch, pp = _jax_pair(SMALL)
+    b, t = 8, 24
+    forced = np.random.default_rng(6).integers(0, 256, (b, t)).astype(np.int32)
+    _, jl = JG.generate_classes(jp, jarch, jax.random.key(0), b, t, forced=jnp.asarray(forced),
+                                return_logits=True, engine=engine)
+    if order == "cpu_default":
+        assert not ar_tc.default_order(SMALL, torch.bfloat16, torch.device("cpu"))
+        _, pl = PG.generate_classes(pp, SMALL, 0, b, t, forced=forced, return_logits=True,
+                                    engine=engine, device="cpu")
+    else:
+        assert ar_tc.default_order(SMALL, torch.bfloat16, torch.device("cuda"))
+        h0, e0 = PG._fused_frontend_zero(pp, SMALL, b)
+        ft = torch.from_numpy(forced.T.copy())
+        if engine == "mega":
+            carry = ar_mega.mega_zero_carry(SMALL, h0, e0)
+            _, pl = ar_mega.mega_generate_plain(pp, pp["layers"], SMALL, carry, 0, ft, 1.0,
+                                                True, None, 0, tensor_cores=True)
+            pl = pl.permute(2, 0, 1)
+        else:
+            state = {"bufs": torch.zeros((sum(SMALL.dilations), b, 16)), "h": h0, "e": e0}
+            _, pl = ar_turbo.turbo_generate_plain(pp, pp["layers"], SMALL, state, 0, ft, 1.0,
+                                                  True, None, 0, tensor_cores=True)
+            pl = pl.transpose(0, 1)
+    assert pl.shape == (b, t, 256)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=0, atol=2e-2)
