@@ -10,7 +10,7 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
   1. environment: CUDA, the card and its power limit, triton, nvcc; build
      every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a), one
      nvcc per source, all started together; the ptxas report (registers,
-     stack, spills) of the two bf16 tensor-core kernels;
+     stack, spills) of the tensor-core kernels (bf16 sampling, train stack);
   2. each kernel against its plain PyTorch version on the card at B=512
      (the bf16 mega and turbo kernels sum on tensor cores and their plain
      versions reproduce those sums, so they are expected bit-identical;
@@ -35,14 +35,23 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      multiple of the lane tile), 6 requests with seeds and temperatures, a
      sampled one replayed bit-identically on a dedicated session, and
      `cli serve --set gen.engine=turbo` writing the pool's audio;
+     then bf16 mega and turbo at C=24, a width the tensor-core kernels do
+     not take, through their CUDA-core route (B=64, 128 teacher-forced
+     steps, within LOGIT_ATOL);
   6. the training kernels against their plain versions at the training
      shapes (B=8, W=10240, T=13310): the frontend pair, the train stack
-     (tapcat off and on) and the post-loss, values and every gradient leaf,
-     through autograd;
+     (tapcat off and on; on its bf16 tensor-core route the plain versions
+     sum as the tensor cores do, and the drift of the one-fp32-sum order
+     is reported) and the post-loss, values and every gradient leaf,
+     through autograd; then the train stack's CUDA-core route at the same
+     shape and depth (fp32 at WaveNet-30's widths, bf16 at C=G=24), both
+     tapcat settings, with its launches per call;
   7. training: run_training on synthetic_corpus with the wavenet30.json
      train recipe as written (fused frontend + fused stack + tapcat + fused
      post), 20 steps with the loss of each, the frontend kernels launched
-     every step and no plain frontend op; then at a fixed state the fused
+     every step and no plain frontend op; the step split into its parts,
+     with the port's kernels by name (`training_step_breakdown`); then at
+     a fixed state the fused
      step against its plain versions, the unfused PyTorch step and a
      grad_accum=2 step against the one-shot step, a resume from the
      checkpoint, and `python -m lb_wavenet_tpu_torch.cli train` for 2 steps
@@ -95,6 +104,7 @@ T_CHECK = 256       # steps of the kernel-vs-plain mega checks
 T_TURBO = 128       # steps of the turbo free-run checks
 TURBO_POOL = 100    # turbo pool batch: not a multiple of the lane tile
 GEN_B = 64          # configs/wavenet30.json gen.batch_size: timed beside B
+CUDA_CORE_T = 128   # steps of the bf16 CUDA-core-route sampling check (C=24)
 LOGIT_ATOL = 5e-2   # bf16 operands: a flipped rounding moves logits ~1e-2
 TRAIN_B, TRAIN_W = 8, 10240   # wavenet30.json train batch and window
 TRAIN_STEPS = 20
@@ -305,6 +315,7 @@ def phase_environment():
     import torch
 
     from lb_wavenet_tpu_torch.ops.cuda import build
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
     try:
         import triton  # noqa: F401
@@ -328,19 +339,28 @@ def phase_environment():
            for k, v in build.build_log.items()}
     log(json.dumps({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
                     "ptxas": res}))
-    log(json.dumps({"phase": "ptxas_bf16_sampling_kernels", "report": tc_ptxas()}))
+    # The train stack's route rests on tc_smem: the library must carve the
+    # same bytes (WaveNet-30's widths, the stress config's, S = 1024).
+    lib = build.load("train_stack")
+    smem = {f"C{c}_G{g}_S{s}": (TS.tc_smem(c, g, s), TS.lib_tc_smem(lib, c, g, s))
+            for c, g, s in ((64, 64, 256), (64, 64, 512), (64, 64, 1024))}
+    log(json.dumps({"phase": "ptxas_tensor_core_kernels", "report": tc_ptxas(),
+                    "train_stack_tc_smem_bytes": smem}))
+    require(all(a == b for a, b in smem.values()),
+            f"csrc/train_stack.cu and train_stack.tc_smem disagree: {smem}")
 
 
 def tc_ptxas() -> dict:
-    """The ptxas report (registers, stack, spills) of the two bf16
-    tensor-core kernels, from this process's build log."""
+    """The ptxas report (registers, stack, spills) of the tensor-core
+    kernels (bf16 mega and turbo, the train stack's `tsc` route), from this
+    process's build log."""
     from lb_wavenet_tpu_torch.ops.cuda import build
 
     out = {}
-    for src in ("ar_mega", "ar_turbo"):
+    for src in ("ar_mega", "ar_turbo", "train_stack"):
         lines = build.build_log.get(src, "").splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and "tc_kernel" in ln:
+            if "Compiling entry function" in ln and ("tc_kernel" in ln or "3tsc" in ln):
                 out[ln.split("'")[1]] = [x.replace("ptxas info    :", "").strip()
                                           for x in lines[i + 1:i + 4]
                                           if "Compiling" not in x and "Compile time" not in x]
@@ -481,6 +501,47 @@ def phase_kernels(params, arch, gpu):
         require(gap <= 2 * LOGIT_ATOL,
                 f"mega {name}: kernel chose a class {gap} below the plain max")
     return report
+
+
+def phase_cuda_core_sampling(arch, gpu):
+    """bf16 mega and turbo at a width the tensor-core kernels do not take
+    (WaveNet-30 with C = 24): the CUDA-core route, against the plain
+    versions in their one-fp32-sum order, teacher-forced over CUDA_CORE_T
+    steps at B = GEN_B (comparison launches: the counters are restored)."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import init_params
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_tc, ar_turbo
+
+    arch = dataclasses.replace(arch, residual_channels=24)
+    require(ar_tc.route(arch, torch.bfloat16) == "cuda_cores", "C=24 left the CUDA-core route")
+    p = init_params(21, arch, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, t = GEN_B, CUDA_CORE_T
+    lane = torch.stack([torch.randint(0, 2**31 - 1, (b,), device="cuda", generator=gen),
+                        torch.zeros(b, device="cuda", dtype=torch.int64)]).to(torch.int32)
+    forced = torch.randint(0, arch.quant_channels, (t, b), device="cuda", dtype=torch.int32,
+                           generator=gen)
+    h0, e0 = G._fused_frontend_zero(p, arch, b)
+    counts = ar_mega.mega_generate.launches, ar_turbo.turbo_step.launches
+    errs = {}
+    for name, kernel, plain, state in (
+            ("mega", ar_mega.mega_generate_cuda, ar_mega.mega_generate_plain,
+             lambda: ar_mega.mega_zero_carry(arch, h0, e0)),
+            ("turbo", ar_turbo.turbo_generate_cuda, ar_turbo.turbo_generate_plain,
+             lambda: {"bufs": torch.zeros((sum(arch.dilations), b, 24), device="cuda"),
+                      "h": h0.clone(), "e": e0.clone()})):
+        _, lk = kernel(p, p["layers"], arch, state(), 0, forced, 1.0, True, lane, 3)
+        _, lp = plain(p, p["layers"], arch, state(), 0, forced, 1.0, True, lane, 3)
+        torch.cuda.synchronize()
+        errs[name] = abs_err(lk, lp)
+    ar_mega.mega_generate.launches, ar_turbo.turbo_step.launches = counts
+    log(json.dumps({"phase": "bf16_sampling_cuda_core_route", "gpu": gpu, "C": 24, "B": b,
+                    "T": t, "max_abs_logit_err": errs, "atol": LOGIT_ATOL}))
+    require(max(errs.values()) <= LOGIT_ATOL, f"bf16 sampling at C=24 differs: {errs}")
 
 
 def phase_turbo_kernels(params, arch, gpu):
@@ -1306,11 +1367,20 @@ def phase_train_kernels(params, arch, gpu):
             plain = {k: v.detach() for k, v in params["layers"].items()}
             sp, zp, xp = TS.stack_fwd_plain(plain, h0, arch.dilations, dt, tapcat)
             dp, gp = TS.stack_bwd_plain(plain, arch.dilations, dt, tapcat, zp, xp, g)
+            # How far the one-fp32-sum order (the CPU's) parts from the
+            # kernels over 30 bf16 layers: reported, not held to a limit.
+            s1, z1, x1 = TS.stack_fwd_plain(plain, h0, arch.dilations, dt, tapcat, False)
+            d1, g1 = TS.stack_bwd_plain(plain, arch.dilations, dt, tapcat, z1, x1, g, False)
+            other = {"skip": rel_err(skip.detach(), s1), "z_all": rel_err(zp, z1),
+                     "x_all": rel_err(xp, x1), "dh0": rel_err(h.grad, d1),
+                     "grads": max(rel_err(lp[k].grad, g1[k]) for k in g1)}
+            del s1, z1, x1, d1, g1
         errs = {"skip": rel_err(skip.detach(), sp), "dh0": rel_err(h.grad, dp),
                 **{f"layers.{k}": rel_err(lp[k].grad, gp[k]) for k in gp}}
         log(json.dumps({"phase": "train_stack_vs_plain", "gpu": gpu, "tapcat": tapcat,
-                        "B": TRAIN_B, "T": h0.shape[1], "rel_err": errs,
-                        "rtol": KERNEL_RTOL}))
+                        "route": stack_route(arch), "B": TRAIN_B, "T": h0.shape[1],
+                        "rel_err": errs, "rtol": KERNEL_RTOL,
+                        "one_fp32_sum_order_rel_err": other}))
         require(max(errs.values()) <= KERNEL_RTOL,
                 f"train stack (tapcat={tapcat}) differs: {errs}")
         report["train_stack_fwd"] = max(report["train_stack_fwd"], abs_err(skip.detach(), sp))
@@ -1344,8 +1414,79 @@ def phase_train_kernels(params, arch, gpu):
     return report
 
 
+def phase_train_stack_cuda_core(arch, gpu):
+    """The train stack's CUDA-core route (the first-version kernels: fp32,
+    and bf16 at widths that are not multiples of 16) at the training shape
+    and full depth: fp32 at WaveNet-30's widths and bf16 at C = G = 24,
+    tapcat off and on, values and every gradient leaf against the plain
+    versions (one fp32 sum per product) within KERNEL_RTOL, and each call's
+    launches (L + 1 and 3 L + 1). Comparison launches: the counters are
+    restored."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+    from lb_wavenet_tpu_torch.utils.convert import params_from_jax
+
+    counts = TS.train_stack_fwd.launches, TS.train_stack_bwd.launches
+    L = len(arch.dilations)
+    for name, variant in (("fp32", dataclasses.replace(arch, compute_dtype="float32")),
+                          ("c24_bf16", dataclasses.replace(arch, residual_channels=24,
+                                                           gate_channels=24))):
+        dt = compute_dtype(variant)
+        require(stack_route(variant) == "cuda_cores", f"{name} left the CUDA-core route")
+        layers = params_from_jax(numpy_params(variant, 13), device="cuda")["layers"]
+        h0, g = train_inputs(variant, 14)
+        for tapcat in (False, True):
+            lp = {k: v.detach().clone().requires_grad_(True) for k, v in layers.items()}
+            h = h0.clone().requires_grad_(True)
+            n_fwd, n_bwd = TS.train_stack_fwd.launches, TS.train_stack_bwd.launches
+            skip = TS.make_fused_stack(variant, tapcat=tapcat)(lp, h)
+            (skip * g).sum().backward()
+            torch.cuda.synchronize()
+            launches = (TS.train_stack_fwd.launches - n_fwd, TS.train_stack_bwd.launches - n_bwd)
+            with torch.no_grad():
+                sp, zp, xp = TS.stack_fwd_plain(layers, h0, variant.dilations, dt, tapcat)
+                dp, gp = TS.stack_bwd_plain(layers, variant.dilations, dt, tapcat, zp, xp, g)
+            errs = {"skip": rel_err(skip.detach(), sp), "dh0": rel_err(h.grad, dp),
+                    **{f"layers.{k}": rel_err(lp[k].grad, gp[k]) for k in gp}}
+            log(json.dumps({"phase": "train_stack_cuda_core_route", "gpu": gpu, "arch": name,
+                            "C": variant.residual_channels, "S": variant.skip_channels,
+                            "tapcat": tapcat, "B": TRAIN_B, "T": h0.shape[1],
+                            "launches": launches, "rel_err": errs, "rtol": KERNEL_RTOL}))
+            require(launches == (L + 1, 3 * L + 1),
+                    f"train stack {name} launched {launches}, not {(L + 1, 3 * L + 1)}")
+            require(max(errs.values()) <= KERNEL_RTOL,
+                    f"train stack {name} (tapcat={tapcat}) differs: {errs}")
+            del skip, sp, zp, xp, dp, gp, lp, h
+        del h0, g, layers
+    TS.train_stack_fwd.launches, TS.train_stack_bwd.launches = counts
+
+
 TRAIN_COUNTERS = ("frontend_fwd", "frontend_bwd", "train_stack_fwd", "train_stack_bwd",
                   "post_loss_fwd", "post_loss_bwd")
+
+
+def stack_route(arch) -> str:
+    """The train stack's route at the arch's widths and dtype."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    return TS.route(arch.residual_channels, arch.gate_channels, arch.skip_channels,
+                    compute_dtype(arch))
+
+
+def train_launches_per_call(arch) -> dict:
+    """Kernel launches of one call of each training kernel pair's wrapper:
+    the train-stack backward takes 2 L + 3 on the tensor-core route (a
+    g_skip pass, its db_skip sum, two passes per layer, one reduction) and
+    3 L + 1 on the CUDA-core one."""
+    L = len(arch.dilations)
+    bwd = 2 * L + 3 if stack_route(arch) == "tensor_cores" else 3 * L + 1
+    return {"frontend_fwd": 1, "frontend_bwd": 4, "train_stack_fwd": L + 1,
+            "train_stack_bwd": bwd, "post_loss_fwd": 2, "post_loss_bwd": 3}
 
 
 @contextlib.contextmanager
@@ -1459,9 +1600,7 @@ def phase_training(arch, gpu):
         losses = [r["loss"] for r in recs]
         step_ms = [r["step_time_ms"] for r in recs]
         ms = statistics.median(step_ms[1:])
-        L = len(arch.dilations)
-        per_step = {"frontend_fwd": 1, "frontend_bwd": 4, "train_stack_fwd": L + 1,
-                    "train_stack_bwd": 3 * L + 1, "post_loss_fwd": 2, "post_loss_bwd": 3}
+        per_step = train_launches_per_call(arch)
         log(json.dumps({
             "phase": "training", "gpu": gpu, "B": TRAIN_B, "W": TRAIN_W,
             "T": arch.receptive_field - 1 + TRAIN_W, "steps": state.step,
@@ -1581,6 +1720,16 @@ def phase_training(arch, gpu):
     return launches, {"step_ms": ms, "samples_per_s": TRAIN_B * TRAIN_W / (ms / 1000.0)}
 
 
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
 def phase_step_breakdown(cfg, corpus, gpu):
     """Where a training step's time goes: after a warm-up, STEP_PARTS steps
     as run_training runs them (prefetched batches) with CUDA events around
@@ -1588,7 +1737,9 @@ def phase_step_breakdown(cfg, corpus, gpu):
     clock around each whole step; then one torch.profiler trace (device
     activity only) of two steps: device time of the port's kernels
     (namespace wn) and of every other kernel, and the largest others. The
-    idle share is 1 - device busy time / step wall time."""
+    idle share is 1 - device busy time / step wall time, busy time being
+    the union of the kernels' spans (a programmatic dependent launch's span
+    overlaps the launch before it)."""
     import statistics
 
     import torch
@@ -1637,15 +1788,18 @@ def phase_step_breakdown(cfg, corpus, gpu):
     finally:
         batches.close()
     ms = {k: statistics.median(v) for k, v in parts.items()}
-    kernels = {}
+    kernels, spans = {}, []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 2000.0
+            spans.append((e.time_range.start, e.time_range.end))
     ours = sum(v for k, v in kernels.items() if "wn::" in k)
     other = {k: v for k, v in kernels.items() if "wn::" not in k}
-    busy = ours + sum(other.values())
+    busy = union_us(spans) / 2000.0
     step_ms = statistics.median(wall)
     top = sorted(other.items(), key=lambda kv: -kv[1])[:10]
+    port_top = sorted(((k, v) for k, v in kernels.items() if "wn::" in k),
+                      key=lambda kv: -kv[1])[:12]
     log(json.dumps({
         "phase": "training_step_breakdown", "gpu": gpu, "steps": STEP_PARTS,
         "device_ms_per_step": ms, "step_wall_ms": step_ms,
@@ -1654,6 +1808,7 @@ def phase_step_breakdown(cfg, corpus, gpu):
                                        "busy": busy},
         "idle_share": (1.0 - busy / step_ms) if busy else "not measured",
         "top_other_kernels_ms_per_step": [[k[:90], v] for k, v in top],
+        "top_port_kernels_ms_per_step": [[k[:90], v] for k, v in port_top],
     }))
 
 
@@ -1885,9 +2040,7 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
     }))
     # What one "ms" and one launch count of each row is: rows B3-B5 time a
     # whole autograd call of several launches.
-    L = len(arch.dilations)
-    per_call = {"frontend_fwd": 1, "frontend_bwd": 4, "train_stack_fwd": L + 1,
-                "train_stack_bwd": 3 * L + 1, "post_loss_fwd": 2, "post_loss_bwd": 3}
+    per_call = train_launches_per_call(arch)
     units = {"mega_generate": f"ms per launch ({CHUNK} steps, B={B})",
              "fused_stack": f"ms per launch (1 step, B={B})",
              "turbo_step": f"ms per launch (1 step, B={B})",
@@ -1973,7 +2126,9 @@ def main() -> int:
         params = params_from_jax(numpy_params(arch, 0), device="cuda")
         errs = phase_kernels(params, arch, gpu)
         errs.update(phase_turbo_kernels(params, arch, gpu))
+        phase_cuda_core_sampling(arch, gpu)
         errs.update(phase_train_kernels(params, arch, gpu))
+        phase_train_stack_cuda_core(arch, gpu)
         launches = {"mega_generate": phase_serving(params, arch, gpu),
                     "fused_stack": phase_pallas_engine(params, arch, gpu),
                     "turbo_step": phase_turbo_serving(params, arch, gpu)}

@@ -24,13 +24,16 @@
 // carry read once: 1.320 ms at B = 512 (1.31 TFLOP at 989 TFLOP/s) and
 // 0.165 ms at B = 64, operations bound at both.
 //
-// Two instantiations, chosen by dtype (not a fallback):
-//   * fp32: mega_kernel<float>, CUDA-core FMAs in k order through
-//     common.cuh (block_mm), as in the first port.
-//   * bf16: mega_tc_kernel, the tensor-core design of ar_tc.cuh, for the
-//     five holds of the CUDA-core version: (1) the dependent chain of
-//     2-byte weight loads from L2 becomes a producer warp streaming the
-//     step's packed weights (ar_tc.py) through a ring of 32 KB shared-memory
+// Three instantiations, chosen on the host from dtype and widths before the
+// launch (ar_tc.py `route`; not a fallback):
+//   * fp32, and bf16 at widths the tensor-core kernel does not take (any of
+//     C, G, S, Q not a multiple of 16, C+S or Q above 768, G above 384):
+//     mega_kernel<T>, CUDA-core FMAs in k order through common.cuh
+//     (block_mm), as in the first port.
+//   * bf16 at the other widths: mega_tc_kernel, the tensor-core design of
+//     ar_tc.cuh, for the five holds of the CUDA-core version: (1) the
+//     dependent chain of 2-byte weight loads from L2 becomes a producer
+//     warp streaming the step's packed weights (ar_tc.py) through a ring of 32 KB shared-memory
 //     slots by cp.async.bulk, consumers reading 16-byte fragments by
 //     32-bit shared-memory address, two k-steps per turn in two register
 //     sets; (2) each weight byte feeds all 8 lanes of the block
@@ -79,6 +82,7 @@ struct MegaArgs {
   const void* wpk;     // bf16: the step's weights packed for the tensor cores
   const int* prods;    // bf16: (n_prod, 2) (M, K) of each packed product
   int n_prod, grid;    // bf16: products per step; blocks (lane tiles)
+  int tc;              // bf16: 1 the tensor-core kernel, 0 the CUDA-core one
 };
 
 template <typename T>
@@ -423,7 +427,9 @@ extern "C" int wn_mega_lane_tile() { return wn::TB; }
 // Returns a CUDA error code and adds the kernels it launched to *launches.
 extern "C" int wn_mega_generate(const wn::MegaArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a->bf16 ? wn::launch_tc(*a, s, launches) : wn::launch<float>(*a, s, launches));
+  if (!a->bf16) return (int)wn::launch<float>(*a, s, launches);
+  return (int)(a->tc ? wn::launch_tc(*a, s, launches)
+                     : wn::launch<__nv_bfloat16>(*a, s, launches));
 }
 
 // Dynamic shared memory (bytes) of the last bf16 launch: activations plus

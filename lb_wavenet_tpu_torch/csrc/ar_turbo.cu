@@ -28,9 +28,11 @@
 // written once: 3.28 us at B = 512 and 1.08 us at B = 64 (bytes bound;
 // the 1.3 GFLOP of products take 1.3 us at B = 512).
 //
-// Two instantiations, chosen by dtype (not a fallback): fp32 keeps the
-// CUDA-core path of common.cuh (split_layer, post_logits, sample_tile,
-// next_frontend); bf16 runs turbo_tc_kernel, the tensor-core design of
+// Three instantiations, chosen on the host from dtype and widths before the
+// launch (ar_tc.py `route`; not a fallback): fp32, and bf16 at widths the
+// tensor-core kernel does not take, keep the CUDA-core path of common.cuh
+// (split_layer, post_logits, sample_tile, next_frontend); bf16 at the other
+// widths runs turbo_tc_kernel, the tensor-core design of
 // ar_tc.cuh shared with ar_mega.cu (see its note): weights streamed through
 // a shared-memory ring by a producer warp, mma.sync m16n8k16 products per
 // 16-deep k-step, the same packed step stream as mega's: [h | tap] @
@@ -77,6 +79,7 @@ struct TurboArgs {
   const int* prods;     // bf16: (n_prod, 2) (M, K) of each packed product
   int n_prod, grid;     // bf16: products per step; blocks (lane tiles)
   const float* brs;     // bf16: (L, C+S) [b_res | b_skip]
+  int tc;               // bf16: 1 the tensor-core kernel, 0 the CUDA-core one
 };
 
 template <typename T>
@@ -359,8 +362,9 @@ static cudaError_t steps_tc(const TurboArgs& a, int t0, int n, cudaStream_t stre
 extern "C" int wn_turbo_steps(const wn::TurboArgs* a, int t0, int n, void* stream,
                               int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a->bf16 ? wn::steps_tc(*a, t0, n, s, launches)
-                       : wn::steps<float>(*a, t0, n, s, launches));
+  if (!a->bf16) return (int)wn::steps<float>(*a, t0, n, s, launches);
+  return (int)(a->tc ? wn::steps_tc(*a, t0, n, s, launches)
+                     : wn::steps<__nv_bfloat16>(*a, t0, n, s, launches));
 }
 
 // Dynamic shared memory (bytes) of the last bf16 launch: activations plus

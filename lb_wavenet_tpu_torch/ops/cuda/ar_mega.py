@@ -238,7 +238,7 @@ class _MegaArgs(ctypes.Structure):
     )] + [("inv_temp", ctypes.c_float)] + [
         (n, ctypes.c_int) for n in ("bf16", "n_d1")
     ] + [(n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
-        (n, ctypes.c_int) for n in ("n_prod", "grid")
+        (n, ctypes.c_int) for n in ("n_prod", "grid", "tc")
     ]
 
 
@@ -286,8 +286,7 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         return x.to(dev, torch.float32).contiguous()
 
     bf16 = dt == torch.bfloat16
-    if bf16:
-        ar_tc.check_dims(arch)
+    tc = ar_tc.route(arch, dt) == "tensor_cores"
 
     def merge():  # the kernel's weight layout, made once per weight set
         out = {
@@ -297,7 +296,7 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
             "emb": w(params["embed"]),
             "b_in": f(params["input_conv"]["b"]),
         }
-        if bf16:   # the tensor-core kernel streams every product's weights from wpk
+        if tc:     # the tensor-core kernel streams every product's weights from wpk
             return {**out, **ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev),
                     **dict.fromkeys(("wcat", "wrs", "w1", "w2", "w_in"))}
         return {**out, "wpk": None, "prods": None,
@@ -315,7 +314,7 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
     if lp["w_cur"].shape != (L, c, 2 * arch.gate_channels) \
             or lp["w_prev"].shape != lp["w_cur"].shape:
         raise ValueError(f"w_cur/w_prev do not match the arch: {lp['w_cur'].shape}")
-    ops = dict(build.prepared(f"mega_generate {dev} {dt}", sources, merge))
+    ops = dict(build.prepared(f"mega_generate {dev} {dt} tc={tc}", sources, merge))
     ops["forced"] = forced.to(dev, torch.int32).contiguous()
     ops["lane"] = None if lane is None else lane.to(dev, torch.int32).contiguous()
     if ops["forced"].shape != (n_steps, b):
@@ -340,7 +339,7 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         _inv_temp(temperature) if temperature > 0.0 else 0.0,
         int(bf16), sum(1 for d in arch.dilations if d == 1),
         ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
-        ar_tc.launch_shape(b)[0],
+        ar_tc.launch_shape(b)[0], int(tc),
     )
     mega_generate.launches += build.launch(_library(), "wn_mega_generate", args, dev)
     return classes, logits

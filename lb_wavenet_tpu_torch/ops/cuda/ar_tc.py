@@ -106,21 +106,24 @@ def unsupported(arch):
     return None
 
 
-def check_dims(arch) -> None:
-    """Raise with the reason on widths the tensor-core kernels do not take."""
-    why = unsupported(arch)
-    if why:
-        raise ValueError(why)
+def route(arch, dt) -> str:
+    """Which instantiation of the mega and turbo kernels runs the arch in
+    compute dtype `dt`, decided before launch from the widths alone:
+    "tensor_cores" for bf16 at widths `unsupported` accepts, "cuda_cores"
+    (the in-order fp32-FMA instantiation of common.cuh, any width) for
+    fp32 and for bf16 at any other width."""
+    if dt == torch.bfloat16 and unsupported(arch) is None:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def default_order(arch, dt, device) -> bool:
     """Whether a plain version sums as the tensor-core kernels do: on a CUDA
-    tensor, where it is the kernels' reference, in bf16, at widths those
-    kernels take. On the CPU it sums each product in one fp32 product: the
-    float64 emulation of tc_product is several times slower and only a
-    bit-for-bit comparison with the kernels needs it."""
-    return (torch.device(device).type == "cuda" and dt == torch.bfloat16
-            and unsupported(arch) is None)
+    tensor, where it is the kernels' reference, on the tensor-core route.
+    On the CPU it sums each product in one fp32 product: the float64
+    emulation of tc_product is several times slower and only a bit-for-bit
+    comparison with the kernels needs it."""
+    return torch.device(device).type == "cuda" and route(arch, dt) == "tensor_cores"
 
 
 def _finale(params: dict, arch) -> list:

@@ -113,7 +113,8 @@ class _TurboArgs(ctypes.Structure):
         "B", "L", "C", "G", "S", "Q", "K", "lane_rows", "seed_base", "mode",
     )] + [("inv_temp", ctypes.c_float), ("bf16", ctypes.c_int)] + [
         (n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
-        (n, ctypes.c_int) for n in ("n_prod", "grid")] + [("brs", ctypes.c_void_p)]
+        (n, ctypes.c_int) for n in ("n_prod", "grid")] + [("brs", ctypes.c_void_p),
+                                                              ("tc", ctypes.c_int)]
 
 
 def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
@@ -138,21 +139,20 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
     names = ("w1", "b1", "w2", "b2")
 
     bf16 = dt == torch.bfloat16
-    if bf16:
-        ar_tc.check_dims(arch)
+    tc = ar_tc.route(arch, dt) == "tensor_cores"
 
     def cast():  # weights in the compute dtype, biases fp32, once per weight set
         out = {n: lp[n] for n in LAYER_KEYS}
         out.update({n: pp[n] for n in names}, emb=params["embed"],
                    w_in=params["input_conv"]["w"], b_in=params["input_conv"]["b"],
-                   brs=torch.cat([lp["b_res"], lp["b_skip"]], 1) if bf16 else None)
-        if bf16:   # the tensor-core kernel reads every product's weights from wpk
+                   brs=torch.cat([lp["b_res"], lp["b_skip"]], 1) if tc else None)
+        if tc:     # the tensor-core kernel reads every product's weights from wpk
             out = {n: v if n in ("b", "b1", "b2", "brs", "emb", "b_in") else None
                    for n, v in out.items()}
         out = {n: None if v is None else
                v.to(dev, torch.float32 if n.startswith("b") else dt).contiguous()
                for n, v in out.items()}
-        out.update(ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev) if bf16
+        out.update(ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev) if tc
                    else {"wpk": None, "prods": None})
         return out
 
@@ -160,7 +160,7 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
         raise ValueError(f"w_cur does not match the arch: {tuple(lp['w_cur'].shape)}")
     sources = (*(lp[n] for n in LAYER_KEYS), *(pp[n] for n in names), params["embed"],
                params["input_conv"]["w"], params["input_conv"]["b"])
-    ops = dict(build.prepared(f"turbo_step {dev} {dt}", sources, cast))
+    ops = dict(build.prepared(f"turbo_step {dev} {dt} tc={tc}", sources, cast))
     ops["forced"] = forced.to(dev, torch.int32).contiguous()
     if ops["forced"].shape != (n_steps, b):
         raise ValueError(f"forced must be (T, {b}), got {tuple(forced.shape)}")
@@ -180,7 +180,7 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
         0 if temperature <= 0.0 else (1 if lane is not None else 2),
         _inv_temp(temperature) if temperature > 0.0 else 0.0, int(bf16),
         ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
-        ar_tc.launch_shape(b)[0], ptr(ops["brs"]),
+        ar_tc.launch_shape(b)[0], ptr(ops["brs"]), int(tc),
     )
     lib = build.load("ar_turbo")
     fn = lib.wn_turbo_steps

@@ -114,21 +114,32 @@ def test_pool_replay_on_card(cuda):
     np.testing.assert_array_equal(busy["c"], alone["c"])
 
 
-@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+STACK_WIDTHS = {"small": {}, "c24": {"residual_channels": 24, "gate_channels": 24},
+                "s1024": {"skip_channels": 1024}, "s272": {"skip_channels": 272},
+                "stress": {"residual_channels": 64, "gate_channels": 64, "skip_channels": 512}}
+
+
+@pytest.mark.parametrize("dtype,rtol,width", [
+    ("float32", 1e-5, "small"), ("bfloat16", 1e-2, "small"), ("bfloat16", 1e-2, "c24"),
+    ("bfloat16", 1e-2, "s1024"), ("bfloat16", 1e-2, "s272"), ("bfloat16", 1e-2, "stress")])
 @pytest.mark.parametrize("tapcat", [False, True])
-def test_train_stack_kernels_match_plain(cuda, dtype, tapcat, rtol):
+def test_train_stack_kernels_match_plain(cuda, dtype, tapcat, rtol, width):
     """Forward and backward kernels through the autograd Function against
     the plain versions, a ragged last time tile; errors relative to each
-    leaf's largest magnitude (sums in another order, same roundings)."""
+    leaf's largest magnitude (sums in another order, same roundings). bf16
+    SMALL, S=1024, S=272 (a last skip-column pass of 16) and the stress
+    config's widths (S=512 in two passes) take the tensor-core route, C=G=24
+    the CUDA-core one; the launch counts are each route's."""
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
     from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
-    arch = dataclasses.replace(SMALL, compute_dtype=dtype)
+    arch = dataclasses.replace(SMALL, compute_dtype=dtype, **STACK_WIDTHS[width])
     dt = compute_dtype(arch)
+    c, s = arch.residual_channels, arch.skip_channels
     p = init_params(3, arch, cuda)
     g = torch.Generator(device=cuda).manual_seed(3)
-    h0 = torch.randn((3, 70, 16), device=cuda, generator=g)
-    gs = torch.randn((3, 70, 32), device=cuda, generator=g)
+    h0 = torch.randn((3, 70, c), device=cuda, generator=g)
+    gs = torch.randn((3, 70, s), device=cuda, generator=g)
     lp = {k: v.clone().requires_grad_(True) for k, v in p["layers"].items()}
     h = h0.clone().requires_grad_(True)
     n_fwd, n_bwd = TS.train_stack_fwd.launches, TS.train_stack_bwd.launches
@@ -136,8 +147,10 @@ def test_train_stack_kernels_match_plain(cuda, dtype, tapcat, rtol):
     (skip * gs).sum().backward()
     torch.cuda.synchronize()
     L = len(arch.dilations)
+    tc = TS.route(c, arch.gate_channels, s, dt) == "tensor_cores"
+    assert tc == (dtype == "bfloat16" and width != "c24")
     assert TS.train_stack_fwd.launches == n_fwd + L + 1
-    assert TS.train_stack_bwd.launches == n_bwd + 3 * L + 1
+    assert TS.train_stack_bwd.launches == n_bwd + (2 * L + 3 if tc else 3 * L + 1)
     sp, zp, xp = TS.stack_fwd_plain(p["layers"], h0, arch.dilations, dt, tapcat)
     dp, gp = TS.stack_bwd_plain(p["layers"], arch.dilations, dt, tapcat, zp, xp, gs)
 
@@ -148,6 +161,39 @@ def test_train_stack_kernels_match_plain(cuda, dtype, tapcat, rtol):
     close(h.grad, dp)
     for k in gp:
         close(lp[k].grad, gp[k])
+
+
+@pytest.mark.parametrize("c,g,s", [(16, 16, 32), (24, 24, 32), (64, 64, 256), (64, 64, 512),
+                                   (64, 64, 1024), (128, 64, 256), (256, 256, 256)])
+def test_train_stack_library_carves_tc_smem(cuda, c, g, s):
+    """The built library's shared-memory count of the tensor-core kernels
+    equals train_stack.tc_smem, on which the route is decided."""
+    from lb_wavenet_tpu_torch.ops.cuda import build
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    assert TS.lib_tc_smem(build.load("train_stack"), c, g, s) == TS.tc_smem(c, g, s)
+
+
+@pytest.mark.parametrize("tapcat", [False, True])
+def test_train_stack_tensor_core_backward_is_bit_reproducible(cuda, tapcat):
+    """Two backward calls on the same inputs give the same bits: fixed
+    tile -> block slots and one ordered reduction, no float atomics."""
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    arch = dataclasses.replace(SMALL, compute_dtype="bfloat16")
+    p = init_params(6, arch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    h0 = torch.randn((4, 300, 16), device=cuda, generator=g)
+    gs = torch.randn((4, 300, 32), device=cuda, generator=g)
+    dils, dt = arch.dilations, torch.bfloat16
+    assert TS.route(16, 16, 32, dt) == "tensor_cores"
+    _, z, x = TS.train_stack_fwd(p["layers"], h0, dils, dt, tapcat)
+    runs = [TS.train_stack_bwd(p["layers"], dils, dt, tapcat, z, x, gs) for _ in range(2)]
+    torch.cuda.synchronize()
+    (d1, g1), (d2, g2) = runs
+    assert torch.equal(d1, d2)
+    for k in g1:
+        assert torch.equal(g1[k], g2[k]), k
 
 
 @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 1e-2)])
@@ -539,3 +585,39 @@ def test_bf16_lane_result_does_not_depend_on_the_batch(cuda, engine):
     (cls_b, lg_b), (cls_s, lg_s) = outs
     assert torch.equal(cls_b[:, at], cls_s[:, to])
     assert torch.equal(lg_b.select(lane_axis, at), lg_s.select(lane_axis, to))
+
+
+@pytest.mark.parametrize("engine", ["mega", "turbo"])
+def test_bf16_sampling_at_cuda_core_widths_matches_plain(cuda, engine):
+    """bf16 at C = 24 (not a multiple of 16): the CUDA-core route, no
+    ValueError, teacher-forced logits within LOGIT_ATOL of the plain
+    version in its one-fp32-sum order."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc, ar_turbo
+
+    arch = dataclasses.replace(SMALL, compute_dtype="bfloat16", residual_channels=24)
+    assert ar_tc.route(arch, torch.bfloat16) == "cuda_cores"
+    assert not ar_tc.default_order(arch, torch.bfloat16, cuda)
+    p = init_params(14, arch, cuda)
+    b, t = 16, 32
+    g = torch.Generator(device=cuda).manual_seed(14)
+    lane = torch.stack([torch.randint(0, 2**31 - 1, (b,), generator=g, device=cuda),
+                        torch.zeros(b, device=cuda, dtype=torch.int64)]).to(torch.int32)
+    h0, e0 = _fused_frontend_zero(p, arch, b)
+    if engine == "mega":
+        def state():
+            return ar_mega.mega_zero_carry(arch, h0, e0)
+        kernel, plain, counter = (ar_mega.mega_generate_cuda, ar_mega.mega_generate_plain,
+                                  ar_mega.mega_generate)
+    else:
+        def state():
+            return {"bufs": torch.zeros((sum(arch.dilations), b, 24), device=cuda),
+                    "h": h0.clone(), "e": e0.clone()}
+        kernel, plain, counter = (ar_turbo.turbo_generate_cuda,
+                                  ar_turbo.turbo_generate_plain, ar_turbo.turbo_step)
+    forced = torch.randint(0, 256, (t, b), generator=g, device=cuda, dtype=torch.int32)
+    n = counter.launches
+    _, lk = kernel(p, p["layers"], arch, state(), 0, forced, 1.0, True, lane, 3)
+    torch.cuda.synchronize()
+    assert counter.launches == n + (1 if engine == "mega" else t)
+    _, lp = plain(p, p["layers"], arch, state(), 0, forced, 1.0, True, lane, 3)
+    torch.testing.assert_close(lk, lp, rtol=0, atol=5e-2)

@@ -97,21 +97,48 @@ def test_tc_product_is_an_fp32_sum(k):
 
 
 def test_unsupported_widths_raise_with_the_reason():
+    """unsupported() names why a width leaves the tensor cores; those
+    widths take the CUDA-core route instead of raising."""
     assert ar_tc.unsupported(SMALL) is None and ar_tc.unsupported(WAVENET30) is None
     odd = dataclasses.replace(SMALL, residual_channels=24)
-    with pytest.raises(ValueError, match="residual_channels % 16"):
-        ar_tc.check_dims(odd)
+    assert "residual_channels % 16" in ar_tc.unsupported(odd)
     wide = dataclasses.replace(WAVENET30, skip_channels=1024)
-    with pytest.raises(ValueError, match="768 outputs"):
-        ar_tc.check_dims(wide)
+    assert "768 outputs" in ar_tc.unsupported(wide)
     gates = dataclasses.replace(WAVENET30, gate_channels=400)
-    with pytest.raises(ValueError, match="384 gate channels"):
-        ar_tc.check_dims(gates)
+    assert "384 gate channels" in ar_tc.unsupported(gates)
+    for arch in (odd, wide, gates):
+        assert ar_tc.route(arch, torch.bfloat16) == "cuda_cores"
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert not ar_tc.default_order(odd, torch.bfloat16, cuda)
     assert not ar_tc.default_order(SMALL, torch.float32, cuda)
     assert ar_tc.default_order(SMALL, torch.bfloat16, cuda)
     assert not ar_tc.default_order(SMALL, torch.bfloat16, cpu)
+
+
+MICRO_BF16 = ArchConfig(n_blocks=1, n_layers_per_block=3, residual_channels=8,
+                        skip_channels=16, gate_channels=8, compute_dtype="bfloat16")
+ROUTES = [
+    ("small", SMALL, {}, "tensor_cores"),
+    ("wavenet30", WAVENET30, {}, "tensor_cores"),
+    ("stress_s512", WAVENET30, {"skip_channels": 512}, "tensor_cores"),
+    ("c24", SMALL, {"residual_channels": 24}, "cuda_cores"),
+    ("s1024", WAVENET30, {"skip_channels": 1024}, "cuda_cores"),
+    ("g400", WAVENET30, {"gate_channels": 400}, "cuda_cores"),
+    ("q200", WAVENET30, {"quant_channels": 200}, "cuda_cores"),
+    ("micro", MICRO_BF16, {}, "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("name,arch,change,want", ROUTES, ids=[r[0] for r in ROUTES])
+def test_sampling_route_from_dtype_and_widths(name, arch, change, want):
+    """ar_tc.route: bf16 at the widths the tensor-core kernels take goes to
+    them, bf16 at any other width to the CUDA-core kernels; fp32 never
+    goes to the tensor cores."""
+    arch = dataclasses.replace(arch, **change)
+    assert ar_tc.route(arch, torch.bfloat16) == want
+    assert ar_tc.route(dataclasses.replace(arch, compute_dtype="float32"),
+                       torch.float32) == "cuda_cores"
+    assert (ar_tc.unsupported(arch) is None) == (want == "tensor_cores")
 
 
 def _jax_pair(arch):

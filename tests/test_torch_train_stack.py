@@ -12,6 +12,7 @@ import torch
 from lb_wavenet_tpu.models.wavenet import gated_unit, init_params, shift_right
 from lb_wavenet_tpu.ops.pallas.train_stack import make_fused_stack as jmake
 from lb_wavenet_tpu_torch.config import ArchConfig as PArch
+from lb_wavenet_tpu_torch.ops.cuda import ar_tc
 from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
 from .util import MICRO
@@ -180,3 +181,83 @@ def test_unported_variants_and_devices_raise():
           for k, v in init_params(jax.random.key(0), MICRO)["layers"].items()}
     with pytest.raises(ValueError, match="cpu or cuda"):
         TS.make_fused_stack(parch)(lp, torch.zeros((B, T, 8), device="meta"))
+
+
+STACK_ROUTES = [
+    ("micro_fp32", 8, 8, 16, torch.float32, "cuda_cores"),
+    ("wavenet30_fp32", 64, 64, 256, torch.float32, "cuda_cores"),
+    ("small_bf16", 16, 16, 32, torch.bfloat16, "tensor_cores"),
+    ("wavenet30_bf16", 64, 64, 256, torch.bfloat16, "tensor_cores"),
+    ("s1024_small_bf16", 16, 16, 1024, torch.bfloat16, "tensor_cores"),
+    ("stress_gen_bf16", 64, 64, 512, torch.bfloat16, "tensor_cores"),
+    ("s1024_bf16", 64, 64, 1024, torch.bfloat16, "tensor_cores"),
+    ("c256_bf16", 256, 256, 256, torch.bfloat16, "cuda_cores"),
+    ("c24_bf16", 24, 24, 32, torch.bfloat16, "cuda_cores"),
+    ("micro_bf16", 8, 8, 16, torch.bfloat16, "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("name,c,g,s,dt,want", STACK_ROUTES, ids=[r[0] for r in STACK_ROUTES])
+def test_stack_route_from_dtype_and_widths(name, c, g, s, dt, want):
+    """TS.route: bf16 with C, G, S multiples of 16 whose tiles fit in a
+    block's shared memory takes the tensor cores; fp32 (tensor cores would
+    be TF32) and any other bf16 width the CUDA-core kernels."""
+    assert TS.route(c, g, s, dt) == want
+    if want == "tensor_cores":
+        assert TS.tc_smem(c, g, s) <= TS.TC_SMEM_MAX
+
+
+def test_stack_route_shared_memory_limit():
+    """The tensor-core kernels stage a layer's weights and a 64-position tile
+    of every operand, S in passes of 256 columns: at C=G=64 any S fits
+    (WaveNet-30's 256 in one pass; the stress config's 512 and 1024 in the
+    same bytes); C=G=256 does not and takes the CUDA-core route. That
+    route's skip pass caps S at 512 (fp32 at S=1024 raises)."""
+    assert TS.tc_smem(64, 64, 256) < TS.tc_smem(64, 64, 512) == TS.tc_smem(64, 64, 1024)
+    assert TS.tc_smem(64, 64, 1024) <= TS.TC_SMEM_MAX < TS.tc_smem(256, 256, 256)
+    assert TS.route(64, 64, 1024, torch.bfloat16) == "tensor_cores"
+    assert TS.route(256, 256, 256, torch.bfloat16) == "cuda_cores"
+    lp = {"w_cur": torch.zeros(2, 64, 128), "w_res": torch.zeros(2, 64, 64),
+          "w_skip": torch.zeros(2, 64, 1024)}
+    TS._check_shapes(lp, torch.zeros(1, 8, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="S <= 512"):
+        TS._check_shapes(lp, torch.zeros(1, 8, 64), torch.float32)
+
+
+@pytest.mark.parametrize("tapcat", [False, True])
+@pytest.mark.parametrize("tensor_cores", [False, True])
+def test_stack_bf16_at_tensor_core_widths_matches_jax(tapcat, tensor_cores):
+    """bf16 at widths the tensor-core route takes (C = G = 16, S = 32): the
+    plain versions summed as that route sums on the card (tc_mm: one mma
+    from zero per 16-deep k-step, added in order) or as the CPU sums by
+    default (one fp32 product), against JAX's Pallas kernels (interpret
+    mode) within 2e-2: the same bf16-rounded operands, fp32 sums in
+    another order."""
+    from lb_wavenet_tpu.config import ArchConfig as JArch
+
+    arch = JArch(n_blocks=1, n_layers_per_block=4, residual_channels=16, skip_channels=32,
+                 gate_channels=16, compute_dtype="bfloat16")
+    lp, h0, g = _case(arch, 8)
+    want = _jax_fused(arch, lp, h0, g, tapcat)
+    tl = {k: torch.tensor(v) for k, v in lp.items()}
+    dils, dt = tuple(arch.dilations), torch.bfloat16
+    assert TS.route(16, 16, 32, dt) == "tensor_cores"
+    assert not TS.default_order("cpu", 16, 16, 32, dt)
+    skip, z, x = TS.stack_fwd_plain(tl, torch.tensor(h0), dils, dt, tapcat, tensor_cores)
+    dh0, grads = TS.stack_bwd_plain(tl, dils, dt, tapcat, z, x, torch.tensor(g), tensor_cores)
+    _close(skip.numpy(), want[0], 2e-2, "skip")
+    _close(dh0.numpy(), want[1], 2e-2, "dh0")
+    for k in want[2]:
+        _close(grads[k].numpy(), want[2][k], 2e-2, f"layers.{k}")
+
+
+def test_tc_mm_is_the_tensor_core_sum():
+    """tc_mm equals ar_tc's model of the kernels' sums on any leading
+    shape (the row chunks do not change a row's sum)."""
+    rng = np.random.default_rng(9)
+    a = torch.tensor(rng.standard_normal((3, 5, 32)), dtype=torch.bfloat16).float()
+    w = torch.tensor(rng.standard_normal((32, 16)), dtype=torch.bfloat16).float()
+    got = TS.tc_mm(a, w)
+    assert got.shape == (3, 5, 16)
+    assert torch.equal(got.reshape(15, 16), ar_tc.tc_mm(a.reshape(15, 32), w))
+    assert float((got - a @ w).abs().max()) <= 1e-5 * float((a.abs() @ w.abs()).max())
