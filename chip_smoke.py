@@ -10,7 +10,9 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
   1. environment: CUDA, the card and its power limit, triton, nvcc; build
      every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a), one
      nvcc per source, all started together; the ptxas report (registers,
-     stack, spills) of the tensor-core kernels (bf16 sampling, train stack);
+     stack, spills) of the tensor-core kernels (bf16 sampling, train stack,
+     post-loss), and the libraries' shared-memory counts against the ones
+     the routes are decided on;
   2. each kernel against its plain PyTorch version on the card at B=512
      (the bf16 mega and turbo kernels sum on tensor cores and their plain
      versions reproduce those sums, so they are expected bit-identical;
@@ -42,10 +44,12 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      shapes (B=8, W=10240, T=13310): the frontend pair, the train stack
      (tapcat off and on; on its bf16 tensor-core route the plain versions
      sum as the tensor cores do, and the drift of the one-fp32-sum order
-     is reported) and the post-loss, values and every gradient leaf,
-     through autograd; then the train stack's CUDA-core route at the same
-     shape and depth (fp32 at WaveNet-30's widths, bf16 at C=G=24), both
-     tapcat settings, with its launches per call;
+     is reported) and the post-loss (on its bf16 tensor-core route, the
+     same way), values and every gradient leaf, through autograd; then the
+     train stack's CUDA-core route at the same shape and depth (fp32 at
+     WaveNet-30's widths, bf16 at C=G=24), both tapcat settings, with its
+     launches per call, and the post-loss's CUDA-core route at the same
+     shape (fp32, and bf16 at S=Q=24);
   7. training: run_training on synthetic_corpus with the wavenet30.json
      train recipe as written (fused frontend + fused stack + tapcat + fused
      post), 20 steps with the loss of each, the frontend kernels launched
@@ -315,6 +319,7 @@ def phase_environment():
     import torch
 
     from lb_wavenet_tpu_torch.ops.cuda import build
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
     from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
     try:
@@ -344,23 +349,30 @@ def phase_environment():
     lib = build.load("train_stack")
     smem = {f"C{c}_G{g}_S{s}": (TS.tc_smem(c, g, s), TS.lib_tc_smem(lib, c, g, s))
             for c, g, s in ((64, 64, 256), (64, 64, 512), (64, 64, 1024))}
+    # So does the post-loss's (WaveNet-30, the stress config, SMALL's S).
+    plib = build.load("post_loss")
+    psmem = {f"S{s_}_Q{q}": (PL.tc_smem(s_, q), PL.lib_tc_smem(plib, s_, q))
+             for s_, q in ((256, 256), (512, 256), (32, 256))}
     log(json.dumps({"phase": "ptxas_tensor_core_kernels", "report": tc_ptxas(),
-                    "train_stack_tc_smem_bytes": smem}))
+                    "train_stack_tc_smem_bytes": smem, "post_loss_tc_smem_bytes": psmem}))
     require(all(a == b for a, b in smem.values()),
             f"csrc/train_stack.cu and train_stack.tc_smem disagree: {smem}")
+    require(all(a == b for a, b in psmem.values()),
+            f"csrc/post_loss.cu and post_loss.tc_smem disagree: {psmem}")
 
 
 def tc_ptxas() -> dict:
     """The ptxas report (registers, stack, spills) of the tensor-core
-    kernels (bf16 mega and turbo, the train stack's `tsc` route), from this
-    process's build log."""
+    kernels (bf16 mega and turbo, the train stack's `tsc` route, the
+    post-loss's `ptc` route), from this process's build log."""
     from lb_wavenet_tpu_torch.ops.cuda import build
 
     out = {}
-    for src in ("ar_mega", "ar_turbo", "train_stack"):
+    for src in ("ar_mega", "ar_turbo", "train_stack", "post_loss"):
         lines = build.build_log.get(src, "").splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry function" in ln and ("tc_kernel" in ln or "3tsc" in ln):
+            if "Compiling entry function" in ln and any(
+                    m in ln for m in ("tc_kernel", "3tsc", "3ptc")):
                 out[ln.split("'")[1]] = [x.replace("ptxas info    :", "").strip()
                                           for x in lines[i + 1:i + 4]
                                           if "Compiling" not in x and "Compile time" not in x]
@@ -1395,18 +1407,26 @@ def phase_train_kernels(params, arch, gpu):
     num = PL.fused_post_loss(post, s, tgt, mask, TRAIN_W, arch.compute_dtype)
     (num * 0.37).backward()
     torch.cuda.synchronize()
+    gbar = torch.tensor(0.37, device="cuda")
     with torch.no_grad():
         plain = {k: v.detach() for k, v in params["post"].items()}
         num_p = PL.post_loss_plain(plain, skip, tgt, mask, TRAIN_W, dt)
-        dsp, gp = PL.post_loss_bwd_plain(plain, skip, tgt, mask, TRAIN_W, dt,
-                                         torch.tensor(0.37, device="cuda"))
+        dsp, gp = PL.post_loss_bwd_plain(plain, skip, tgt, mask, TRAIN_W, dt, gbar)
+        # How far the one-fp32-sum order (the CPU's) parts from the kernels:
+        # reported, not held to a limit.
+        num1 = PL.post_loss_plain(plain, skip, tgt, mask, TRAIN_W, dt, False)
+        ds1, g1 = PL.post_loss_bwd_plain(plain, skip, tgt, mask, TRAIN_W, dt, gbar, False)
+        other = {"num": rel_err(num.detach(), num1), "dskip": rel_err(s.grad, ds1),
+                 **{f"post.{k}": rel_err(post[k].grad, g1[k]) for k in g1}}
+        del num1, ds1, g1
     head = skip.shape[1] - TRAIN_W
     errs = {"num": rel_err(num.detach(), num_p), "dskip": rel_err(s.grad, dsp),
             **{f"post.{k}": rel_err(post[k].grad, gp[k]) for k in gp}}
     head_zero = not bool(s.grad[:, :head].any())
-    log(json.dumps({"phase": "post_loss_vs_plain", "gpu": gpu, "B": TRAIN_B,
-                    "T": skip.shape[1], "W": TRAIN_W, "rel_err": errs,
-                    "head_dskip_exactly_zero": head_zero, "rtol": KERNEL_RTOL}))
+    log(json.dumps({"phase": "post_loss_vs_plain", "gpu": gpu, "route": post_route(arch),
+                    "B": TRAIN_B, "T": skip.shape[1], "W": TRAIN_W, "rel_err": errs,
+                    "head_dskip_exactly_zero": head_zero, "rtol": KERNEL_RTOL,
+                    "one_fp32_sum_order_rel_err": other}))
     require(max(errs.values()) <= KERNEL_RTOL and head_zero, f"post-loss differs: {errs}")
     report["post_loss_fwd"] = abs_err(num.detach(), num_p)
     report["post_loss_bwd"] = max(abs_err(s.grad, dsp),
@@ -1465,6 +1485,53 @@ def phase_train_stack_cuda_core(arch, gpu):
     TS.train_stack_fwd.launches, TS.train_stack_bwd.launches = counts
 
 
+def phase_post_loss_cuda_core(arch, gpu):
+    """The post-loss's CUDA-core route (the first-version kernels: fp32, and
+    bf16 at widths that are not multiples of 16) at the training shape:
+    fp32 at WaveNet-30's widths and bf16 at S = Q = 24, the numerator,
+    dskip (head rows exactly 0) and every post leaf against the plain
+    versions (one fp32 sum per product) within KERNEL_RTOL, 2 and 3
+    launches a call. Comparison launches: the counters are restored."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+    from lb_wavenet_tpu_torch.utils.convert import params_from_jax
+
+    counts = PL.post_loss_fwd.launches, PL.post_loss_bwd.launches
+    for name, variant in (("fp32", dataclasses.replace(arch, compute_dtype="float32")),
+                          ("s24_bf16", dataclasses.replace(arch, skip_channels=24,
+                                                           quant_channels=24))):
+        dt = compute_dtype(variant)
+        require(post_route(variant) == "cuda_cores", f"{name} left the CUDA-core route")
+        post = params_from_jax(numpy_params(variant, 15), device="cuda")["post"]
+        skip, tgt, mask = post_inputs(variant, 16)
+        gbar = torch.tensor(0.37, device="cuda")
+        n_fwd, n_bwd = PL.post_loss_fwd.launches, PL.post_loss_bwd.launches
+        num = PL.post_loss_fwd(post, skip, tgt, mask, TRAIN_W, dt)
+        dskip, grads = PL.post_loss_bwd(post, skip, tgt, mask, TRAIN_W, dt, gbar)
+        torch.cuda.synchronize()
+        launches = (PL.post_loss_fwd.launches - n_fwd, PL.post_loss_bwd.launches - n_bwd)
+        with torch.no_grad():
+            num_p = PL.post_loss_plain(post, skip, tgt, mask, TRAIN_W, dt)
+            dsp, gp = PL.post_loss_bwd_plain(post, skip, tgt, mask, TRAIN_W, dt, gbar)
+        errs = {"num": rel_err(num, num_p), "dskip": rel_err(dskip, dsp),
+                **{f"post.{k}": rel_err(grads[k], gp[k]) for k in gp}}
+        head_zero = not bool(dskip[:, :skip.shape[1] - TRAIN_W].any())
+        log(json.dumps({"phase": "post_loss_cuda_core_route", "gpu": gpu, "arch": name,
+                        "S": variant.skip_channels, "Q": variant.quant_channels,
+                        "B": TRAIN_B, "T": skip.shape[1], "W": TRAIN_W, "launches": launches,
+                        "rel_err": errs, "head_dskip_exactly_zero": head_zero,
+                        "rtol": KERNEL_RTOL}))
+        require(launches == (2, 3), f"post-loss {name} launched {launches}, not (2, 3)")
+        require(max(errs.values()) <= KERNEL_RTOL and head_zero,
+                f"post-loss {name} differs: {errs}")
+        del num, dskip, grads, num_p, dsp, gp, skip, tgt, mask, post
+    PL.post_loss_fwd.launches, PL.post_loss_bwd.launches = counts
+
+
 TRAIN_COUNTERS = ("frontend_fwd", "frontend_bwd", "train_stack_fwd", "train_stack_bwd",
                   "post_loss_fwd", "post_loss_bwd")
 
@@ -1478,11 +1545,21 @@ def stack_route(arch) -> str:
                     compute_dtype(arch))
 
 
+def post_route(arch) -> str:
+    """The post-loss's route at the arch's widths and dtype."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+
+    return PL.route(arch.skip_channels, arch.quant_channels, compute_dtype(arch))
+
+
 def train_launches_per_call(arch) -> dict:
-    """Kernel launches of one call of each training kernel pair's wrapper:
-    the train-stack backward takes 2 L + 3 on the tensor-core route (a
-    g_skip pass, its db_skip sum, two passes per layer, one reduction) and
-    3 L + 1 on the CUDA-core one."""
+    """Kernel launches of one call of each training kernel pair's wrapper,
+    on the route the arch takes: the train-stack backward takes 2 L + 3 on
+    the tensor-core route (a g_skip pass, its db_skip sum, two passes per
+    layer, one reduction) and 3 L + 1 on the CUDA-core one; the post-loss
+    takes 2 and 3 on either route (the row pass and the partials' sum; the
+    row pass, the weight-gradient pass and the reduction)."""
     L = len(arch.dilations)
     bwd = 2 * L + 3 if stack_route(arch) == "tensor_cores" else 3 * L + 1
     return {"frontend_fwd": 1, "frontend_bwd": 4, "train_stack_fwd": L + 1,
@@ -1607,6 +1684,7 @@ def phase_training(arch, gpu):
             "losses": losses, "step_ms": step_ms, "median_step_ms_after_first": ms,
             "samples_per_s": TRAIN_B * TRAIN_W / (ms / 1000.0), "wall_s": wall,
             "launches": launches, "launches_per_step": per_step,
+            "routes": {"train_stack": stack_route(arch), "post_loss": post_route(arch)},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         }))
         require(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS, "training stopped early")
@@ -1895,13 +1973,16 @@ def train_timings(params, arch):
     skip, tgt, mask = post_inputs(arch, 14)
     post = params["post"]
     gbar = torch.tensor(1.0 / TRAIN_B / TRAIN_W, device="cuda")
+    # The post-loss's plain time is its one-fp32-sum composition (the float64
+    # emulation of the tensor-core order is no yardstick of speed).
     out["post_loss_fwd"] = (
         cuda_ms(lambda: PL.post_loss_fwd(post, skip, tgt, mask, TRAIN_W, dt), 10),
-        cuda_ms(lambda: PL.post_loss_plain(post, skip, tgt, mask, TRAIN_W, dt), 3),
+        cuda_ms(lambda: PL.post_loss_plain(post, skip, tgt, mask, TRAIN_W, dt, False), 3),
         post_loss_cost(arch, TRAIN_B, t, TRAIN_W, wbytes, False))
     out["post_loss_bwd"] = (
         cuda_ms(lambda: PL.post_loss_bwd(post, skip, tgt, mask, TRAIN_W, dt, gbar), 10),
-        cuda_ms(lambda: PL.post_loss_bwd_plain(post, skip, tgt, mask, TRAIN_W, dt, gbar), 3),
+        cuda_ms(lambda: PL.post_loss_bwd_plain(post, skip, tgt, mask, TRAIN_W, dt, gbar,
+                                               False), 3),
         post_loss_cost(arch, TRAIN_B, t, TRAIN_W, wbytes, True))
     for k, f in train_counters().items():
         f.launches = counts[k]
@@ -2081,6 +2162,11 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
             "library_ms": None, "unit": units[name],
             "launches_per_call": per_call.get(name, 1),
         }
+        if name.startswith(("train_stack", "post_loss")):
+            row["kernel_route"] = (stack_route(arch) if name.startswith("train_stack")
+                                   else post_route(arch))
+        if name.startswith("post_loss"):
+            row["plain_order"] = "one fp32 sum per product"
         if name in ("mega_generate", "turbo_step"):   # the config's own gen batch too
             row[f"ms_B{GEN_B}"] = sampling[GEN_B][name.split("_")[0]][0]
             cost_b = (mega_cost(arch, GEN_B, CHUNK, 3, wbytes) if name == "mega_generate"
@@ -2129,6 +2215,7 @@ def main() -> int:
         phase_cuda_core_sampling(arch, gpu)
         errs.update(phase_train_kernels(params, arch, gpu))
         phase_train_stack_cuda_core(arch, gpu)
+        phase_post_loss_cuda_core(arch, gpu)
         launches = {"mega_generate": phase_serving(params, arch, gpu),
                     "fused_stack": phase_pallas_engine(params, arch, gpu),
                     "turbo_step": phase_turbo_serving(params, arch, gpu)}

@@ -199,12 +199,15 @@ def test_train_stack_tensor_core_backward_is_bit_reproducible(cuda, tapcat):
 @pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5), ("bfloat16", 1e-2)])
 def test_post_loss_kernels_match_plain(cuda, dtype, rtol):
     """Numerator, dskip (exactly 0 on the head rows) and the post
-    gradients against the plain versions, a ragged last row tile."""
+    gradients against the plain versions, a ragged last row tile; bf16
+    SMALL (S = 32) takes the tensor-core route, fp32 the CUDA-core one, and
+    the launches are that route's (2 and 3)."""
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
     from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
 
     arch = dataclasses.replace(SMALL, compute_dtype=dtype)
     dt = compute_dtype(arch)
+    assert PL.route(32, 256, dt) == ("tensor_cores" if dtype == "bfloat16" else "cuda_cores")
     p = init_params(4, arch, cuda)
     g = torch.Generator(device=cuda).manual_seed(4)
     skip = torch.randn((3, 60, 32), device=cuda, generator=g)
@@ -229,6 +232,89 @@ def test_post_loss_kernels_match_plain(cuda, dtype, rtol):
     close(s.grad, dsp)
     for k in gp:
         close(post[k].grad, gp[k])
+
+
+POST_WIDTHS = {"wavenet30": (256, 256, "bfloat16", "tensor_cores"),
+               "stress": (512, 256, "bfloat16", "tensor_cores"),
+               "c24": (24, 24, "bfloat16", "cuda_cores"),
+               "fp32": (256, 256, "float32", "cuda_cores")}
+
+
+def _post_case(cuda, s, q, seed, b=2, t=330, w=230):
+    """Post weights at WaveNet-30's init scale, skip, targets and a mask
+    with a file start inside the window (w rows: a ragged last tile)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    post = {"w1": torch.randn((s, s), device=cuda, generator=g) * s ** -0.5,
+            "b1": torch.randn((s,), device=cuda, generator=g) * 0.1,
+            "w2": torch.randn((s, q), device=cuda, generator=g) * s ** -0.5,
+            "b2": torch.randn((q,), device=cuda, generator=g) * 0.1}
+    skip = torch.randn((b, t, s), device=cuda, generator=g)
+    tgt = torch.randint(0, q, (b, w), device=cuda, generator=g, dtype=torch.int32)
+    mask = (torch.rand((b, w), device=cuda, generator=g) > 0.2).float()
+    mask[0, :70] = 0.0
+    return post, skip, tgt, mask
+
+
+@pytest.mark.parametrize("width", list(POST_WIDTHS))
+def test_post_loss_routes_match_plain(cuda, width):
+    """Each route at the widths that take it: the tensor-core kernels at
+    WaveNet-30's and the stress config's widths against the plain versions
+    summed as the tensor cores sum (KERNEL_RTOL of chip_smoke.py, 1e-2 of
+    each leaf's largest value: the softmax's sums in another order can flip
+    a bf16 rounding of dlogits), the CUDA-core kernels in bf16 at S = Q = 24
+    and in fp32 (1e-5); head dskip exactly 0, 2 and 3 launches."""
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+
+    s, q, dtype, want = POST_WIDTHS[width]
+    dt = getattr(torch, dtype)
+    assert PL.route(s, q, dt) == want
+    post, skip, tgt, mask = _post_case(cuda, s, q, 8)
+    gbar = torch.tensor(0.37, device=cuda)
+    n_fwd, n_bwd = PL.post_loss_fwd.launches, PL.post_loss_bwd.launches
+    num = PL.post_loss_fwd(post, skip, tgt, mask, 230, dt)
+    dskip, grads = PL.post_loss_bwd(post, skip, tgt, mask, 230, dt, gbar)
+    torch.cuda.synchronize()
+    assert (PL.post_loss_fwd.launches, PL.post_loss_bwd.launches) == (n_fwd + 2, n_bwd + 3)
+    assert PL.default_order(skip.device, s, q, dt) == (want == "tensor_cores")
+    num_p = PL.post_loss_plain(post, skip, tgt, mask, 230, dt)
+    dsp, gp = PL.post_loss_bwd_plain(post, skip, tgt, mask, 230, dt, gbar)
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    assert not dskip[:, :100].any()
+
+    def close(a, b):
+        torch.testing.assert_close(a, b, rtol=0, atol=rtol * float(b.abs().max()))
+
+    close(num, num_p)
+    close(dskip, dsp)
+    for k in gp:
+        close(grads[k], gp[k])
+
+
+def test_post_loss_tensor_core_kernels_are_bit_reproducible(cuda):
+    """Two calls on the same inputs give the same bits: fixed tile -> block
+    slots, fixed position chunks and ordered reductions, no float atomics."""
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+
+    post, skip, tgt, mask = _post_case(cuda, 256, 256, 9, b=3, t=900, w=800)
+    gbar = torch.tensor(0.25, device=cuda)
+    runs = [(PL.post_loss_fwd(post, skip, tgt, mask, 800, torch.bfloat16),
+             *PL.post_loss_bwd(post, skip, tgt, mask, 800, torch.bfloat16, gbar))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (n1, d1, g1), (n2, d2, g2) = runs
+    assert torch.equal(n1, n2) and torch.equal(d1, d2)
+    for k in g1:
+        assert torch.equal(g1[k], g2[k]), k
+
+
+@pytest.mark.parametrize("s,q", [(32, 256), (256, 256), (512, 256), (272, 32), (576, 256)])
+def test_post_loss_library_carves_tc_smem(cuda, s, q):
+    """The built library's shared-memory count of the tensor-core row
+    kernels equals post_loss.tc_smem, on which the route is decided."""
+    from lb_wavenet_tpu_torch.ops.cuda import build
+    from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
+
+    assert PL.lib_tc_smem(build.load("post_loss"), s, q) == PL.tc_smem(s, q)
 
 
 def test_fused_training_step_on_card(cuda):
