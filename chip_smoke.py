@@ -10,9 +10,9 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
   1. environment: CUDA, the card and its power limit, triton, nvcc; build
      every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a), one
      nvcc per source, all started together; the ptxas report (registers,
-     stack, spills) of the tensor-core kernels (bf16 sampling, train stack,
-     post-loss), and the libraries' shared-memory counts against the ones
-     the routes are decided on;
+     stack, spills) of the tensor-core kernels (bf16 sampling, B1 and B7,
+     train stack, post-loss), and the libraries' shared-memory counts
+     against the ones the routes are decided on;
   2. each kernel against its plain PyTorch version on the card at B=512
      (the bf16 mega and turbo kernels sum on tensor cores and their plain
      versions reproduce those sums, so they are expected bit-identical;
@@ -26,6 +26,10 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      kernel's own history), turbo_step (one step at a mid-stream t, then
      teacher-forced logits and state over a 256-step chunk, then greedy and
      per-lane free runs of 128 steps under the same near-argmax check);
+     fused_stack at B=512 and B=100 is bit-identical to its plain version
+     on its bf16 tensor-core route (tc::stack_tc_kernel); then the CUDA-core
+     routes of fused_stack and tp_fused_stack (fp32, and bf16 at C=24)
+     within their tolerances;
   3. serving: SessionPool(engine="mega", device="cuda"), pool batch 512,
      chunk 1024, pipelined, 12 requests of 8000-24000 samples with seeds and
      temperatures {0, 0.7, 1.0}, the last 4 on recycled lanes; a sampled
@@ -67,7 +71,8 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      config: 3x10 dilations, C=G=64, S=512, Q=256, bf16) at full width,
      B=256, random weights from a numpy seed: `tp_kernel`, kernel B7
      (tp_fused_stack) against its plain version at S_l = 512 and on each
-     256-wide half, whose skip sums must concatenate to the whole one;
+     256-wide half, bit-identical on the bf16 tensor-core route, whose skip
+     sums must concatenate to the whole one;
      `tp_serving_1rank`, one NCCL rank (model axis 1) in this process:
      mesh_generate_classes(engine="mega") greedy against single-device mega
      (every B7 choice held to the plain scores on its own history), B7 once
@@ -353,27 +358,48 @@ def phase_environment():
     plib = build.load("post_loss")
     psmem = {f"S{s_}_Q{q}": (PL.tc_smem(s_, q), PL.lib_tc_smem(plib, s_, q))
              for s_, q in ((256, 256), (512, 256), (32, 256))}
+    # And B1's and B7's (WaveNet-30's and the stress config's widths, a
+    # rank's half of each skip).
+    ssmem = stack_smem()
     log(json.dumps({"phase": "ptxas_tensor_core_kernels", "report": tc_ptxas(),
-                    "train_stack_tc_smem_bytes": smem, "post_loss_tc_smem_bytes": psmem}))
+                    "train_stack_tc_smem_bytes": smem, "post_loss_tc_smem_bytes": psmem,
+                    "stack_tc_smem_bytes": ssmem}))
     require(all(a == b for a, b in smem.values()),
             f"csrc/train_stack.cu and train_stack.tc_smem disagree: {smem}")
     require(all(a == b for a, b in psmem.values()),
             f"csrc/post_loss.cu and post_loss.tc_smem disagree: {psmem}")
+    require(all(a == b for a, b in ssmem.values()),
+            f"csrc/ar_step.cu or csrc/ar_tp.cu and ar_tc.stack_smem disagree: {ssmem}")
+
+
+def stack_smem() -> dict:
+    """{kernel and widths: (host's bytes, library's bytes)} of the
+    tensor-core stack kernels' dynamic shared memory."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc, build
+
+    out = {}
+    for name, src, s in (("fused_stack", "ar_step", 256), ("fused_stack", "ar_step", 128),
+                         ("tp_fused_stack", "ar_tp", 512), ("tp_fused_stack", "ar_tp", 256)):
+        out[f"{name} C64_G64_S{s}_L30"] = (ar_tc.stack_smem(64, 64, s, 30)[0],
+                                           ar_tc.lib_stack_smem(build.load(src), name, 64, 64,
+                                                                s, 30))
+    return out
 
 
 def tc_ptxas() -> dict:
     """The ptxas report (registers, stack, spills) of the tensor-core
-    kernels (bf16 mega and turbo, the train stack's `tsc` route, the
-    post-loss's `ptc` route), from this process's build log."""
+    kernels (bf16 mega and turbo, B1 and B7's `stack_tc_kernel`, the train
+    stack's `tsc` route, the post-loss's `ptc` route), from this process's
+    build log."""
     from lb_wavenet_tpu_torch.ops.cuda import build
 
     out = {}
-    for src in ("ar_mega", "ar_turbo", "train_stack", "post_loss"):
+    for src in ("ar_mega", "ar_turbo", "ar_step", "ar_tp", "train_stack", "post_loss"):
         lines = build.build_log.get(src, "").splitlines()
         for i, ln in enumerate(lines):
             if "Compiling entry function" in ln and any(
                     m in ln for m in ("tc_kernel", "3tsc", "3ptc")):
-                out[ln.split("'")[1]] = [x.replace("ptxas info    :", "").strip()
+                out[f"{src}: {ln.split(chr(39))[1]}"] = [x.replace("ptxas info    :", "").strip()
                                           for x in lines[i + 1:i + 4]
                                           if "Compiling" not in x and "Compile time" not in x]
     return out
@@ -417,16 +443,23 @@ def phase_kernels(params, arch, gpu):
     report = {}
     g = torch.Generator(device="cuda").manual_seed(1)
     c = arch.residual_channels
-    ring = torch.randn((sum(arch.dilations), B, c), device="cuda", generator=g)
-    h0 = torch.randn((B, c), device="cuda", generator=g)
-    r_k, r_p = ring.clone(), ring.clone()
-    _, skip_k = ar_step.fused_stack(params["layers"], arch, h0, r_k, 1000)
-    torch.cuda.synchronize()
-    _, skip_p = ar_step.fused_stack_plain(params["layers"], arch, h0, r_p, 1000)
-    err = max(float((r_k - r_p).abs().max()), float((skip_k - skip_p).abs().max()))
-    log(json.dumps({"phase": "fused_stack_vs_plain", "gpu": gpu, "B": B, "t": 1000,
-                    "max_abs_err": err, "atol": LOGIT_ATOL}))
-    require(err <= LOGIT_ATOL, f"fused_stack differs from plain: {err}")
+    route = step_route(arch, arch.skip_channels)
+    # On the tensor-core route the plain version sums as the kernel does:
+    # ring and skip must be bit-identical, at the pool batch and a ragged one.
+    atol = 0.0 if route == "tensor_cores" else LOGIT_ATOL
+    errs = {}
+    for b in (B, TURBO_POOL):
+        ring = torch.randn((sum(arch.dilations), b, c), device="cuda", generator=g)
+        h0 = torch.randn((b, c), device="cuda", generator=g)
+        r_k, r_p = ring.clone(), ring.clone()
+        _, skip_k = ar_step.fused_stack(params["layers"], arch, h0, r_k, 1000)
+        torch.cuda.synchronize()
+        _, skip_p = ar_step.fused_stack_plain(params["layers"], arch, h0, r_p, 1000)
+        errs[f"B={b}"] = {"ring": abs_err(r_k, r_p), "skip": abs_err(skip_k, skip_p)}
+    err = max(max(v.values()) for v in errs.values())
+    log(json.dumps({"phase": "fused_stack_vs_plain", "gpu": gpu, "t": 1000, "route": route,
+                    "max_abs_err": errs, "bit_identical": err == 0.0, "atol": atol}))
+    require(err <= atol, f"fused_stack differs from plain: {errs}")
     report["fused_stack"] = err
     del ring, r_k, r_p
 
@@ -554,6 +587,58 @@ def phase_cuda_core_sampling(arch, gpu):
     log(json.dumps({"phase": "bf16_sampling_cuda_core_route", "gpu": gpu, "C": 24, "B": b,
                     "T": t, "max_abs_logit_err": errs, "atol": LOGIT_ATOL}))
     require(max(errs.values()) <= LOGIT_ATOL, f"bf16 sampling at C=24 differs: {errs}")
+
+
+def phase_stack_cuda_core(arch, gpu):
+    """B1 (WaveNet-30, B = TURBO_POOL) and B7 (the stress config, B = TP_B)
+    on their CUDA-core route: fp32 at the configs' widths and bf16 with
+    C = 24, against the plain versions in their one-fp32-sum order, B1
+    within LOGIT_ATOL, B7's ring within LOGIT_ATOL and its skip within
+    TP_RTOL of its largest value (comparison launches: the counters are
+    restored)."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype, init_params
+    from lb_wavenet_tpu_torch.ops.cuda import ar_step, ar_tp
+
+    tp_arch = tp_setup()[0]
+    counts = ar_step.fused_stack.launches, ar_tp.tp_fused_stack.launches
+    readings = {}
+    for kernel, base, b in (("fused_stack", arch, TURBO_POOL), ("tp_fused_stack", tp_arch, TP_B)):
+        for name, change in (("fp32", {"compute_dtype": "float32"}),
+                             ("bf16_C24", {"residual_channels": 24})):
+            a = dataclasses.replace(base, **change)
+            require(step_route(a, a.skip_channels) == "cuda_cores",
+                    f"{kernel} {name} left the CUDA-core route")
+            p = init_params(22, a, "cuda")
+            g = torch.Generator(device="cuda").manual_seed(22)
+            c = a.residual_channels
+            if kernel == "fused_stack":
+                ring = torch.randn((sum(a.dilations), b, c), device="cuda", generator=g)
+                h0 = torch.randn((b, c), device="cuda", generator=g)
+                fn, plain, lp = ar_step.fused_stack, ar_step.fused_stack_plain, p["layers"]
+            else:
+                ring = torch.randn((sum(a.dilations), c, b), device="cuda", generator=g)
+                h0 = torch.randn((c, b), device="cuda", generator=g)
+                fn, plain = ar_tp.tp_fused_stack, ar_tp.tp_fused_stack_plain
+                lp = G._tp_weights(p, p["layers"], compute_dtype(a))
+            r_k, r_p = ring.clone(), ring.clone()
+            _, s_k = fn(lp, a, h0, r_k, 700)
+            torch.cuda.synchronize()
+            _, s_p = plain(lp, a, h0, r_p, 700)
+            readings[f"{kernel} {name}"] = {"ring": abs_err(r_k, r_p), "skip": abs_err(s_k, s_p),
+                                            "skip_rel": rel_err(s_k, s_p)}
+    ar_step.fused_stack.launches, ar_tp.tp_fused_stack.launches = counts
+    log(json.dumps({"phase": "stack_cuda_core_routes", "gpu": gpu,
+                    "B": {"fused_stack": TURBO_POOL, "tp_fused_stack": TP_B},
+                    "readings": readings, "atol": LOGIT_ATOL, "tp_rtol": TP_RTOL}))
+    for name, r in readings.items():
+        ok = r["ring"] <= LOGIT_ATOL and (r["skip_rel"] <= TP_RTOL if name.startswith("tp")
+                                          else r["skip"] <= LOGIT_ATOL)
+        require(ok, f"{name} on the CUDA-core route differs: {r}")
 
 
 def phase_turbo_kernels(params, arch, gpu):
@@ -909,8 +994,9 @@ def tp_requests():
 def hold_tp_choices(params, arch, classes, temperature, lane=None):
     """check_choices for a (B, T) run of the model-sharded path: the plain
     mega version teacher-forced on its classes, each product in one fp32
-    sum (B7's accumulation, not the bf16 mega kernel's tensor-core order),
-    then the gap of every choice."""
+    sum (the order of the sharded path's post network; B7 sums its layers
+    in the tensor-core order on its bf16 route), then the gap of every
+    choice."""
     import torch
 
     from lb_wavenet_tpu_torch import generate as G
@@ -978,6 +1064,7 @@ def phase_tp_kernel(params, arch, gpu):
         _, s_p = ar_tp.tp_fused_stack_plain(fm, arch, h0, r_p, TP_T)
         skips[name] = s_k
         readings[name] = {
+            "route": step_route(arch, layers["w_skip"].shape[-1]),
             "ring_exact_where_unwritten_and_layer0": bool(
                 torch.equal(r_k[untouched], ring[untouched]) and torch.equal(r_k[slots[0]], h0)),
             "ring_max_abs_err": abs_err(r_k, r_p), "skip_max_abs_err": abs_err(s_k, s_p),
@@ -988,10 +1075,15 @@ def phase_tp_kernel(params, arch, gpu):
     log(json.dumps({"phase": "tp_kernel", "gpu": gpu, "config": "configs/stress_gen.json",
                     "B": TP_B, "t": TP_T, "readings": readings,
                     "halves_concatenate_to_whole": halves_equal,
-                    "rtol": TP_RTOL, "ring_atol": LOGIT_ATOL}))
+                    "tensor_core_route_atol": 0.0, "cuda_core_route": {
+                        "rtol": TP_RTOL, "ring_atol": LOGIT_ATOL}}))
     for name, r in readings.items():
-        require(r["ring_exact_where_unwritten_and_layer0"] and r["ring_max_abs_err"] <= LOGIT_ATOL
-                and r["skip_rel_err"] <= TP_RTOL, f"tp_fused_stack ({name}) differs: {r}")
+        # The tensor-core route's plain version sums as the kernel does.
+        exact = r["route"] == "tensor_cores"
+        require(r["ring_exact_where_unwritten_and_layer0"]
+                and r["ring_max_abs_err"] <= (0.0 if exact else LOGIT_ATOL)
+                and (r["skip_max_abs_err"] == 0.0 if exact else r["skip_rel_err"] <= TP_RTOL),
+                f"tp_fused_stack ({name}) differs: {r}")
     require(halves_equal, "the two halves' skip sums do not concatenate to the whole one")
     return {"tp_fused_stack": max(r["skip_max_abs_err"] for r in readings.values())}
 
@@ -1545,6 +1637,16 @@ def stack_route(arch) -> str:
                     compute_dtype(arch))
 
 
+def step_route(arch, s: int) -> str:
+    """The route of the one-step stack kernels B1 and B7 at the arch's
+    widths and dtype on a skip slice of width s."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc
+
+    return ar_tc.stack_route(arch.residual_channels, arch.gate_channels, s,
+                             len(arch.dilations), compute_dtype(arch))
+
+
 def post_route(arch) -> str:
     """The post-loss's route at the arch's widths and dtype."""
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
@@ -2082,12 +2184,16 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
     wbytes = torch.finfo(compute_dtype(arch)).bits // 8
     lp = params["layers"]
     g = torch.Generator(device="cuda").manual_seed(3)
-    ring = torch.randn((sum(arch.dilations), B, arch.residual_channels),
-                       device="cuda", generator=g)
-    h = torch.randn((B, arch.residual_channels), device="cuda", generator=g)
     counts = ar_step.fused_stack.launches
-    stack_ms = cuda_ms(lambda: ar_step.fused_stack(lp, arch, h, ring, 700), 50)
-    stack_plain = cuda_ms(lambda: ar_step.fused_stack_plain(lp, arch, h, ring, 700), 5)
+    stack_times = {}
+    for bb in (B, GEN_B):
+        ring = torch.randn((sum(arch.dilations), bb, arch.residual_channels),
+                           device="cuda", generator=g)
+        h = torch.randn((bb, arch.residual_channels), device="cuda", generator=g)
+        stack_times[bb] = cuda_ms(lambda: ar_step.fused_stack(lp, arch, h, ring, 700), 50)
+        if bb == B:
+            stack_plain = cuda_ms(lambda: ar_step.fused_stack_plain(lp, arch, h, ring, 700), 5)
+    stack_ms = stack_times[B]
     ar_step.fused_stack.launches = counts
 
     sampling = {bb: sampling_timings(params, arch, bb, plain=bb == B) for bb in (B, GEN_B)}
@@ -2167,24 +2273,35 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
                                    else post_route(arch))
         if name.startswith("post_loss"):
             row["plain_order"] = "one fp32 sum per product"
-        if name in ("mega_generate", "turbo_step"):   # the config's own gen batch too
-            row[f"ms_B{GEN_B}"] = sampling[GEN_B][name.split("_")[0]][0]
-            cost_b = (mega_cost(arch, GEN_B, CHUNK, 3, wbytes) if name == "mega_generate"
-                      else turbo_cost(arch, GEN_B, 3, wbytes))
+        if name in ("mega_generate", "turbo_step", "fused_stack"):   # the gen batch too
+            if name == "fused_stack":
+                row[f"ms_B{GEN_B}"] = stack_times[GEN_B]
+                cost_b = stack_cost(arch, GEN_B, wbytes)
+            else:
+                row[f"ms_B{GEN_B}"] = sampling[GEN_B][name.split("_")[0]][0]
+                cost_b = (mega_cost(arch, GEN_B, CHUNK, 3, wbytes) if name == "mega_generate"
+                          else turbo_cost(arch, GEN_B, 3, wbytes))
             row[f"bound_ms_B{GEN_B}"] = bound_ms(*cost_b)[0]
+        if name == "fused_stack":
+            row["kernel_route"] = step_route(arch, arch.skip_channels)
+        if name == "tp_fused_stack":
+            row["kernel_route"] = step_route(tp_arch, s_whole)
+            row["ms_S_l256"], _, cost_h = tp_times[s_whole // 2]
+            row["bound_ms_S_l256"] = bound_ms(*cost_h)[0]
         kernels.append(row)
     train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
                    "tapcat": True}
     log(json.dumps({"phase": "shapes", "gpu": gpu,
                     "mega_generate": {"B": B, "T": CHUNK, "lane_rows": 3},
-                    "fused_stack": {"B": B, "steps": 1},
+                    "fused_stack": {"B": B, "steps": 1, "also": f"B={GEN_B}"},
                     "turbo_step": {"B": B, "steps": 1, "lane_rows": 3, "ms": "per step"},
                     "frontend_fwd": train_shape, "frontend_bwd": train_shape,
                     "train_stack_fwd": train_shape,
                     "train_stack_bwd": train_shape, "post_loss_fwd": train_shape,
                     "post_loss_bwd": train_shape,
                     "tp_fused_stack": {"config": "configs/stress_gen.json", "B": TP_B,
-                                       "S_l": s_whole, "steps": 1}}))
+                                       "S_l": s_whole, "steps": 1,
+                                       "also": f"S_l={s_whole // 2}"}}))
     log(json.dumps({"kernels": kernels}))
 
 
@@ -2213,6 +2330,7 @@ def main() -> int:
         errs = phase_kernels(params, arch, gpu)
         errs.update(phase_turbo_kernels(params, arch, gpu))
         phase_cuda_core_sampling(arch, gpu)
+        phase_stack_cuda_core(arch, gpu)
         errs.update(phase_train_kernels(params, arch, gpu))
         phase_train_stack_cuda_core(arch, gpu)
         phase_post_loss_cuda_core(arch, gpu)

@@ -10,12 +10,33 @@
 // read from the packed ring (sum_d, B, C) before the same row is overwritten
 // with h; lanes are disjoint across blocks, so blocks never race.
 //
-// Bound on an H100 at the serving shapes (WaveNet-30, B = 512): the step
-// reads ~2.4 MB of bf16 weights and moves 2 L B C fp32 ring values
-// (~7.9 MB), against 2 B L (2C 2G + G C + G S) = 1.1 GFLOP; both bounds are
-// a few microseconds, so a launch per step is latency-bound. The design keeps
-// every intermediate on chip and reads each weight once per block from L2.
-#include "common.cuh"
+// Bound on an H100 at the serving shapes (WaveNet-30, B = 512; chip_smoke.py
+// `stack_cost`): the step reads ~2.4 MB of bf16 weights and moves 2 L B C
+// fp32 ring values (~7.9 MB), against 2 B L (2C 2G + G C + G S) = 1.1 GFLOP:
+// ~3.2 us, bytes bound.
+//
+// Two routes, chosen on the host from dtype and widths before the launch
+// (ar_tc.py `stack_route`, from the S of the skip slice it is given; not a
+// fallback):
+//   * bf16 with C, G, S multiples of 16, C+S <= 768, G <= 384 and a ring of
+//     at least two weight slots in shared memory: tc::stack_tc_kernel
+//     (ar_tc.cuh), turbo's layer loop without its finale. 8 consumer warps
+//     and a producer warp per 8-lane block; the step's weights ([w_cur ;
+//     w_prev] and [w_res | w_skip] per layer, packed once per weight set in
+//     mma fragment order) stream through a ring of 32 KB shared-memory
+//     slots by cp.async.bulk, so each weight byte is read once per block
+//     and feeds 8 lanes; products on tensor cores (mma.sync m16n8k16 bf16
+//     -> fp32, one mma from zero per 16-deep k-step added in k order, the
+//     two halves of the tap product summed apart: turbo's split order,
+//     which the plain version reproduces bit for bit on the card); taps
+//     prefetched by cp.async during the layer before; any batch. The first
+//     version's hold, a dependent chain of fp32 FMAs on 2-byte weights read
+//     from L2, is gone; what is left is latency: three block barriers and
+//     the shared-memory round trips of each of the L layers.
+//   * fp32, and bf16 at other widths: stack_kernel below, CUDA-core FMAs in
+//     k order through common.cuh (split_layer), the first version.
+// The step keeps every intermediate on chip.
+#include "ar_tc.cuh"
 
 namespace wn {
 
@@ -90,4 +111,17 @@ extern "C" int wn_fused_stack(const wn::StackArgs* a, void* stream, int* launche
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(a->bf16 ? wn::launch<__nv_bfloat16>(*a, s, launches)
                        : wn::launch<float>(*a, s, launches));
+}
+
+// The tensor-core route (bf16): one launch of tc::stack_tc_kernel,
+// lane-major and in turbo's split order. Returns a CUDA error code.
+extern "C" int wn_fused_stack_tc(const wn::tc::StackArgs* a, void* stream, int* launches) {
+  return (int)wn::tc::stack_launch<true, false>(*a, static_cast<cudaStream_t>(stream), launches);
+}
+
+// Bytes of dynamic shared memory of the tensor-core route at these widths
+// on this device (ar_tc.py `stack_smem` must agree).
+extern "C" long long wn_fused_stack_tc_smem(int L, int C, int G, int S) {
+  int n_slots;
+  return (long long)wn::tc::stack_smem(L, C, G, S, &n_slots);
 }

@@ -1,6 +1,8 @@
 // Tensor-core device code of the bf16 sampling kernels (ar_mega.cu and
 // ar_turbo.cu, bf16 instantiations; their fp32 instantiations keep the
-// CUDA-core path of common.cuh).
+// CUDA-core path of common.cuh) and of the tensor-core route of the
+// one-step stack kernels B1 (ar_step.cu) and B7 (ar_tp.cu), which run
+// turbo's and mega's layer loop without a finale (`layer`, `stack_tc_kernel`).
 //
 // A block owns a tile of TB = 8 lanes, as in common.cuh, and runs 8
 // consumer warps plus one producer warp:
@@ -195,6 +197,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(saddr(dst)), "l"(src)
                : "memory");
 }
+// 4-byte copy, for a tap whose address is not 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(saddr(dst)), "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
@@ -372,6 +379,104 @@ inline int step_tpw(int C, int G, int S, int Q) {
   return need <= 3 ? 3 : need <= MAX_MT ? MAX_MT : 0;
 }
 
+// ---- The layer loop of the stack kernels B1 and B7 -------------------------
+//
+// turbo's and mega's layer loop (ar_turbo.cu, ar_mega.cu) as one function.
+// mega and turbo keep their own copies: folded onto this one they ran ~3%
+// slower for the same arithmetic (PERF.md, Findings). The ring holds each
+// layer's taps in one of two layouts: lane-major rows (sum_d, B, C)
+// (turbo, B1) or feature-major rows (sum_d, C, B) (mega, B7). A tap buffer
+// in shared memory keeps a tile's taps in the ring's order: [TB][C]
+// lane-major, [C][TB] feature-major.
+
+// Copy a tile's taps from ring row `row` (B x C values) into `dst` by
+// cp.async, zero past B: 16-byte copies of 4 channels of a lane
+// (lane-major) or 4 lanes of a channel (feature-major), 4-byte copies
+// where a chunk is cut by B or not 16-byte aligned (feature-major rows at
+// B % 4 != 0). The caller waits (cp_async_wait_all) and syncs.
+template <bool FM>
+__device__ __forceinline__ void prefetch_taps(const float* row, float* dst, int B, int b0,
+                                              int C) {
+  for (int i = threadIdx.x; i < C * TB / 4; i += NC) {
+    const float* src;
+    int n;
+    if (FM) {
+      const int l0 = b0 + (i & 1) * 4;
+      src = row + (size_t)(i >> 1) * B + l0;
+      n = B - l0;
+    } else {
+      const int b = b0 + i / (C / 4);
+      src = row + (size_t)b * C + (i % (C / 4)) * 4;
+      n = b < B ? 4 : 0;
+    }
+    float* d = dst + i * 4;
+    if (n >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      cp_async16(d, src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e < n) {
+          cp_async4(d + e, src + e);
+        } else {
+          d[e] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// One gated layer l of the tile (lanes b0.. of B) on the consumer warps: x
+// [C][TB] (h, fp32) and skip [S][TB] are updated in place, the weights are
+// the next two products of the ring's stream ([w_cur ; w_prev] (2C, 2G),
+// then [w_res | w_skip] (G, C+S)), bg (2G) and brs (C+S) their biases.
+//   * Stage bf16 [h | tap] per lane into xb [TB][2C+8], the tap from the
+//     prefetched buffer tp, and h into the tap's ring row `row`;
+//   * start the copies of the next layer's taps (ring row next_row, unless
+//     null, into `next`), which land during this layer's products;
+//   * pre = [h | tap] @ [w_cur ; w_prev] + b on paired tiles, z =
+//     tanh(pre[m]) sigmoid(pre[G + m]) into zb [TB][G+8]. SPLIT: the two
+//     halves of K summed apart, (h @ w_cur + tap @ w_prev) + b (turbo's
+//     and B1's order); else one 2C-deep sum (mega's and B7's);
+//   * one z @ [w_res | w_skip] product: h = (h + res) + b_res; SPLIT: skip
+//     = (skip + sk) + b_skip; else skip = skip + (sk + b_skip) (the first
+//     layer's sum is its contribution), mega's bias order.
+// Ends with the tap copies landed and the consumer warps synced.
+template <int TPW, bool SPLIT, bool FM>
+__device__ __forceinline__ void layer(Ring& r, float* x, float* skip, bf16* xb, bf16* zb,
+                                      int l, int B, int b0, int C, int G, int S,
+                                      const float* bg, const float* brs, float* row,
+                                      const float* tp, const float* next_row, float* next) {
+  const int lda = 2 * C + 8, ldg = G + 8;
+  for (int i = threadIdx.x; i < C * TB; i += NC) {
+    const int c = FM ? i / TB : i % C, j = FM ? i % TB : i / C, b = b0 + j;
+    const float h = x[c * TB + j];
+    if (b < B) row[FM ? (size_t)c * B + b : (size_t)b * C + c] = h;
+    xb[j * lda + c] = __float2bfloat16_rn(h);
+    xb[j * lda + C + c] = __float2bfloat16_rn(tp[i]);
+  }
+  if (next_row) prefetch_taps<FM>(next_row, next, B, b0, C);
+  csync();
+  mm<TPW, true, SPLIT>(r, 2 * G, 2 * C, xb, lda, bg,
+                       [&](int m, int j, float at, float bt, float as, float bs) {
+                         zb[j * ldg + m] = __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
+                       });
+  csync();
+  mm<TPW>(r, C + S, G, zb, ldg, brs, [&](int m, int j, float acc, float b) {
+    if (m < C) {
+      x[m * TB + j] = (x[m * TB + j] + acc) + b;
+    } else if (SPLIT) {
+      float* o = skip + (m - C) * TB + j;
+      *o = (*o + acc) + b;
+    } else {
+      const float contrib = acc + b;
+      float* o = skip + (m - C) * TB + j;
+      *o = l == 0 ? contrib : *o + contrib;
+    }
+  });
+  cp_async_wait_all();
+  csync();
+}
+
 // The post network of the tile: ab = bf16(relu(skip)), hb = bf16(relu(ab @
 // w1 + b1)), lg [Q][TB] = hb @ w2 + b2; emit(m, j, v) sees each logit.
 template <int TPW, typename Emit>
@@ -485,6 +590,143 @@ inline int ring_slots(size_t fixed) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return (int)std::min<long>(MAX_SLOTS, std::max<long>(0, bytes - (long)fixed) / SLOT);
+}
+
+// ---- B1 and B7: one sample step through the L layers ----------------------
+//
+// The stack kernels run `layer` and stop at the skip sum (the post network
+// stays outside, as in JAX): one block per tile of TB lanes,
+// any batch (the last block masks lanes past B), the weight stream of one
+// step without its finale (ar_tc.py `layer_stream`), the ring updated in
+// place. B1 (ar_step.cu) is turbo's loop, lane-major and SPLIT; B7
+// (ar_tp.cu) is mega's, feature-major and merged, on a rank's skip slice.
+
+struct StackArgs {
+  const float* h0;    // (B, C) lane-major, (C, B) feature-major
+  float* bufs;        // (sum_d, B, C) or (sum_d, C, B) ring, in place
+  const int* dils;    // (L,)
+  const void* wpk;    // packed bf16: per layer [w_cur ; w_prev], [w_res | w_skip]
+  const int* prods;   // (2L, 2) (M, K) of each packed product
+  const float* bg;    // (L, 2G)
+  const float* brs;   // (L, C+S) [b_res | b_skip]
+  float* skip;        // (B, S) or (S, B) out
+  int B, L, C, G, S, t, grid;
+};
+
+struct StackSmem {  // the block's shared memory
+  float *x, *skip, *tap[2];
+  int* dl;
+  bf16 *xb, *zb;
+  Ring ring;
+};
+
+__host__ __device__ inline StackSmem stack_carve(int L, int C, int G, int S, char* base,
+                                                 int n_slots, size_t* bytes) {
+  Carve cv{base, 0};
+  StackSmem s;
+  s.ring.full = cv.take<uint64_t>(MAX_SLOTS);
+  s.ring.empty = cv.take<uint64_t>(MAX_SLOTS);
+  s.ring.slots = cv.take<char>((size_t)n_slots * SLOT);
+  s.ring.n = n_slots;
+  s.ring.i = 0;
+  s.x = cv.take<float>(C * TB);
+  s.skip = cv.take<float>(S * TB);
+  s.tap[0] = cv.take<float>(C * TB);
+  s.tap[1] = cv.take<float>(C * TB);
+  s.dl = cv.take<int>(L);
+  s.xb = cv.take<bf16>(TB * (2 * C + 8));
+  s.zb = cv.take<bf16>(TB * (G + 8));
+  *bytes = cv.off;
+  return s;
+}
+
+template <int TPW, bool SPLIT, bool FM>
+__global__ void __launch_bounds__(NTH, 1) stack_tc_kernel(StackArgs a, int n_slots) {
+  extern __shared__ __align__(128) char smem[];
+  const int C = a.C, S = a.S, B = a.B;
+  size_t bytes;
+  StackSmem s = stack_carve(a.L, C, a.G, S, smem, n_slots, &bytes);
+  Ring ring = s.ring;  // locals: no lambda captures the struct
+  float *x = s.x, *skip = s.skip, *tap0 = s.tap[0], *tap1 = s.tap[1];
+  int* dl = s.dl;
+  ring_init(ring);
+  __syncthreads();
+  if (threadIdx.x >= NC) {
+    if (threadIdx.x == NC) produce(ring, static_cast<const char*>(a.wpk), a.prods, 2 * a.L, 1);
+    return;
+  }
+  const int b0 = blockIdx.x * TB;
+  const size_t rows = (size_t)B * C;  // floats of one ring row
+  for (int l = threadIdx.x; l < a.L; l += NC) dl[l] = a.dils[l];
+  for (int i = threadIdx.x; i < C * TB; i += NC) {
+    const int c = FM ? i / TB : i % C, j = FM ? i % TB : i / C, b = b0 + j;
+    x[c * TB + j] = b < B ? a.h0[FM ? (size_t)c * B + b : (size_t)b * C + c] : 0.f;
+  }
+  for (int i = threadIdx.x; i < S * TB; i += NC) skip[i] = 0.f;
+  csync();
+  prefetch_taps<FM>(a.bufs + (size_t)(a.t % dl[0]) * rows, tap0, B, b0, C);
+  cp_async_wait_all();
+  csync();
+
+  int off = 0;
+  for (int l = 0; l < a.L; ++l) {
+    const int d = dl[l];
+    const bool odd = l & 1;  // tap buffers by select: no dynamic index
+    layer<TPW, SPLIT, FM>(
+        ring, x, skip, s.xb, s.zb, l, B, b0, C, a.G, S, a.bg + l * 2 * a.G, a.brs + l * (C + S),
+        a.bufs + (size_t)(off + a.t % d) * rows, odd ? tap1 : tap0,
+        l + 1 < a.L ? a.bufs + (size_t)(off + d + a.t % dl[l + 1]) * rows : nullptr,
+        odd ? tap0 : tap1);
+    off += d;
+  }
+  for (int i = threadIdx.x; i < S * TB; i += NC) {
+    const int m = FM ? i / TB : i % S, j = FM ? i % TB : i / S, b = b0 + j;
+    if (b < B) a.skip[FM ? (size_t)m * B + b : (size_t)b * S + m] = skip[m * TB + j];
+  }
+}
+
+// The instantiated TPW that covers a stack step's products (the gate
+// pairs and [w_res | w_skip]), or 0.
+inline int stack_tpw(int C, int G, int S) {
+  const int need = std::max(tiles_per_warp(2 * G, true), tiles_per_warp(C + S, false));
+  return need <= 3 ? 3 : need <= MAX_MT ? MAX_MT : 0;
+}
+
+// Dynamic shared memory of a stack launch at these widths on this device:
+// activations plus as many weight slots as fit (ar_tc.py `stack_smem`
+// reckons the same bytes; the wrapper checks it before every launch).
+inline size_t stack_smem(int L, int C, int G, int S, int* n_slots) {
+  size_t fixed;
+  stack_carve(L, C, G, S, nullptr, 0, &fixed);
+  *n_slots = ring_slots(fixed);
+  return fixed + (size_t)*n_slots * SLOT;
+}
+
+template <int TPW, bool SPLIT, bool FM>
+inline cudaError_t stack_launch_nt(const StackArgs& a, int n_slots, size_t smem,
+                                   cudaStream_t stream, int* launches) {
+  cudaError_t err = cudaFuncSetAttribute(stack_tc_kernel<TPW, SPLIT, FM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  stack_tc_kernel<TPW, SPLIT, FM><<<a.grid, NTH, smem, stream>>>(a, n_slots);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
+}
+
+template <bool SPLIT, bool FM>
+inline cudaError_t stack_launch(const StackArgs& a, cudaStream_t stream, int* launches) {
+  if (a.B < 1 || a.L < 1 || a.grid * TB < a.B || (a.grid - 1) * TB >= a.B || !a.wpk ||
+      !a.prods || a.C % 16 || a.G % 16 || a.S % 16)
+    return cudaErrorInvalidValue;
+  int n_slots;
+  const size_t smem = stack_smem(a.L, a.C, a.G, a.S, &n_slots);
+  if (n_slots < 2) return cudaErrorInvalidValue;
+  switch (stack_tpw(a.C, a.G, a.S)) {
+    case 3: return stack_launch_nt<3, SPLIT, FM>(a, n_slots, smem, stream, launches);
+    case MAX_MT: return stack_launch_nt<MAX_MT, SPLIT, FM>(a, n_slots, smem, stream, launches);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tc

@@ -15,22 +15,39 @@
 //   * z = tanh(pre[:G]) * sigmoid(pre[G:]);
 //   * ONE merged output product rs = z @ [w_res | w_skip_local], then
 //     h = (h + rs[:C]) + b_res and skip += rs[C:] + b_skip.
-// Operands are rounded to the compute dtype, products and sums in fp32, k in
-// order (common.cuh's block_mm); h, the skip slice and the pre-activations
-// stay in shared memory. The caller completes the post network's hidden
-// layer with one all-reduce over the model axis per step.
+// Operands are rounded to the compute dtype, products and sums in fp32; h,
+// the skip slice and the pre-activations stay in shared memory. The caller
+// completes the post network's hidden layer with one all-reduce over the
+// model axis per step.
 //
 // Layout: FEATURE-major as the JAX kernel (lanes last): h0 (C, B), the ring
-// (sum_d, C, B), the local skip sum out (S_l, B); weights k-major, wcat
-// (L, 2C, 2G) and wrs (L, G, C + S_l).
+// (sum_d, C, B), the local skip sum out (S_l, B); the CUDA-core route's
+// weights k-major, wcat (L, 2C, 2G) and wrs (L, G, C + S_l).
 //
 // Bound on an H100 at the stress config (configs/stress_gen.json: L = 30,
-// C = G = 64, S = 512, bf16, B = 256): 2 L B (2G 2C + (C + S_l) G) =
-// 0.82 GFLOP at S_l = 512 (0.57 at 256) against ~3.2 MB of bf16 weights and
-// 2 L C B fp32 ring values (3.9 MB): bytes bound, ~2 us. This first version
-// is latency-bound instead (CUDA-core fp32 FMAs on weights read from L2 in a
-// dependent k-loop, B / TB = 32 blocks); tensor cores come later.
-#include "common.cuh"
+// C = G = 64, S = 512, bf16, B = 256; chip_smoke.py `tp_cost`): 2 L B (2G 2C
+// + (C + S_l) G) = 0.82 GFLOP at S_l = 512 (0.57 at 256) against ~3.2 MB of
+// bf16 weights and 2 L C B fp32 ring values (3.9 MB): bytes bound, ~2 us.
+//
+// Two routes, chosen on the host from dtype and the widths (C, G, S_l)
+// before the launch (ar_tc.py `stack_route`; not a fallback):
+//   * bf16 with C, G, S_l multiples of 16, C+S_l <= 768, G <= 384 and a ring
+//     of at least two weight slots in shared memory: tc::stack_tc_kernel
+//     (ar_tc.cuh), mega's layer loop without its finale, feature-major and
+//     in mega's merged order. 8 consumer warps and a producer warp per
+//     8-lane block; the step's weights (wcat^T and wrs^T per layer, packed
+//     once per weight set from the feature-major views in mma fragment
+//     order) stream through a ring of 32 KB shared-memory slots by
+//     cp.async.bulk; products on tensor cores (mma.sync m16n8k16 bf16 ->
+//     fp32, one mma from zero per 16-deep k-step added in k order, which the
+//     plain version reproduces bit for bit on the card); taps prefetched by
+//     cp.async during the layer before, masked past B, by 4-byte copies
+//     where a lane chunk is not 16-byte aligned (B % 4 != 0): any batch,
+//     down to the mesh pool's B = 4.
+//   * fp32, and bf16 at other widths (an S_l split 3 ways): tp_kernel below,
+//     CUDA-core fp32 FMAs on weights read from L2 in a dependent k-loop
+//     (common.cuh block_mm), the first version; latency-bound.
+#include "ar_tc.cuh"
 
 namespace wn {
 
@@ -129,4 +146,17 @@ extern "C" int wn_tp_fused_stack(const wn::TpArgs* a, void* stream, int* launche
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(a->bf16 ? wn::launch<__nv_bfloat16>(*a, s, launches)
                        : wn::launch<float>(*a, s, launches));
+}
+
+// The tensor-core route (bf16): one launch of tc::stack_tc_kernel,
+// feature-major and in mega's merged order. Returns a CUDA error code.
+extern "C" int wn_tp_fused_stack_tc(const wn::tc::StackArgs* a, void* stream, int* launches) {
+  return (int)wn::tc::stack_launch<false, true>(*a, static_cast<cudaStream_t>(stream), launches);
+}
+
+// Bytes of dynamic shared memory of the tensor-core route at these widths
+// on this device (ar_tc.py `stack_smem` must agree).
+extern "C" long long wn_tp_fused_stack_tc_smem(int L, int C, int G, int S) {
+  int n_slots;
+  return (long long)wn::tc::stack_smem(L, C, G, S, &n_slots);
 }

@@ -8,7 +8,12 @@ and the skip sum in VMEM scratch and scalar-prefetched ring slots; the CUDA
 kernel gives each block a tile of lanes that loops over the layers itself,
 keeps h, the skip sum and the pre-activations in shared memory, and computes
 its own slot offset_l + t mod d_l (design and bound: the note at the top of
-`csrc/ar_step.cu`).
+`csrc/ar_step.cu`). Two routes, picked before the launch from the compute
+dtype and the widths (`ar_tc.stack_route`, with S from the w_skip given, a
+rank's slice under a model axis): bf16 at widths the tensor-core tiles
+take runs `tc::stack_tc_kernel` (turbo's layer loop on tensor cores, the
+weights packed once per weight set); fp32 and other widths the first
+version's CUDA-core kernel.
 
 The ring (sum_d, B, C) is updated IN PLACE (the JAX kernel aliased it onto
 its output): each layer's tap row is read, then overwritten with h.
@@ -23,8 +28,8 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import _mm, compute_dtype, input_step, post_network
-from . import build
+from ...models.wavenet import _mm, compute_dtype, input_step, post_network, rnd
+from . import ar_tc, build
 
 
 def buffer_offsets(arch: ArchConfig) -> tuple:
@@ -40,12 +45,19 @@ def buffer_offsets(arch: ArchConfig) -> tuple:
 
 def fused_stack_plain(lp: dict, arch: ArchConfig, h0, bufs, t: int, mm=None):
     """PyTorch version of the kernel, on any device: (bufs, skip (B, S)).
-    `mm(x, w)` takes each product (default: bf16 operands, one fp32 sum;
-    turbo's plain version passes its tensor-core order)."""
+    `mm(x, w)` takes each product. By default, on a CUDA tensor on the
+    tensor-core route, each product is summed as the kernel sums it
+    (ar_tc.tc_mm), so the two agree bit for bit; otherwise (the CPU, fp32,
+    other widths) with bf16 operands and one fp32 sum. turbo's plain
+    version passes its own."""
     dt = compute_dtype(arch)
     if mm is None:
+        n_layers, c, two_g = lp["w_cur"].shape
+        tc = ar_tc.stack_default_order(c, two_g // 2, lp["w_skip"].shape[-1], n_layers, dt,
+                                       h0.device)
+
         def mm(x, w):
-            return _mm(x, w, dt)
+            return ar_tc.tc_mm(rnd(x, dt), rnd(w, dt)) if tc else _mm(x, w, dt)
     g = lp["w_cur"].shape[-1] // 2
     h = h0
     skip = torch.zeros(h0.shape[0], lp["w_skip"].shape[-1], device=h0.device)
@@ -103,6 +115,18 @@ def fused_stack(
     _check("h0", h0, (b, c), torch.float32, dev)
     _check("bufs", bufs, (sum(arch.dilations), b, c), torch.float32, dev)
     names = ("w_cur", "w_prev", "w_res", "w_skip", "b", "b_res", "b_skip")
+    if lp["w_cur"].shape != (L, c, two_g):
+        raise ValueError(f"w_cur {tuple(lp['w_cur'].shape)} does not match the arch and h0")
+    skip = torch.empty((b, s), dtype=torch.float32, device=dev)
+    dils = build.int32_table(tuple(arch.dilations), str(dev))
+    if ar_tc.stack_route(c, two_g // 2, s, L, dt) == "tensor_cores":
+        ops = build.prepared(
+            f"fused_stack tc {dev}", tuple(lp[k] for k in names),
+            lambda: ar_tc.pack_layers(ar_tc.layer_stream(lp), lp["b"],
+                                      torch.cat([lp["b_res"], lp["b_skip"]], 1), dev))
+        fused_stack.launches += ar_tc.launch_stack("fused_stack", ops, h0, bufs, dils, skip,
+                                                   (b, L, c, two_g // 2, s), t, dev)
+        return bufs, skip
 
     def cast():  # weights in the compute dtype, biases in fp32
         return {k: lp[k].to(dev, dt if k.startswith("w") else torch.float32)
@@ -112,8 +136,6 @@ def fused_stack(
                          tuple(lp[k] for k in names), cast)
     _check("w_cur", ops["w_cur"], (L, c, two_g), dt, dev)
     _check("w_res", ops["w_res"], (L, two_g // 2, c), dt, dev)
-    skip = torch.empty((b, s), dtype=torch.float32, device=dev)
-    dils = build.int32_table(tuple(arch.dilations), str(dev))
     args = _StackArgs(
         h0.data_ptr(), bufs.data_ptr(), dils.data_ptr(),
         *(ops[k].data_ptr() for k in (

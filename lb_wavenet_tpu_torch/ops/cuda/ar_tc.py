@@ -1,6 +1,9 @@
 """Host side of the tensor-core sampling kernels (`csrc/ar_tc.cuh`, the
-bf16 instantiations of `ar_mega.cu` and `ar_turbo.cu`): the weight packing,
-its plain reading, the launch shape and the per-step weight streams.
+bf16 instantiations of `ar_mega.cu` and `ar_turbo.cu`) and of the
+tensor-core route of the one-step stack kernels B1 (`ar_step.cu`) and B7
+(`ar_tp.cu`): the weight packing, its plain reading, the launch shape, the
+per-step weight streams, the stack kernels' route, shared memory and
+launch.
 
 A weight W (K, M) (input k, output m, as the JAX package stores it) is
 packed as the A operand of `mma.sync.m16n8k16` (A = W^T, M x K, row-major):
@@ -23,12 +26,18 @@ a few hundredths within a few steps (PERF.md, Findings).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import build
 
 TB = 8                  # lanes per block (wn::TB): one n8 fragment
 MAX_M = 768             # widest product: 6 tiles of 16 outputs per consumer warp
 MAX_GATES = 384         # widest gate: 3 (tanh, sigmoid) tile pairs per consumer warp
 TC_BITS = 25            # aligned bits of the tensor core's 16-term sum
+SLOT, MAX_SLOTS = 32768, 6   # bytes of a weight-ring slot, slots at most (tc::SLOT)
+SMEM_MAX = 232448       # dynamic shared memory a block may use on an H100
 
 
 def pack_mma(w: torch.Tensor) -> torch.Tensor:
@@ -133,15 +142,33 @@ def _finale(params: dict, arch) -> list:
             *(w_in[j] for j in range(k - 1))]
 
 
-def step_stream(params: dict, lp: dict, arch) -> list:
-    """The (K, M) matrices of one sample step in the order the kernels use
-    them (mega and turbo alike): per layer [w_cur ; w_prev] (2C, 2G) and
-    [w_res | w_skip] (G, C+S), then the finale."""
+def layer_stream(lp: dict) -> list:
+    """The (K, M) matrices of the L layers in the order the kernels use
+    them: per layer [w_cur ; w_prev] (2C, 2G) and [w_res | w_skip] (G, C+S),
+    S the width of the w_skip given (a rank's slice, for B1 under a model
+    axis). The stream of the stack kernels B1 and B7."""
     mats = []
-    for l in range(len(arch.dilations)):
+    for l in range(lp["w_cur"].shape[0]):
         mats.append(torch.cat([lp["w_cur"][l], lp["w_prev"][l]], 0))
         mats.append(torch.cat([lp["w_res"][l], lp["w_skip"][l]], 1))
-    return mats + _finale(params, arch)
+    return mats
+
+
+def fm_layer_stream(fm: dict) -> list:
+    """layer_stream from B7's feature-major views (`generate._tp_weights`):
+    per layer wcat^T (2C, 2G) and wrs^T (G, C+S_l), the same matrices as
+    layer_stream of the layer params cut to the same skip slice."""
+    mats = []
+    for l in range(fm["wcat"].shape[0]):
+        mats.append(fm["wcat"][l].t())
+        mats.append(fm["wrs"][l].t())
+    return mats
+
+
+def step_stream(params: dict, lp: dict, arch) -> list:
+    """The (K, M) matrices of one sample step in the order the kernels use
+    them (mega and turbo alike): the layer stream, then the finale."""
+    return layer_stream(lp) + _finale(params, arch)
 
 
 def pack_stream(mats: list, device) -> dict:
@@ -194,3 +221,91 @@ def tc_product(w_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def tc_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batch-major x (N, K) @ w (K, M) as tc_product sums it: (N, M)."""
     return tc_product(w.t(), x.t()).t()
+
+
+# ---------------------------------------------------------------------------
+# The stack kernels B1 and B7 (`tc::stack_tc_kernel`).
+
+def stack_smem(c: int, g: int, s: int, n_layers: int) -> tuple:
+    """(bytes, weight slots) of the stack kernels' dynamic shared memory, as
+    tc::stack_carve carves it on an H100: the ring's barriers and slots, h,
+    the skip sum, two tap buffers, the dilations, the bf16 [h | tap] and
+    gate tiles, each start aligned to 16 bytes; as many slots as fit, at
+    most MAX_SLOTS. The library's `wn_*_tc_smem` must agree (checked before
+    every launch)."""
+    def carve(slots):
+        off = 0
+        for n in (8 * MAX_SLOTS, 8 * MAX_SLOTS, slots * SLOT, 4 * c * TB, 4 * s * TB,
+                  4 * c * TB, 4 * c * TB, 4 * n_layers, 2 * TB * (2 * c + 8),
+                  2 * TB * (g + 8)):
+            off = -(-off // 16) * 16 + n
+        return off
+
+    slots = min(MAX_SLOTS, max(0, SMEM_MAX - carve(0)) // SLOT)
+    return carve(slots), slots
+
+
+def stack_route(c: int, g: int, s: int, n_layers: int, dt) -> str:
+    """Which kernel runs a stack step (B1 or B7) of widths (C, G, S) with S
+    the skip slice it is given, decided before the launch from the compute
+    dtype and the widths: "tensor_cores" (tc::stack_tc_kernel) for bf16
+    with C, G and S multiples of 16 (mma.sync tiles), C+S <= MAX_M, G <=
+    MAX_GATES (the instantiated tiles per warp) and two weight slots beside
+    the tile in shared memory; else "cuda_cores" (the first version's
+    in-order fp32 FMAs, any width)."""
+    tiles = all(v >= 16 and v % 16 == 0 for v in (c, g, s))
+    if (dt == torch.bfloat16 and tiles and c + s <= MAX_M and g <= MAX_GATES
+            and stack_smem(c, g, s, n_layers)[1] >= 2):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def stack_default_order(c: int, g: int, s: int, n_layers: int, dt, device) -> bool:
+    """Whether the stack kernels' plain versions sum as the tensor-core
+    route does: on a CUDA tensor (where they are the kernels' reference) on
+    that route; on the CPU one fp32 sum per product."""
+    return (torch.device(device).type == "cuda"
+            and stack_route(c, g, s, n_layers, dt) == "tensor_cores")
+
+
+def pack_layers(mats: list, bg: torch.Tensor, brs: torch.Tensor, device) -> dict:
+    """The stack kernels' operands, once per weight set: the packed stream
+    of `mats` (layer_stream or fm_layer_stream), the gate biases bg (L, 2G)
+    and [b_res | b_skip] brs (L, C+S) in fp32."""
+    out = pack_stream(mats, device)
+    out["bg"] = bg.to(device, torch.float32).contiguous()
+    out["brs"] = brs.to(device, torch.float32).contiguous()
+    return out
+
+
+class StackArgs(ctypes.Structure):
+    """tc::StackArgs."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "h0", "bufs", "dils", "wpk", "prods", "bg", "brs", "skip",
+    )] + [(n, ctypes.c_int) for n in ("B", "L", "C", "G", "S", "t", "grid")]
+
+
+def lib_stack_smem(lib, name: str, c: int, g: int, s: int, n_layers: int) -> int:
+    """The built library's own count of stack_smem's bytes (`name`:
+    "fused_stack" or "tp_fused_stack")."""
+    f = getattr(lib, f"wn_{name}_tc_smem")
+    f.argtypes, f.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    return int(f(n_layers, c, g, s))
+
+
+def launch_stack(name: str, ops: dict, h0, bufs, dils, skip, dims: tuple, t: int,
+                 device) -> int:
+    """One launch of the tensor-core stack kernel of csrc/ar_step.cu (name
+    "fused_stack") or csrc/ar_tp.cu ("tp_fused_stack") on the current
+    stream, after checking that the library carves shared memory as
+    stack_smem reckons it. dims (B, L, C, G, S). Returns the launches."""
+    b, n_layers, c, g, s = dims
+    lib = build.load("ar_step" if name == "fused_stack" else "ar_tp")
+    got, want = lib_stack_smem(lib, name, c, g, s, n_layers), stack_smem(c, g, s, n_layers)[0]
+    if got != want:
+        raise RuntimeError(f"the {name} library carves {got} bytes of shared memory at "
+                           f"L={n_layers}, C={c}, G={g}, S={s}; ar_tc.stack_smem reckons {want}")
+    args = StackArgs(build.ptr(h0), build.ptr(bufs), build.ptr(dils), build.ptr(ops["wpk"]),
+                     build.ptr(ops["prods"]), build.ptr(ops["bg"]), build.ptr(ops["brs"]),
+                     build.ptr(skip), b, n_layers, c, g, s, int(t), launch_shape(b)[0])
+    return build.launch(lib, f"wn_{name}_tc", args, device)

@@ -13,6 +13,13 @@ z @ [w_res | w_skip_local] product, mega's bias order, operands in the
 compute dtype and fp32 sums. So greedy output of the model-sharded path
 tracks single-device mega.
 
+Two routes, picked before the launch from the compute dtype and (C, G, S_l)
+(`ar_tc.stack_route`): bf16 with every width a multiple of 16 and C+S_l <=
+768 runs `tc::stack_tc_kernel` (mega's layer loop on tensor cores, fed the
+stream `ar_tc.fm_layer_stream` packed once per weight set; any batch);
+fp32 and other widths (an S_l split 3 ways) the first version's CUDA-core
+kernel.
+
 `fm` holds the weights in the JAX kernel's FEATURE-major views
 (`generate._tp_weights`): wcat (L, 2G, 2C), b (L, 2G, 1), wrs (L, C+S_l, G),
 brs (L, C+S_l, 1), where S_l is this rank's skip slice; the wrapper makes
@@ -32,26 +39,42 @@ import torch
 
 from ...config import ArchConfig
 from ...models.wavenet import compute_dtype, rnd
-from . import build
+from . import ar_tc, build
 from .ar_step import buffer_offsets
 
 
-def tp_fused_stack_plain(fm: dict, arch: ArchConfig, h0, bufs, t: int):
+def _widths(fm: dict) -> tuple:
+    """(L, C, G, S_l) of B7's feature-major weights."""
+    n_layers, two_g, two_c = fm["wcat"].shape
+    return n_layers, two_c // 2, two_g // 2, fm["wrs"].shape[1] - two_c // 2
+
+
+def tp_fused_stack_plain(fm: dict, arch: ArchConfig, h0, bufs, t: int,
+                         tensor_cores: Optional[bool] = None):
     """PyTorch version of the kernel on any device, op for op as the JAX
-    kernel: (bufs, skip_local (S_l, B) fp32)."""
+    kernel: (bufs, skip_local (S_l, B) fp32). With tensor_cores (the
+    default on a CUDA tensor on the tensor-core route,
+    ar_tc.stack_default_order) both products are summed as the kernel sums
+    them (ar_tc.tc_product), so the two agree bit for bit; otherwise in one
+    fp32 product."""
     dt = compute_dtype(arch)
-    c = h0.shape[0]
-    s_l = fm["wrs"].shape[1] - c
+    n_layers, c, g, s_l = _widths(fm)
+    if tensor_cores is None:
+        tensor_cores = ar_tc.stack_default_order(c, g, s_l, n_layers, dt, h0.device)
+
+    def mm(w, x):   # (M, K) @ (K, B), both rounded to the compute dtype
+        w, x = rnd(w, dt), rnd(x, dt)
+        return ar_tc.tc_product(w, x) if tensor_cores else w @ x
+
     h = h0.to(torch.float32)
     skip = torch.zeros((s_l, h0.shape[1]), device=h0.device)
     for l, (off, d) in enumerate(zip(buffer_offsets(arch), arch.dilations)):
         slot = off + t % d
         tap = bufs[slot].clone()
         bufs[slot] = h
-        pre = rnd(fm["wcat"][l], dt) @ rnd(torch.cat([h, tap], 0), dt) + fm["b"][l]
-        g = pre.shape[0] // 2
+        pre = mm(fm["wcat"][l], torch.cat([h, tap], 0)) + fm["b"][l]
         z = torch.tanh(pre[:g]) * torch.sigmoid(pre[g:])
-        rs = rnd(fm["wrs"][l], dt) @ rnd(z, dt)
+        rs = mm(fm["wrs"][l], z)
         brs = fm["brs"][l]
         h = h + rs[:c] + brs[:c]
         skip = skip + (rs[c:] + brs[c:])
@@ -88,11 +111,23 @@ def tp_fused_stack(
     dt = compute_dtype(arch)
     c, b = h0.shape
     L = len(arch.dilations)
-    two_g = fm["wcat"].shape[1]
-    s_l = fm["wrs"].shape[1] - c
+    _, _, g, s_l = _widths(fm)
+    two_g = 2 * g
     _check("h0", h0, (c, b), torch.float32, dev)
     _check("bufs", bufs, (sum(arch.dilations), c, b), torch.float32, dev)
+    if fm["wcat"].shape != (L, two_g, 2 * c):
+        raise ValueError(f"wcat {tuple(fm['wcat'].shape)} does not match the arch and h0")
     names = ("wcat", "b", "wrs", "brs")
+    skip = torch.empty((s_l, b), dtype=torch.float32, device=dev)
+    dils = build.int32_table(tuple(arch.dilations), str(dev))
+    if ar_tc.stack_route(c, g, s_l, L, dt) == "tensor_cores":
+        ops = build.prepared(
+            f"tp_fused_stack tc {dev}", tuple(fm[k] for k in names),
+            lambda: ar_tc.pack_layers(ar_tc.fm_layer_stream(fm), fm["b"][..., 0],
+                                      fm["brs"][..., 0], dev))
+        tp_fused_stack.launches += ar_tc.launch_stack("tp_fused_stack", ops, h0, bufs, dils,
+                                                      skip, (b, L, c, g, s_l), t, dev)
+        return bufs, skip
 
     def kmajor():  # k-major weights in the compute dtype, biases fp32 (L, M)
         return {
@@ -104,13 +139,11 @@ def tp_fused_stack(
 
     ops = build.prepared(f"tp_fused_stack {dev} {dt}", tuple(fm[k] for k in names), kmajor)
     _check("wcat", ops["wcat"], (L, 2 * c, two_g), dt, dev)
-    _check("wrs", ops["wrs"], (L, two_g // 2, c + s_l), dt, dev)
-    skip = torch.empty((s_l, b), dtype=torch.float32, device=dev)
+    _check("wrs", ops["wrs"], (L, g, c + s_l), dt, dev)
     args = _TpArgs(
-        h0.data_ptr(), bufs.data_ptr(),
-        build.int32_table(tuple(arch.dilations), str(dev)).data_ptr(),
+        h0.data_ptr(), bufs.data_ptr(), dils.data_ptr(),
         *(ops[k].data_ptr() for k in names), skip.data_ptr(),
-        b, L, c, two_g // 2, s_l, int(t), int(dt == torch.bfloat16),
+        b, L, c, g, s_l, int(t), int(dt == torch.bfloat16),
     )
     tp_fused_stack.launches += build.launch(build.load("ar_tp"), "wn_tp_fused_stack",
                                             args, dev)

@@ -32,7 +32,9 @@ def cuda():
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 5e-2)])
 def test_fused_stack_kernel_matches_plain(cuda, dtype, atol):
     """fp32: the same products summed in another order; bf16: a rounding
-    flip of one activation moves the result by ~1e-2."""
+    flip of one activation moves the result by ~1e-2 (SMALL's bf16 widths
+    take the tensor-core route, whose plain version matches it exactly:
+    test_fused_stack_tensor_core_route_is_bit_exact)."""
     arch = dataclasses.replace(SMALL, compute_dtype=dtype)
     p = init_params(0, arch, cuda)
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -707,3 +709,176 @@ def test_bf16_sampling_at_cuda_core_widths_matches_plain(cuda, engine):
     assert counter.launches == n + (1 if engine == "mega" else t)
     _, lp = plain(p, p["layers"], arch, state(), 0, forced, 1.0, True, lane, 3)
     torch.testing.assert_close(lk, lp, rtol=0, atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# The one-step stack kernels B1 (fused_stack) and B7 (tp_fused_stack): the
+# tensor-core route against its plain version, which on the card sums as
+# the tensor cores do, bit for bit; the CUDA-core route at its tolerances.
+
+def _config_arch(name):
+    import os
+
+    from lb_wavenet_tpu_torch.config import Config
+
+    if name == "small":
+        return dataclasses.replace(SMALL, compute_dtype="bfloat16")
+    path = {"wavenet30": "wavenet30.json", "stress": "stress_gen.json"}[name]
+    return Config.load(os.path.join(os.path.dirname(__file__), "..", "configs", path)).arch
+
+
+def _skip_cut(lp, arch, half):
+    """Layer params on model rank `half` of two (None: the whole skip)."""
+    if half is None:
+        return lp
+    s = arch.skip_channels // 2
+    sl = slice(half * s, (half + 1) * s)
+    return {**lp, "w_skip": lp["w_skip"][..., sl], "b_skip": lp["b_skip"][..., sl]}
+
+
+@pytest.mark.parametrize("width,b", [(w, b) for w in ("small", "wavenet30")
+                                     for b in (512, 100, 6)])
+def test_fused_stack_tensor_core_route_is_bit_exact(cuda, width, b):
+    """bf16 B1 on the tensor-core route: ring and skip equal the plain
+    version's at atol 0, at whole, ragged and sub-tile batches, on the
+    whole skip width and on a model rank's half."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc
+
+    arch = _config_arch(width)
+    p = init_params(15, arch, cuda)
+    c, g = arch.residual_channels, arch.gate_channels
+    gen = torch.Generator(device=cuda).manual_seed(15 + b)
+    ring = torch.randn((sum(arch.dilations), b, c), device=cuda, generator=gen)
+    h0 = torch.randn((b, c), device=cuda, generator=gen)
+    for half in (None, 0):
+        lp = _skip_cut(p["layers"], arch, half)
+        s = lp["w_skip"].shape[-1]
+        assert ar_tc.stack_route(c, g, s, len(arch.dilations), torch.bfloat16) == "tensor_cores"
+        r_k, r_p = ring.clone(), ring.clone()
+        n = ar_step.fused_stack.launches
+        _, s_k = ar_step.fused_stack(lp, arch, h0, r_k, 1000)
+        torch.cuda.synchronize()
+        assert ar_step.fused_stack.launches == n + 1 and s_k.shape == (b, s)
+        _, s_p = ar_step.fused_stack_plain(lp, arch, h0, r_p, 1000)
+        torch.testing.assert_close(r_k, r_p, rtol=0, atol=0)
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("width,b", [(w, b) for w in ("small", "wavenet30", "stress")
+                                     for b in (256, 100, 4)])
+def test_tp_fused_stack_tensor_core_route_is_bit_exact(cuda, width, b):
+    """bf16 B7 on the tensor-core route: ring and local skip equal the plain
+    version's at atol 0 on the whole skip width and on each half (model
+    axis 2), and the halves concatenate to the whole exactly; B = 100 and
+    B = 4 take the masked and 4-byte tap copies."""
+    from lb_wavenet_tpu_torch.generate import _tp_weights
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc, ar_tp
+
+    arch = _config_arch(width)
+    p = init_params(16, arch, cuda)
+    c = arch.residual_channels
+    h0, ring = _tp_inputs(arch, b, 16 + b, cuda)
+    skips = {}
+    for half in (None, 0, 1):
+        fm = _tp_weights(p, _skip_cut(p["layers"], arch, half), torch.bfloat16)
+        s_l = fm["wrs"].shape[1] - c
+        assert ar_tc.stack_route(c, arch.gate_channels, s_l, len(arch.dilations),
+                                 torch.bfloat16) == "tensor_cores"
+        r_k, r_p = ring.clone(), ring.clone()
+        n = ar_tp.tp_fused_stack.launches
+        _, skips[half] = ar_tp.tp_fused_stack(fm, arch, h0, r_k, 1000)
+        torch.cuda.synchronize()
+        assert ar_tp.tp_fused_stack.launches == n + 1
+        _, s_p = ar_tp.tp_fused_stack_plain(fm, arch, h0, r_p, 1000)
+        torch.testing.assert_close(r_k, r_p, rtol=0, atol=0)
+        torch.testing.assert_close(skips[half], s_p, rtol=0, atol=0)
+    assert torch.equal(torch.cat([skips[0], skips[1]]), skips[None])
+
+
+@pytest.mark.parametrize("kernel", ["fused_stack", "tp_fused_stack"])
+def test_stack_lane_result_does_not_depend_on_the_batch(cuda, kernel):
+    """The same lane state at lane 301 of B=512 (B1, WaveNet-30) or 201 of
+    B=256 (B7, the stress config) and at lane 2 of B=4 gives bit-identical
+    ring rows and skip sums on the tensor-core route."""
+    from lb_wavenet_tpu_torch.generate import _tp_weights
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+
+    arch = _config_arch("wavenet30" if kernel == "fused_stack" else "stress")
+    p = init_params(17, arch, cuda)
+    c, sd = arch.residual_channels, sum(arch.dilations)
+    big, at, small, to = (512, 301, 4, 2) if kernel == "fused_stack" else (256, 201, 4, 2)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    if kernel == "fused_stack":
+        ring_b = torch.randn((sd, big, c), device=cuda, generator=gen)
+        h_b = torch.randn((big, c), device=cuda, generator=gen)
+        ring_s = torch.randn((sd, small, c), device=cuda, generator=gen)
+        h_s = torch.randn((small, c), device=cuda, generator=gen)
+        ring_s[:, to], h_s[to] = ring_b[:, at], h_b[at]
+        _, sk_b = ar_step.fused_stack(p["layers"], arch, h_b, ring_b, 4321)
+        _, sk_s = ar_step.fused_stack(p["layers"], arch, h_s, ring_s, 4321)
+        torch.cuda.synchronize()
+        assert torch.equal(sk_b[at], sk_s[to]) and torch.equal(ring_b[:, at], ring_s[:, to])
+    else:
+        fm = _tp_weights(p, p["layers"], torch.bfloat16)
+        h_b, ring_b = _tp_inputs(arch, big, 18, cuda)
+        h_s, ring_s = _tp_inputs(arch, small, 19, cuda)
+        ring_s[..., to], h_s[:, to] = ring_b[..., at], h_b[:, at]
+        _, sk_b = ar_tp.tp_fused_stack(fm, arch, h_b, ring_b, 4321)
+        _, sk_s = ar_tp.tp_fused_stack(fm, arch, h_s, ring_s, 4321)
+        torch.cuda.synchronize()
+        assert torch.equal(sk_b[:, at], sk_s[:, to])
+        assert torch.equal(ring_b[..., at], ring_s[..., to])
+
+
+@pytest.mark.parametrize("name,c,g,s,n_layers", [
+    ("fused_stack", 16, 16, 32, 8), ("fused_stack", 64, 64, 256, 30),
+    ("fused_stack", 64, 64, 128, 30), ("tp_fused_stack", 64, 64, 512, 30),
+    ("tp_fused_stack", 64, 64, 256, 30), ("tp_fused_stack", 64, 64, 704, 30)])
+def test_stack_libraries_carve_stack_smem(cuda, name, c, g, s, n_layers):
+    """The built libraries' shared-memory counts of the tensor-core stack
+    kernel equal ar_tc.stack_smem, on which the route is decided."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc, build
+
+    lib = build.load("ar_step" if name == "fused_stack" else "ar_tp")
+    assert ar_tc.lib_stack_smem(lib, name, c, g, s, n_layers) == \
+        ar_tc.stack_smem(c, g, s, n_layers)[0]
+
+
+@pytest.mark.parametrize("kernel", ["fused_stack", "tp_fused_stack"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stack_cuda_core_route_meets_its_tolerance(cuda, kernel, dtype):
+    """fp32 WaveNet-30 widths, and bf16 at C = G = 24 (not multiples of 16):
+    the CUDA-core route, against the plain version in its one-fp32-sum
+    order, B1 within LOGIT_ATOL (5e-2) and B7's skip within TP_RTOL (1e-2)
+    of its largest value."""
+    from lb_wavenet_tpu_torch.generate import _tp_weights
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc, ar_tp
+
+    arch = _config_arch("wavenet30")
+    arch = dataclasses.replace(arch, compute_dtype=dtype) if dtype == "float32" else \
+        dataclasses.replace(arch, residual_channels=24, gate_channels=24)
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    c, g, s, L = arch.residual_channels, arch.gate_channels, arch.skip_channels, 30
+    assert ar_tc.stack_route(c, g, s, L, dt) == "cuda_cores"
+    assert not ar_tc.stack_default_order(c, g, s, L, dt, cuda)
+    p = init_params(20, arch, cuda)
+    b = 100
+    if kernel == "fused_stack":
+        gen = torch.Generator(device=cuda).manual_seed(20)
+        ring = torch.randn((sum(arch.dilations), b, c), device=cuda, generator=gen)
+        h0 = torch.randn((b, c), device=cuda, generator=gen)
+        r_k, r_p = ring.clone(), ring.clone()
+        _, s_k = ar_step.fused_stack(p["layers"], arch, h0, r_k, 700)
+        torch.cuda.synchronize()
+        _, s_p = ar_step.fused_stack_plain(p["layers"], arch, h0, r_p, 700)
+        torch.testing.assert_close(r_k, r_p, rtol=0, atol=5e-2)
+        torch.testing.assert_close(s_k, s_p, rtol=0, atol=5e-2)
+    else:
+        fm = _tp_weights(p, p["layers"], dt)
+        h0, ring = _tp_inputs(arch, b, 21, cuda)
+        r_k, r_p = ring.clone(), ring.clone()
+        _, s_k = ar_tp.tp_fused_stack(fm, arch, h0, r_k, 700)
+        torch.cuda.synchronize()
+        _, s_p = ar_tp.tp_fused_stack_plain(fm, arch, h0, r_p, 700)
+        torch.testing.assert_close(r_k, r_p, rtol=0, atol=5e-2)
+        assert float((s_k - s_p).abs().max()) <= 1e-2 * float(s_p.abs().max())
