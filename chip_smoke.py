@@ -11,7 +11,7 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a), one
      nvcc per source, all started together; the ptxas report (registers,
      stack, spills) of the tensor-core kernels (bf16 sampling, B1 and B7,
-     train stack, post-loss), and the libraries' shared-memory counts
+     train stack, post-loss, frontend), and the libraries' shared-memory counts
      against the ones the routes are decided on;
   2. each kernel against its plain PyTorch version on the card at B=512
      (the bf16 mega and turbo kernels sum on tensor cores and their plain
@@ -45,7 +45,9 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      not take, through their CUDA-core route (B=64, 128 teacher-forced
      steps, within LOGIT_ATOL);
   6. the training kernels against their plain versions at the training
-     shapes (B=8, W=10240, T=13310): the frontend pair, the train stack
+     shapes (B=8, W=10240, T=13310): the frontend pair on both routes (bf16
+     on tensor cores, h0 bit-identical to its plain version; fp32 on CUDA
+     cores), with its launches per call, the train stack
      (tapcat off and on; on its bf16 tensor-core route the plain versions
      sum as the tensor cores do, and the drift of the one-fp32-sum order
      is reported) and the post-loss (on its bf16 tensor-core route, the
@@ -324,6 +326,7 @@ def phase_environment():
     import torch
 
     from lb_wavenet_tpu_torch.ops.cuda import build
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
     from lb_wavenet_tpu_torch.ops.cuda import post_loss as PL
     from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
@@ -361,9 +364,16 @@ def phase_environment():
     # And B1's and B7's (WaveNet-30's and the stress config's widths, a
     # rank's half of each skip).
     ssmem = stack_smem()
+    # And the frontend backward's (WaveNet-30's widths, K = 3 beyond the
+    # limit, the tests' C = 16).
+    flib = build.load("frontend")
+    fsmem = {f"Q{q}_C{c}_K{k}": (F.tc_smem(q, c, k), F.lib_tc_smem(flib, q, c, k))
+             for q, c, k in ((256, 64, 2), (256, 64, 3), (256, 16, 3))}
     log(json.dumps({"phase": "ptxas_tensor_core_kernels", "report": tc_ptxas(),
                     "train_stack_tc_smem_bytes": smem, "post_loss_tc_smem_bytes": psmem,
-                    "stack_tc_smem_bytes": ssmem}))
+                    "stack_tc_smem_bytes": ssmem, "frontend_tc_smem_bytes": fsmem}))
+    require(all(a == b for a, b in fsmem.values()),
+            f"csrc/frontend.cu and frontend.tc_smem disagree: {fsmem}")
     require(all(a == b for a, b in smem.values()),
             f"csrc/train_stack.cu and train_stack.tc_smem disagree: {smem}")
     require(all(a == b for a, b in psmem.values()),
@@ -389,16 +399,17 @@ def stack_smem() -> dict:
 def tc_ptxas() -> dict:
     """The ptxas report (registers, stack, spills) of the tensor-core
     kernels (bf16 mega and turbo, B1 and B7's `stack_tc_kernel`, the train
-    stack's `tsc` route, the post-loss's `ptc` route), from this process's
-    build log."""
+    stack's `tsc` route, the post-loss's `ptc` route, the frontend's tap
+    table and `ftc` backward), from this process's build log."""
     from lb_wavenet_tpu_torch.ops.cuda import build
 
     out = {}
-    for src in ("ar_mega", "ar_turbo", "ar_step", "ar_tp", "train_stack", "post_loss"):
+    for src in ("ar_mega", "ar_turbo", "ar_step", "ar_tp", "train_stack", "post_loss",
+                "frontend"):
         lines = build.build_log.get(src, "").splitlines()
         for i, ln in enumerate(lines):
             if "Compiling entry function" in ln and any(
-                    m in ln for m in ("tc_kernel", "3tsc", "3ptc")):
+                    m in ln for m in ("tc_kernel", "3tsc", "3ptc", "3ftc", "table_tc")):
                 out[f"{src}: {ln.split(chr(39))[1]}"] = [x.replace("ptxas info    :", "").strip()
                                           for x in lines[i + 1:i + 4]
                                           if "Compiling" not in x and "Compile time" not in x]
@@ -1440,25 +1451,43 @@ def phase_train_kernels(params, arch, gpu):
     dt = compute_dtype(arch)
     report = dict.fromkeys(TRAIN_COUNTERS, 0.0)
     x, dh = frontend_inputs(arch, 10)
-    leaves = {"embed": params["embed"].detach().clone().requires_grad_(True),
-              "w": params["input_conv"]["w"].detach().clone().requires_grad_(True),
-              "b": params["input_conv"]["b"].detach().clone().requires_grad_(True)}
-    h = F.fused_frontend(leaves["embed"], {"w": leaves["w"], "b": leaves["b"]}, x,
-                         compute_dtype=arch.compute_dtype)
-    (h * dh).sum().backward()
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        plain = [leaves[k].detach() for k in ("embed", "w", "b")]
-        hp = F.frontend_fwd_plain(*plain, x, dt)
-        gp = dict(zip(("embed", "w", "b"), F.frontend_bwd_plain(plain[0], plain[1], x, dt, dh)))
-    errs = {"h0": rel_err(h.detach(), hp), **{f"d_{k}": rel_err(leaves[k].grad, gp[k])
-                                              for k in gp}}
-    log(json.dumps({"phase": "frontend_vs_plain", "gpu": gpu, "B": TRAIN_B, "T": x.shape[1],
-                    "rel_err": errs, "rtol": KERNEL_RTOL}))
-    require(max(errs.values()) <= KERNEL_RTOL, f"frontend differs: {errs}")
-    report["frontend_fwd"] = abs_err(h.detach(), hp)
-    report["frontend_bwd"] = max(abs_err(leaves[k].grad, gp[k]) for k in gp)
-    del h, hp, gp, leaves, x, dh
+    counts = F.frontend_fwd.launches, F.frontend_bwd.launches
+    # Both routes at the training shape: the arch's (bf16: the tensor-core
+    # route, h0 bit for bit) and fp32 (the CUDA-core route).
+    for fdt in (dt, torch.float32) if dt != torch.float32 else (dt,):
+        route = front_route(arch, fdt)
+        leaves = {"embed": params["embed"].detach().clone().requires_grad_(True),
+                  "w": params["input_conv"]["w"].detach().clone().requires_grad_(True),
+                  "b": params["input_conv"]["b"].detach().clone().requires_grad_(True)}
+        n = F.frontend_fwd.launches, F.frontend_bwd.launches
+        h = F.fused_frontend(leaves["embed"], {"w": leaves["w"], "b": leaves["b"]}, x,
+                             compute_dtype=str(fdt).split(".")[-1])
+        (h * dh).sum().backward()
+        torch.cuda.synchronize()
+        launched = (F.frontend_fwd.launches - n[0], F.frontend_bwd.launches - n[1])
+        with torch.no_grad():
+            plain = [leaves[k].detach() for k in ("embed", "w", "b")]
+            hp = F.frontend_fwd_plain(*plain, x, fdt)
+            gp = dict(zip(("embed", "w", "b"),
+                          F.frontend_bwd_plain(plain[0], plain[1], x, fdt, dh)))
+        errs = {"h0": rel_err(h.detach(), hp),
+                **{f"d_{k}": rel_err(leaves[k].grad, gp[k]) for k in gp}}
+        tc = route == "tensor_cores"
+        log(json.dumps({"phase": "frontend_vs_plain", "gpu": gpu, "dtype": str(fdt),
+                        "route": route, "B": TRAIN_B, "T": x.shape[1], "rel_err": errs,
+                        "rtol": KERNEL_RTOL, "h0_bit_exact": tc,
+                        "launches_fwd_bwd": launched}))
+        require(max(errs.values()) <= KERNEL_RTOL, f"frontend ({route}) differs: {errs}")
+        require(not tc or torch.equal(h.detach(), hp),
+                f"frontend h0 on the tensor-core route differs from plain: {errs['h0']}")
+        require(launched == (2, 3 if tc else 4),
+                f"frontend ({route}) launched {launched}, not (2, {3 if tc else 4})")
+        if fdt == dt:
+            report["frontend_fwd"] = abs_err(h.detach(), hp)
+            report["frontend_bwd"] = max(abs_err(leaves[k].grad, gp[k]) for k in gp)
+        del h, hp, gp, leaves
+    F.frontend_fwd.launches, F.frontend_bwd.launches = counts
+    del x, dh
 
     h0, g = train_inputs(arch, 11)
     for tapcat in (False, True):
@@ -1647,6 +1676,15 @@ def step_route(arch, s: int) -> str:
                              len(arch.dilations), compute_dtype(arch))
 
 
+def front_route(arch, dt=None) -> str:
+    """The frontend pair's route at the arch's widths and dtype (or dt)."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    return F.route(arch.quant_channels, arch.residual_channels, arch.input_kernel,
+                   compute_dtype(arch) if dt is None else dt)
+
+
 def post_route(arch) -> str:
     """The post-loss's route at the arch's widths and dtype."""
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
@@ -1657,14 +1695,18 @@ def post_route(arch) -> str:
 
 def train_launches_per_call(arch) -> dict:
     """Kernel launches of one call of each training kernel pair's wrapper,
-    on the route the arch takes: the train-stack backward takes 2 L + 3 on
-    the tensor-core route (a g_skip pass, its db_skip sum, two passes per
-    layer, one reduction) and 3 L + 1 on the CUDA-core one; the post-loss
-    takes 2 and 3 on either route (the row pass and the partials' sum; the
-    row pass, the weight-gradient pass and the reduction)."""
+    on the route the arch takes: the frontend forward takes 2 (the tap
+    table, the gather) and its backward 3 on the tensor-core route (the
+    pass, the slots' sum, d_w) and 4 on the CUDA-core one; the train-stack
+    backward takes 2 L + 3 on the tensor-core route (a g_skip pass, its
+    db_skip sum, two passes per layer, one reduction) and 3 L + 1 on the
+    CUDA-core one; the post-loss takes 2 and 3 on either route (the row
+    pass and the partials' sum; the row pass, the weight-gradient pass and
+    the reduction)."""
     L = len(arch.dilations)
     bwd = 2 * L + 3 if stack_route(arch) == "tensor_cores" else 3 * L + 1
-    return {"frontend_fwd": 1, "frontend_bwd": 4, "train_stack_fwd": L + 1,
+    fbwd = 3 if front_route(arch) == "tensor_cores" else 4
+    return {"frontend_fwd": 2, "frontend_bwd": fbwd, "train_stack_fwd": L + 1,
             "train_stack_bwd": bwd, "post_loss_fwd": 2, "post_loss_bwd": 3}
 
 
@@ -1786,7 +1828,8 @@ def phase_training(arch, gpu):
             "losses": losses, "step_ms": step_ms, "median_step_ms_after_first": ms,
             "samples_per_s": TRAIN_B * TRAIN_W / (ms / 1000.0), "wall_s": wall,
             "launches": launches, "launches_per_step": per_step,
-            "routes": {"train_stack": stack_route(arch), "post_loss": post_route(arch)},
+            "routes": {"frontend": front_route(arch), "train_stack": stack_route(arch),
+                       "post_loss": post_route(arch)},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         }))
         require(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS, "training stopped early")
@@ -2268,8 +2311,9 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
             "library_ms": None, "unit": units[name],
             "launches_per_call": per_call.get(name, 1),
         }
-        if name.startswith(("train_stack", "post_loss")):
-            row["kernel_route"] = (stack_route(arch) if name.startswith("train_stack")
+        if name.startswith(("frontend", "train_stack", "post_loss")):
+            row["kernel_route"] = (front_route(arch) if name.startswith("frontend")
+                                   else stack_route(arch) if name.startswith("train_stack")
                                    else post_route(arch))
         if name.startswith("post_loss"):
             row["plain_order"] = "one fp32 sum per product"

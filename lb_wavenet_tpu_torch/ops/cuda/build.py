@@ -88,22 +88,32 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+_entries: dict = {}
+
+
+def entry(lib: ctypes.CDLL, fn: str, argtypes, restype):
+    """lib.fn with its argument and result types set, once per library."""
+    key = (id(lib), fn)
+    f = _entries.get(key)
+    if f is None:
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = argtypes, restype
+        _entries[key] = f
+    return f
+
+
 def launch(lib: ctypes.CDLL, fn: str, args: ctypes.Structure, device) -> int:
     """Call `fn(&args, stream, &n)` on the current stream of `device`; the
     function adds the kernels it launched to n. Raise with CUDA's message
     if a launch was refused. Returns n."""
     import torch
 
-    f = getattr(lib, fn)
-    f.argtypes = [ctypes.c_void_p] * 3
-    f.restype = ctypes.c_int
+    f = entry(lib, fn, [ctypes.c_void_p] * 3, ctypes.c_int)
     n = ctypes.c_int(0)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = f(ctypes.addressof(args), stream, ctypes.addressof(n))
     if err != 0:
-        lib.wn_error_string.restype = ctypes.c_char_p
-        lib.wn_error_string.argtypes = [ctypes.c_int]
-        msg = lib.wn_error_string(err).decode()
+        msg = entry(lib, "wn_error_string", [ctypes.c_int], ctypes.c_char_p)(err).decode()
         raise RuntimeError(f"{fn}: CUDA error {err}: {msg}")
     return n.value
 

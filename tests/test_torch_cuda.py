@@ -348,7 +348,9 @@ def test_frontend_kernels_match_plain(cuda, dtype, rtol, k_taps):
     """h0 and the three gradients through the autograd Function against the
     plain versions, a ragged last time tile and scatter chunk; errors
     relative to each leaf's largest magnitude (bf16: one flipped rounding
-    of a d_e piece moves d_embed by up to 2^-8 of it)."""
+    of a d_e piece moves d_embed by up to 2^-8 of it). bf16 at C = 16 takes
+    the tensor-core route, where h0 equals the plain h0 bit for bit; launches
+    2 forward, and 3 backward there, 4 on the CUDA-core route."""
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
     from lb_wavenet_tpu_torch.ops.cuda import frontend as F
 
@@ -365,7 +367,10 @@ def test_frontend_kernels_match_plain(cuda, dtype, rtol, k_taps):
     h = F.fused_frontend(leaves[0], {"w": leaves[1], "b": leaves[2]}, x, compute_dtype=dtype)
     (h * dh).sum().backward()
     torch.cuda.synchronize()
-    assert (F.frontend_fwd.launches, F.frontend_bwd.launches) == (n_fwd + 1, n_bwd + 4)
+    tc = F.route(256, 16, k_taps, dt) == "tensor_cores"
+    assert tc == (dtype == "bfloat16")
+    assert (F.frontend_fwd.launches, F.frontend_bwd.launches) == (n_fwd + 2,
+                                                                  n_bwd + (3 if tc else 4))
     hp = F.frontend_fwd_plain(embed, w, b, x, dt)
     gp = F.frontend_bwd_plain(embed, w, x, dt, dh)
 
@@ -373,8 +378,98 @@ def test_frontend_kernels_match_plain(cuda, dtype, rtol, k_taps):
         torch.testing.assert_close(a, ref, rtol=0, atol=rtol * float(ref.abs().max()))
 
     close(h.detach(), hp)
+    if tc:
+        assert torch.equal(h.detach(), hp)
     for leaf, ref in zip(leaves, gp):
         close(leaf.grad, ref)
+
+
+def _front_case(cuda, c, k_taps, seed, b=3, t=301):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    embed = torch.randn((256, c), device=cuda, generator=g)
+    w = torch.randn((k_taps, c, c), device=cuda, generator=g) / (c ** 0.5)
+    bias = torch.randn(c, device=cuda, generator=g) / 10
+    x = torch.randint(0, 256, (b, t), device=cuda, generator=g, dtype=torch.int32)
+    x[0, 5], x[b - 1, 0] = 256, -1   # out of range: zero taps, no gradient
+    dh = torch.randn((b, t, c), device=cuda, generator=g)
+    return embed, w, bias, x, dh
+
+
+@pytest.mark.parametrize("c,k_taps,dtype,want", [
+    (64, 2, torch.bfloat16, "tensor_cores"),   # WaveNet-30's widths
+    (64, 1, torch.bfloat16, "tensor_cores"),
+    (64, 3, torch.bfloat16, "cuda_cores"),     # four tables do not fit
+    (64, 2, torch.float32, "cuda_cores"),
+    (24, 2, torch.bfloat16, "cuda_cores"),     # C not a multiple of 16
+    (18, 2, torch.bfloat16, "cuda_cores"),     # nor of 4: the gather's scalar path
+])
+def test_frontend_routes_match_plain(cuda, c, k_taps, dtype, want):
+    """Each route at B = 3, T = 301 (a ragged last tile of every kernel)
+    against the plain versions: h0 bit for bit on the tensor-core route
+    (within 1e-5 of its largest value elsewhere), every gradient within the
+    tolerances of test_frontend_kernels_match_plain; the launches of the
+    route."""
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    assert F.route(256, c, k_taps, dtype) == want
+    embed, w, bias, x, dh = _front_case(cuda, c, k_taps, 30 + c + k_taps)
+    n = (F.frontend_fwd.launches, F.frontend_bwd.launches)
+    h = F.frontend_fwd(embed, w, bias, x, dtype)
+    grads = F.frontend_bwd(embed, w, x, dtype, dh)
+    torch.cuda.synchronize()
+    tc = want == "tensor_cores"
+    assert (F.frontend_fwd.launches - n[0], F.frontend_bwd.launches - n[1]) == (2, 3 if tc else 4)
+    hp = F.frontend_fwd_plain(embed, w, bias, x, dtype)
+    gp = F.frontend_bwd_plain(embed, w, x, dtype, dh)
+    if tc:
+        assert torch.equal(h, hp)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(h, hp, rtol=0, atol=1e-5 * float(hp.abs().max()))
+    for got, ref in zip(grads, gp):
+        torch.testing.assert_close(got, ref, rtol=0, atol=rtol * float(ref.abs().max()))
+
+
+def test_frontend_taps_and_scatters_stay_in_their_row(cuda):
+    """At WaveNet-30's widths on the tensor-core route, B = 3 and T = 301:
+    the batch's h0 equals each row run alone bit for bit, and its gradients
+    the sums of the rows' gradients within fp32 reordering."""
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    embed, w, bias, x, dh = _front_case(cuda, 64, 2, 40)
+    h = F.frontend_fwd(embed, w, bias, x, torch.bfloat16)
+    grads = F.frontend_bwd(embed, w, x, torch.bfloat16, dh)
+    rows = [(F.frontend_fwd(embed, w, bias, x[i:i + 1], torch.bfloat16),
+             F.frontend_bwd(embed, w, x[i:i + 1], torch.bfloat16, dh[i:i + 1]))
+            for i in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(h, torch.cat([r[0] for r in rows]))
+    for j, got in enumerate(grads):
+        want = sum(r[1][j] for r in rows)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_frontend_tensor_core_backward_is_bit_reproducible(cuda):
+    """Two backward calls on the same inputs give the same bits: a fixed tile
+    -> block walk, each table entry one thread's sum in position order, the
+    slots summed in order, no float atomics."""
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    embed, w, _, x, dh = _front_case(cuda, 64, 2, 41, b=4, t=5000)
+    runs = [F.frontend_bwd(embed, w, x, torch.bfloat16, dh) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("q,c,k", [(256, 64, 2), (256, 64, 1), (256, 16, 3), (256, 64, 3),
+                                   (128, 32, 2)])
+def test_frontend_library_carves_tc_smem(cuda, q, c, k):
+    """The built library's shared-memory count of the tensor-core backward
+    pass equals frontend.tc_smem, on which the route is decided."""
+    from lb_wavenet_tpu_torch.ops.cuda import build
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+
+    assert F.lib_tc_smem(build.load("frontend"), q, c, k) == F.tc_smem(q, c, k)
 
 
 @pytest.mark.parametrize("rows,temperature", [(None, 0.0), (2, 1.0), (3, 0.8),
@@ -443,7 +538,7 @@ def test_recipe_training_step_on_card(cuda):
     params_g = PT.tree_map(lambda v: v.to(cuda), state.params)
     loss_g, grads_g = PT.value_and_grads(params_g, {k: v.to(cuda) for k, v in batch.items()},
                                          SMALL, train)
-    assert (F.frontend_fwd.launches, F.frontend_bwd.launches) == (n[0] + 1, n[1] + 4)
+    assert (F.frontend_fwd.launches, F.frontend_bwd.launches) == (n[0] + 2, n[1] + 4)
     assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
     for a, b in zip(PT.tree_leaves(grads_g), PT.tree_leaves(grads_c)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
