@@ -88,14 +88,33 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      recycled lanes), and `torchrun --nproc-per-node 2 -m
      lb_wavenet_tpu_torch.cli serve --mesh-model 2` writing that pool's
      audio;
- 10. timings at the serving and training shapes (mega and turbo at B=512
-     and at wavenet30.json's gen batch 64) and the `kernels` JSON line,
+ 10. the mel-conditioned vocoder (configs/wavenet30_mel.json at full width:
+     n_mels=80, Cc=64, upsample 4x8x8, gen batch 64; speakers as the
+     override n_speakers=8, E=16, weights from the same numpy seed):
+     `mel_kernels`, the conditioned B2 (B=512 and 64), B6, B1 (B=512 and
+     100) and B7 (the skip halves, S_l=128, at B=64 and 4) against their
+     plain versions, bit for bit on the tensor cores at Cc'=64 and 80;
+     the CUDA-core route with cond (fp32 within FP32_ATOL; bf16 at C=24:
+     one stack step within LOGIT_ATOL, mega and turbo free runs under the
+     near-argmax check); the conditioned mega's logits against the plain
+     forward; `mel_serving`, with the four counts set to 0 before it and
+     read after: log-mel of 8 synthetic waveforms on the card, upsampled
+     once per request, served through a mega pool of batch 64 (chunk
+     1024, recycled lanes, a replay bit for bit), full pools of 64 and 512
+     (delivered audio-sec/s, the cond slab's share), a turbo pool, a
+     speaker pool (Cc'=80), the pallas engine, a chunked run against the
+     one-shot run, `cli generate --mel --stream-chunk` from a checkpoint
+     against the in-process audio, and one NCCL rank of model-sharded
+     conditioned serving;
+ 11. timings at the serving and training shapes (mega and turbo at B=512
+     and at wavenet30.json's gen batch 64), the conditioned kernels against
+     the unconditioned ones (`mel_timing`) and the `kernels` JSON line,
      each row with its unit (rows B3-B5 time a whole call of several
-     launches), the card's name and power limit, and last the
-     {"ok": true, ...} line.
+     launches; the `*_cond` rows at the mel config's B=64), the card's
+     name and power limit, and last the {"ok": true, ...} line.
 
 Launch counts are set to 0 right before each path is driven and read right
-after; comparison launches are not counted.
+after; comparison launches are not counted. Each phase logs its seconds.
 """
 from __future__ import annotations
 
@@ -117,6 +136,7 @@ TURBO_POOL = 100    # turbo pool batch: not a multiple of the lane tile
 GEN_B = 64          # configs/wavenet30.json gen.batch_size: timed beside B
 CUDA_CORE_T = 128   # steps of the bf16 CUDA-core-route sampling check (C=24)
 LOGIT_ATOL = 5e-2   # bf16 operands: a flipped rounding moves logits ~1e-2
+FP32_ATOL = 1e-3    # fp32 over 128 teacher-forced steps: sums in another order
 TRAIN_B, TRAIN_W = 8, 10240   # wavenet30.json train batch and window
 TRAIN_STEPS = 20
 STEP_PARTS = 5      # steps timed part by part
@@ -159,6 +179,14 @@ TP_RTOL = 1e-2
 TP_POOL, TP_POOL_CHUNK = 4, 256   # the mesh pool: 6 requests, two on recycled lanes
 
 
+MEL_CONFIG = os.path.join(ROOT, "configs", "wavenet30_mel.json")
+MEL_B = 64          # wavenet30_mel.json gen.batch_size
+MEL_T = 128         # teacher-forced steps of the conditioned kernel-vs-plain checks
+MEL_SPEAKERS = 8    # n_speakers of the speaker-conditioned override (E = 16: Cc' = 80)
+MEL_REQUESTS = 8    # mel requests through the mel pool
+MEL_FWD_T = 16      # steps of the mega-vs-forward check (the two sum orders drift apart)
+MEL_TP_STEPS = 128  # steps of the conditioned model-sharded run
+
 KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss",
                   "ar_tp")
 
@@ -199,7 +227,7 @@ def numpy_params(arch, seed: int) -> dict:
     def b(*shape):
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)
 
-    return {
+    out = {
         "embed": w(Q, C),
         "input_conv": {"w": w(K, C, C), "b": b(C)},
         "layers": {
@@ -209,6 +237,19 @@ def numpy_params(arch, seed: int) -> dict:
         },
         "post": {"w1": w(S, S), "b1": b(S), "w2": w(S, Q), "b2": b(Q)},
     }
+    # The conditioned leaves are drawn after the others, whose values (and
+    # so the unconditioned phases' numbers) stay as they were.
+    if arch.use_local_cond:
+        cc = arch.cond_channels
+        out["layers"]["w_cond"] = w(L, cc, 2 * G)
+        out["upsampler"] = {"proj_w": w(arch.n_mels, cc), "proj_b": b(cc), "stages": [
+            {"w": (rng.standard_normal((2 * f + 1, cc, cc)) / np.sqrt((2 * f + 1) * cc)
+                   ).astype(np.float32), "b": b(cc)} for f in arch.upsample_factors]}
+    if arch.use_global_cond:
+        out["speaker_embed"] = rng.standard_normal(
+            (arch.n_speakers, arch.speaker_embed_dim)).astype(np.float32)
+        out["layers"]["w_gcond"] = w(L, arch.speaker_embed_dim, 2 * G)
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -225,27 +266,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def mega_cost(arch, b: int, t: int, lane_rows: int, wbytes: int):
+def mega_cost(arch, b: int, t: int, lane_rows: int, wbytes: int, cc: int = 0):
     """(bytes, flops) one mega_generate call must move and do: weights,
-    biases, the carry read and written once, forced/lane in, classes out."""
+    biases, the carry read and written once, forced/lane in, classes out;
+    with cc conditioning channels also w_cond, the (t, b, cc) cond rows and
+    the cond product of every layer and step."""
     L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
     S, Q, K = arch.skip_channels, arch.quant_channels, arch.input_kernel
-    w = L * (2 * C * 2 * G + G * (C + S)) + S * S + S * Q + Q * C + K * C * C
+    w = L * ((2 * C + cc) * 2 * G + G * (C + S)) + S * S + S * Q + Q * C + K * C * C
     bias = L * (2 * G + C + S) + S + Q + C
     carry = (sum(arch.dilations) * C + L * 2 * C + C + (K - 1) * C) * b
-    nbytes = w * wbytes + 4 * (bias + 2 * carry + t * b + lane_rows * b + t * b)
-    flops = 2 * b * t * (L * (2 * C * 2 * G + G * (C + S)) + S * S + S * Q + K * C * C)
+    nbytes = (w * wbytes + 4 * (bias + 2 * carry + t * b + lane_rows * b + t * b)
+              + t * b * cc * wbytes)
+    flops = 2 * b * t * (L * ((2 * C + cc) * 2 * G + G * (C + S)) + S * S + S * Q
+                         + K * C * C)
     return nbytes, flops
 
 
-def stack_cost(arch, b: int, wbytes: int):
+def stack_cost(arch, b: int, wbytes: int, cc: int = 0):
     """(bytes, flops) of one fused_stack step: weights, biases, h0, the L
-    ring rows read and written, the skip sum out."""
+    ring rows read and written, the skip sum out; with cc conditioning
+    channels also w_cond, the (b, cc) cond row and its products."""
     L, C, G, S = (len(arch.dilations), arch.residual_channels,
                   arch.gate_channels, arch.skip_channels)
-    w = L * (2 * C * 2 * G + G * C + G * S)
-    nbytes = w * wbytes + 4 * (L * (2 * G + C + S) + b * C + 2 * L * b * C + b * S)
-    return nbytes, 2 * b * L * (2 * C * 2 * G + G * C + G * S)
+    w = L * ((2 * C + cc) * 2 * G + G * C + G * S)
+    nbytes = (w * wbytes + 4 * (L * (2 * G + C + S) + b * C + 2 * L * b * C + b * S)
+              + b * cc * wbytes)
+    return nbytes, 2 * b * L * ((2 * C + cc) * 2 * G + G * C + G * S)
 
 
 def train_stack_cost(arch, b: int, t: int, wbytes: int, backward: bool):
@@ -281,17 +328,19 @@ def post_loss_cost(arch, b: int, t: int, w: int, wbytes: int, backward: bool):
     return rows_in + weights + 4, 2 * b * w * (S * S + S * Q)
 
 
-def turbo_cost(arch, b: int, lane_rows: int, wbytes: int):
+def turbo_cost(arch, b: int, lane_rows: int, wbytes: int, cc: int = 0):
     """(bytes, flops) of one turbo step: weights and biases, h and the
     embedding stack in and out, the L ring rows read and written, forced
-    and the lane block in, the classes out."""
+    and the lane block in, the classes out; with cc conditioning channels
+    also w_cond, the (b, cc) cond row and its products."""
     L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
     S, Q, K = arch.skip_channels, arch.quant_channels, arch.input_kernel
-    w = L * (2 * C * 2 * G + G * C + G * S) + S * S + S * Q + Q * C + K * C * C
+    w = L * ((2 * C + cc) * 2 * G + G * C + G * S) + S * S + S * Q + Q * C + K * C * C
     bias = L * (2 * G + C + S) + S + Q + C
     state = 2 * (C + (K - 1) * C + L * C) * b
-    nbytes = w * wbytes + 4 * (bias + state + b + lane_rows * b + b)
-    flops = 2 * b * (L * (2 * C * 2 * G + G * C + G * S) + S * S + S * Q + K * C * C)
+    nbytes = w * wbytes + 4 * (bias + state + b + lane_rows * b + b) + b * cc * wbytes
+    flops = 2 * b * (L * ((2 * C + cc) * 2 * G + G * C + G * S) + S * S + S * Q
+                     + K * C * C)
     return nbytes, flops
 
 
@@ -307,14 +356,16 @@ def frontend_cost(arch, b: int, t: int, backward: bool):
     return 4 * (b * t + params + b * t * C), taps
 
 
-def tp_cost(arch, b: int, s_l: int, wbytes: int):
+def tp_cost(arch, b: int, s_l: int, wbytes: int, cc: int = 0):
     """(bytes, flops) of one tp_fused_stack step on a skip slice of width
     s_l: weights and biases, h0 in, the L ring rows read and written, the
-    local skip sum out."""
+    local skip sum out; with cc conditioning channels also w_cond, the
+    (cc, b) cond tile and its products."""
     L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
-    w = L * (2 * G * 2 * C + (C + s_l) * G)
-    nbytes = w * wbytes + 4 * (L * (2 * G + C + s_l) + C * b + 2 * L * C * b + s_l * b)
-    return nbytes, 2 * L * b * (2 * G * 2 * C + (C + s_l) * G)
+    w = L * (2 * G * (2 * C + cc) + (C + s_l) * G)
+    nbytes = (w * wbytes + 4 * (L * (2 * G + C + s_l) + C * b + 2 * L * C * b + s_l * b)
+              + cc * b * wbytes)
+    return nbytes, 2 * L * b * (2 * G * (2 * C + cc) + (C + s_l) * G)
 
 
 def bound_ms(nbytes: int, flops: int):
@@ -388,11 +439,17 @@ def stack_smem() -> dict:
     from lb_wavenet_tpu_torch.ops.cuda import ar_tc, build
 
     out = {}
-    for name, src, s in (("fused_stack", "ar_step", 256), ("fused_stack", "ar_step", 128),
-                         ("tp_fused_stack", "ar_tp", 512), ("tp_fused_stack", "ar_tp", 256)):
-        out[f"{name} C64_G64_S{s}_L30"] = (ar_tc.stack_smem(64, 64, s, 30)[0],
-                                           ar_tc.lib_stack_smem(build.load(src), name, 64, 64,
-                                                                s, 30))
+    for name, src, s, cc in (("fused_stack", "ar_step", 256, 0),
+                             ("fused_stack", "ar_step", 128, 0),
+                             ("tp_fused_stack", "ar_tp", 512, 0),
+                             ("tp_fused_stack", "ar_tp", 256, 0),
+                             ("fused_stack", "ar_step", 256, 64),   # the mel vocoder
+                             ("fused_stack", "ar_step", 256, 80),   # mel + speaker
+                             ("tp_fused_stack", "ar_tp", 128, 64),
+                             ("tp_fused_stack", "ar_tp", 128, 80)):
+        out[f"{name} C64_G64_S{s}_L30_Cc{cc}"] = (
+            ar_tc.stack_smem(64, 64, s, 30, cc)[0],
+            ar_tc.lib_stack_smem(build.load(src), name, 64, 64, s, 30, cc))
     return out
 
 
@@ -791,7 +848,8 @@ def serve_pool(params, arch, requests, batch, first_wave, engine="mega", mesh=No
 
     def submit(r):
         ok = pool.submit(r["id"], r["n_samples"], seed=r["seed"],
-                         temperature=r["temperature"])
+                         temperature=r["temperature"], speaker=r.get("speaker"),
+                         cond_fn=r.get("cond_fn"))
         require(ok, "pool refused a request")
         lanes[r["id"]] = next(i for i, ls in enumerate(pool._lanes)
                               if ls is not None and ls.request_id == r["id"])
@@ -1002,12 +1060,12 @@ def tp_requests():
              "temperature": (0.0, 0.7, 1.0)[i % 3]} for i in range(6)]
 
 
-def hold_tp_choices(params, arch, classes, temperature, lane=None):
+def hold_tp_choices(params, arch, classes, temperature, lane=None, cond=None):
     """check_choices for a (B, T) run of the model-sharded path: the plain
-    mega version teacher-forced on its classes, each product in one fp32
-    sum (the order of the sharded path's post network; B7 sums its layers
-    in the tensor-core order on its bf16 route), then the gap of every
-    choice."""
+    mega version teacher-forced on its classes (and its cond (B, T, Cc)),
+    each product in one fp32 sum (the order of the sharded path's post
+    network; B7 sums its layers in the tensor-core order on its bf16
+    route), then the gap of every choice."""
     import torch
 
     from lb_wavenet_tpu_torch import generate as G
@@ -1017,8 +1075,9 @@ def hold_tp_choices(params, arch, classes, temperature, lane=None):
     h0, e0 = G._fused_frontend_zero(params, arch, cls.shape[1])
     carry = ar_mega.mega_zero_carry(arch, h0, e0)
     lane = None if lane is None else torch.as_tensor(lane).cuda()
-    _, lg = ar_mega.mega_generate_plain(params, params["layers"], arch, carry, 0, cls,
-                                        temperature, True, lane, 0, tensor_cores=False)
+    _, lg = ar_mega.mega_generate_plain(
+        params, params["layers"], arch, carry, 0, cls, temperature, True, lane, 0,
+        tensor_cores=False, cond=None if cond is None else cond.transpose(0, 1))
     return check_choices(lg, cls, temperature, lane, torch.full_like(cls, -1))
 
 
@@ -2077,6 +2136,638 @@ def phase_eval(cfg, state, held_out, work, gpu):
             f"in-training eval records: {evals}")
 
 
+# ---------------------------------------------------------------------------
+# The mel-conditioned vocoder (configs/wavenet30_mel.json, BASELINE config 3)
+# and speaker conditioning: the conditioned variants of B2, B6, B1 and B7.
+
+def mel_setup(n_speakers: int = 0):
+    """(arch, params on the card) of configs/wavenet30_mel.json (with
+    n_speakers speakers of E = 16 when given), weights from a numpy seed:
+    the speaker override shares every leaf of the mel arch."""
+    import dataclasses
+
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.utils.convert import params_from_jax
+
+    arch = dataclasses.replace(Config.load(MEL_CONFIG).arch, n_speakers=n_speakers)
+    return arch, params_from_jax(numpy_params(arch, 7), device="cuda")
+
+
+def kernel_counters() -> dict:
+    """{name: the wrapper function holding its launch count} of the four
+    sampling kernels."""
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_step, ar_tp, ar_turbo
+
+    return {"mega_generate": ar_mega.mega_generate, "turbo_step": ar_turbo.turbo_step,
+            "fused_stack": ar_step.fused_stack, "tp_fused_stack": ar_tp.tp_fused_stack}
+
+
+@contextlib.contextmanager
+def comparison_launches():
+    """Launches made to compare a kernel with its plain version are not
+    counted: the four sampling counters are restored on exit."""
+    saved = {k: f.launches for k, f in kernel_counters().items()}
+    try:
+        yield
+    finally:
+        for k, f in kernel_counters().items():
+            f.launches = saved[k]
+
+
+def mel_inputs(arch, g, b: int, lead: tuple, speakers=None):
+    """(lp, cond) for a conditioned kernel call: random bf16 cond rows of
+    shape lead + (b, Cc), or with `speakers` (params of the speaker arch)
+    the rows folded with random speakers' rows into Cc' = Cc + E
+    (generate._fold_gcond, as every engine folds them)."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+
+    cond = torch.randn((*lead, b, arch.cond_channels), device="cuda",
+                       generator=g).to(compute_dtype(arch))
+    if speakers is None:
+        return None, cond
+    ids = torch.randint(0, MEL_SPEAKERS, (b,), device="cuda", generator=g)
+    return G._fold_gcond(speakers["layers"], cond, speakers["speaker_embed"][ids],
+                         lead[0] if lead else None)
+
+
+def phase_mel_kernels(params, arch, sp, gpu):
+    """The conditioned B2, B6, B1 and B7 against their plain versions on the
+    card at the mel config's full width (Cc' = 64, and 80 with speakers),
+    bit for bit on the tensor-core route; the CUDA-core route at C = 24 with
+    cond within LOGIT_ATOL (B7's skip within TP_RTOL); the conditioned
+    mega's teacher-forced logits against the port's plain forward."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype, forward, init_params
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_step, ar_tc, ar_tp, ar_turbo
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    dt = compute_dtype(arch)
+    c, cc = arch.residual_channels, arch.cond_channels
+    ecc = cc + arch.speaker_embed_dim
+    require(all(ar_tc.route(arch, dt, k) == "tensor_cores" for k in (cc, ecc))
+            and ar_tc.route(arch, dt, 8) == "cuda_cores"
+            and step_route(arch, arch.skip_channels) == "tensor_cores",
+            "the mel config left the tensor-core routes (or Cc' = 8 joined them)")
+
+    def lanes(b, t0):
+        inv = torch.tensor([0.0, 1 / 0.7, 1.0]).repeat(b // 3 + 1)[:b].cuda()
+        return torch.stack([
+            torch.randint(0, 2**31 - 1, (b,), device="cuda", dtype=torch.int32, generator=g),
+            torch.full((b,), t0 - 100, device="cuda", dtype=torch.int32), inv.view(torch.int32)])
+
+    # The tensor-core checks run a chunk at a mid-stream t0 from a random
+    # carry; the CUDA-core ones (t0 = 0) from the zero carry, as the
+    # unconditioned C = 24 phase holds that route.
+    def mega_pair(a, p, lp, cond, t0=5000):
+        b = cond.shape[1]
+        h0, e0 = G._fused_frontend_zero(p, a, b)
+        ck = ar_mega.mega_zero_carry(a, h0, e0)
+        for k in ("bufs", "hstate"):
+            if t0:
+                ck[k].normal_(generator=g)
+        cp = {k: v.clone() for k, v in ck.items()}
+        forced = torch.randint(0, a.quant_channels, cond.shape[:2], device="cuda",
+                               dtype=torch.int32, generator=g)
+        lane = lanes(b, t0)
+        _, lk = ar_mega.mega_generate_cuda(p, lp, a, ck, t0, forced, 1.0, True, lane, 5,
+                                           cond=cond)
+        torch.cuda.synchronize()
+        _, lpl = ar_mega.mega_generate_plain(p, lp, a, cp, t0, forced, 1.0, True, lane, 5,
+                                             cond=cond)
+        return max(abs_err(lk, lpl), max(abs_err(ck[k], cp[k]) for k in ck))
+
+    def turbo_pair(a, p, lp, cond, t0=5000):
+        b = cond.shape[1]
+        if t0:
+            st = {"bufs": torch.randn((sum(a.dilations), b, a.residual_channels),
+                                      device="cuda", generator=g),
+                  "h": torch.randn((b, a.residual_channels), device="cuda", generator=g),
+                  "e": torch.randn((a.input_kernel - 1, b, a.residual_channels),
+                                   device="cuda", generator=g)}
+        else:
+            h0, e0 = G._fused_frontend_zero(p, a, b)
+            st = {"bufs": torch.zeros((sum(a.dilations), b, a.residual_channels),
+                                      device="cuda"), "h": h0, "e": e0}
+        sk = {k: v.clone() for k, v in st.items()}
+        forced = torch.randint(0, a.quant_channels, cond.shape[:2], device="cuda",
+                               dtype=torch.int32, generator=g)
+        lane = lanes(b, t0)
+        _, lk = ar_turbo.turbo_generate_cuda(p, lp, a, sk, t0, forced, 1.0, True, lane, 5,
+                                             cond=cond)
+        torch.cuda.synchronize()
+        _, lpl = ar_turbo.turbo_generate_plain(p, lp, a, st, t0, forced, 1.0, True, lane, 5,
+                                               cond=cond)
+        return max(abs_err(lk, lpl), max(abs_err(sk[k], st[k]) for k in st))
+
+    def stack_pair(a, lp, cond_t):
+        b = cond_t.shape[0]
+        ring = torch.randn((sum(a.dilations), b, a.residual_channels), device="cuda",
+                           generator=g)
+        h0 = torch.randn((b, a.residual_channels), device="cuda", generator=g)
+        r_k, r_p = ring.clone(), ring.clone()
+        _, s_k = ar_step.fused_stack(lp, a, h0, r_k, 1000, cond_t)
+        torch.cuda.synchronize()
+        _, s_p = ar_step.fused_stack_plain(lp, a, h0, r_p, 1000, cond_t=cond_t)
+        return max(abs_err(r_k, r_p), abs_err(s_k, s_p))
+
+    def tp_pair(a, p, lp, cond_t):
+        b = cond_t.shape[0]
+        fm = G._tp_weights(p, lp, compute_dtype(a))
+        ring = torch.randn((sum(a.dilations), a.residual_channels, b), device="cuda",
+                           generator=g)
+        h0 = torch.randn((a.residual_channels, b), device="cuda", generator=g)
+        r_k, r_p = ring.clone(), ring.clone()
+        cond_fm = cond_t.t().contiguous()
+        _, s_k = ar_tp.tp_fused_stack(fm, a, h0, r_k, TP_T, cond_fm)
+        torch.cuda.synchronize()
+        _, s_p = ar_tp.tp_fused_stack_plain(fm, a, h0, r_p, TP_T, cond_t=cond_fm)
+        return {"ring": abs_err(r_k, r_p), "skip": abs_err(s_k, s_p),
+                "skip_rel": rel_err(s_k, s_p)}
+
+    lp = params["layers"]
+    exact, core = {}, {}
+    with comparison_launches():
+        for b in (B, MEL_B):
+            exact[f"mega B={b} Cc'={cc}"] = mega_pair(arch, params, lp,
+                                                    mel_inputs(arch, g, b, (MEL_T,))[1])
+        lp80, cond80 = mel_inputs(arch, g, MEL_B, (MEL_T,), sp)
+        exact[f"mega B={MEL_B} Cc'={ecc}"] = mega_pair(arch, sp, lp80, cond80)
+        exact[f"turbo B={MEL_B} Cc'={cc}"] = turbo_pair(arch, params, lp,
+                                                       mel_inputs(arch, g, MEL_B, (64,))[1])
+        lp80, cond80 = mel_inputs(arch, g, MEL_B, (64,), sp)
+        exact[f"turbo B={MEL_B} Cc'={ecc}"] = turbo_pair(arch, sp, lp80, cond80)
+        for b in (B, TURBO_POOL):
+            exact[f"fused_stack B={b} Cc'={cc}"] = stack_pair(
+                arch, lp, mel_inputs(arch, g, b, ())[1])
+        lp80, cond80 = mel_inputs(arch, g, B, (), sp)
+        exact[f"fused_stack B={B} Cc'={ecc}"] = stack_pair(arch, lp80, cond80)
+        # B7 on the mel config's skip halves (S_l = 128, a model axis of 2),
+        # at the gen batch and at B = 4 (masked copies of the taps).
+        tp_read = {}
+        for rank in (0, 1):
+            for b in (MEL_B, 4):
+                tp_read[f"tp_fused_stack S_l=128 rank {rank} B={b} Cc'={cc}"] = tp_pair(
+                    arch, params, skip_half(lp, arch, rank), mel_inputs(arch, g, b, ())[1])
+        lp80, cond80 = mel_inputs(arch, g, MEL_B, (), sp)
+        tp_read[f"tp_fused_stack S_l=128 rank 0 B={MEL_B} Cc'={ecc}"] = tp_pair(
+            arch, sp, skip_half(lp80, arch, 0), cond80)
+        for k, r in tp_read.items():
+            exact[k] = max(r["ring"], r["skip"])
+
+        # The CUDA-core route with cond. fp32 at the mel widths holds the
+        # cond term without bf16 rounding (teacher-forced from the zero
+        # carry, within FP32_ATOL); bf16 at C = 24 one step of B1 and B7
+        # within LOGIT_ATOL, and mega and turbo as free runs whose every
+        # choice must be a near-argmax of the plain scores on the kernel's
+        # own history (their teacher-forced logits drift by a few bf16
+        # rounding flips over the run, reported).
+        a32 = dataclasses.replace(arch, compute_dtype="float32")
+        a24 = dataclasses.replace(arch, residual_channels=24)
+        require(ar_tc.route(a24, dt, cc) == "cuda_cores"
+                and step_route(a24, a24.skip_channels) == "cuda_cores"
+                and ar_tc.route(a32, torch.float32, cc) == "cuda_cores",
+                "C=24 or fp32 left the CUDA-core route")
+        p32, p24 = init_params(32, a32, "cuda"), init_params(24, a24, "cuda")
+        fp32 = {"mega": mega_pair(a32, p32, p32["layers"],
+                                  mel_inputs(a32, g, GEN_B, (CUDA_CORE_T,))[1], t0=0),
+                "turbo": turbo_pair(a32, p32, p32["layers"],
+                                    mel_inputs(a32, g, GEN_B, (CUDA_CORE_T,))[1], t0=0),
+                "fused_stack": stack_pair(a32, p32["layers"],
+                                          mel_inputs(a32, g, TURBO_POOL, ())[1])}
+        drift = {"mega": mega_pair(a24, p24, p24["layers"],
+                                   mel_inputs(a24, g, GEN_B, (CUDA_CORE_T,))[1], t0=0),
+                 "turbo": turbo_pair(a24, p24, p24["layers"],
+                                     mel_inputs(a24, g, GEN_B, (CUDA_CORE_T,))[1], t0=0)}
+        core["fused_stack"] = stack_pair(a24, p24["layers"],
+                                         mel_inputs(a24, g, TURBO_POOL, ())[1])
+        tp24 = tp_pair(a24, p24, skip_half(p24["layers"], a24, 0),
+                       mel_inputs(a24, g, MEL_B, ())[1])
+        gaps = {}
+        cond24 = mel_inputs(a24, g, GEN_B, (CUDA_CORE_T,))[1]
+        free = torch.full((CUDA_CORE_T, GEN_B), -1, device="cuda", dtype=torch.int32)
+        lane = torch.stack([torch.randint(0, 2**31 - 1, (GEN_B,), device="cuda",
+                                          dtype=torch.int32, generator=g),
+                            torch.zeros(GEN_B, device="cuda", dtype=torch.int32)])
+        h24, e24 = G._fused_frontend_zero(p24, a24, GEN_B)
+        for name, kernel, plain, state, fm in (
+                ("mega", ar_mega.mega_generate_cuda, ar_mega.mega_generate_plain,
+                 lambda: ar_mega.mega_zero_carry(a24, h24, e24), lambda x: x),
+                ("turbo", ar_turbo.turbo_generate_cuda, ar_turbo.turbo_generate_plain,
+                 lambda: {"bufs": torch.zeros((sum(a24.dilations), GEN_B, 24), device="cuda"),
+                          "h": h24.clone(), "e": e24.clone()}, lambda x: x.transpose(1, 2))):
+            cls_k, _ = kernel(p24, p24["layers"], a24, state(), 0, free, 1.0, False, lane, 3,
+                              cond=cond24)
+            _, lg = plain(p24, p24["layers"], a24, state(), 0, cls_k, 1.0, True, lane, 3,
+                          cond=cond24)
+            gaps[name] = check_choices(fm(lg), cls_k, 1.0, lane, free)
+
+        # The conditioned mega's teacher-forced logits against the plain
+        # forward on the same cond (from the zero state: x = [Q/2, forced]).
+        b = 8
+        forced = torch.randint(0, arch.quant_channels, (b, MEL_FWD_T), device="cuda",
+                               dtype=torch.int32, generator=g)
+        cond = mel_inputs(arch, g, MEL_FWD_T, (b,))[1]          # (b, T, Cc)
+        _, lk = G.generate_classes(params, arch, 0, b, MEL_FWD_T, cond=cond, forced=forced,
+                                   return_logits=True, engine="mega")
+        x = torch.cat([torch.full((b, 1), arch.quant_channels // 2, device="cuda",
+                                  dtype=torch.int32), forced[:, :-1]], 1)
+        with torch.no_grad():
+            lf = forward(params, arch, x, cond=cond)
+        fwd_err = abs_err(lk, lf)
+    log(json.dumps({
+        "phase": "mel_kernels", "gpu": gpu, "config": "configs/wavenet30_mel.json",
+        "Cc": cc, "Cc_with_speakers": ecc, "T": MEL_T, "turbo_T": 64,
+        "tensor_core_route_max_abs_err": exact, "bit_identical": max(exact.values()) == 0.0,
+        "b7_readings": tp_read,
+        "cuda_core_route": {"fp32_max_abs_err": fp32, "fp32_atol": FP32_ATOL,
+                            "bf16_C24_max_abs_err": core, "tp_fused_stack_bf16_C24": tp24,
+                            "atol": LOGIT_ATOL, "tp_rtol": TP_RTOL,
+                            "bf16_C24_free_run_max_choice_gap": gaps,
+                            "gap_tol": 2 * LOGIT_ATOL,
+                            "bf16_C24_teacher_forced_logit_drift": drift},
+        "mega_vs_plain_forward": {"B": b, "T": MEL_FWD_T, "max_abs_logit_err": fwd_err,
+                                  "atol": LOGIT_ATOL},
+    }))
+    require(max(exact.values()) == 0.0, f"a conditioned kernel differs from plain: {exact}")
+    require(max(fp32.values()) <= FP32_ATOL and max(core.values()) <= LOGIT_ATOL
+            and tp24["ring"] <= LOGIT_ATOL and tp24["skip_rel"] <= TP_RTOL
+            and max(gaps.values()) <= 2 * LOGIT_ATOL,
+            f"the conditioned CUDA-core route differs: {fp32}, {core}, {tp24}, {gaps}")
+    require(fwd_err <= LOGIT_ATOL, f"conditioned mega differs from forward: {fwd_err}")
+
+    def worst(prefix):
+        return max(v for k, v in exact.items() if k.startswith(prefix))
+
+    return {"mega_generate_cond": worst("mega"), "turbo_step_cond": worst("turbo"),
+            "fused_stack_cond": worst("fused_stack"),
+            "tp_fused_stack_cond": worst("tp_fused_stack")}
+
+
+def mel_utterances(params, arch, lengths, gpu):
+    """Log-mel frames of len(lengths) synthetic waveforms (chords of two
+    sinusoids, as data.synthetic_corpus makes), computed on the card, and
+    each utterance's conditioning upsampled once (B = 1) on the card.
+    Returns (frames (N, F, n_mels), [cond (n, Cc)], ms per upsampling)."""
+    import math
+
+    import torch
+
+    from lb_wavenet_tpu_torch.models.conditioning import upsample_cond
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.mel import log_mel_spectrogram
+
+    hop, sr = arch.hop_size, arch.sample_rate
+    t = torch.arange(max(lengths), device="cuda") / sr
+    f0 = 110.0 * 1.25 ** torch.arange(len(lengths), device="cuda")
+    wav = 0.4 * torch.sin(2 * math.pi * f0[:, None] * t) + \
+        0.2 * torch.sin(2 * math.pi * 2.5 * f0[:, None] * t)
+    frames = log_mel_spectrogram(wav, arch.n_mels, 1024, hop, sr)
+    require(bool(torch.isfinite(frames).all()), "non-finite log-mel frames")
+    conds, ev = [], []
+    for i, n in enumerate(lengths):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        conds.append(upsample_cond(params["upsampler"], arch, frames[i: i + 1, : -(-n // hop)],
+                                   compute_dtype(arch))[0, :n])
+        e[1].record()
+        ev.append(e)
+    torch.cuda.synchronize()
+    return frames, conds, [a.elapsed_time(b) for a, b in ev]
+
+
+def phase_mel_serving(params, arch, sp, sarch, gpu):
+    """The mel vocoder's serving path on the card, the four counts set to 0
+    before it and read after: 8 mel requests (log-mel computed on the card,
+    upsampled once per request) through a mega pool of batch 64, chunk 1024,
+    the last two on recycled lanes, a sampled one replayed alone bit for
+    bit; full pools of batch 64 and 512 (delivered audio-sec/s, the cond
+    assembly's share); a turbo pool; a speaker-conditioned pool (Cc' = 80);
+    the pallas engine with cond; a chunked mel run against the one-shot
+    run; `cli generate --mel --stream-chunk` from a checkpoint against the
+    in-process one-shot audio; one-rank model-sharded conditioned serving on
+    NCCL."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+    from lb_wavenet_tpu_torch.parallel import synthesis as S
+    from lb_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from lb_wavenet_tpu_torch.utils.checkpoint import save_params
+    from lb_wavenet_tpu_torch.utils.multihost import init_distributed, shutdown
+
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    lengths = [6000 + 1500 * i for i in range(MEL_REQUESTS)]
+    frames, conds, up_ms = mel_utterances(params, arch, lengths, gpu)
+
+    def spans(cond):
+        return lambda t0, n: cond[t0: t0 + n]
+
+    requests = [{"id": f"m{i}", "n_samples": n, "seed": 700 + i,
+                 "temperature": (0.0, 0.7, 1.0)[i % 3], "cond_fn": spans(conds[i])}
+                for i, n in enumerate(lengths)]
+    first = MEL_REQUESTS - 2
+    out, lanes, stats, wall = serve_pool(params, arch, requests, MEL_B, first_wave=first)
+    require(len(out) == len(requests) and all(
+        out[r["id"]].shape == (r["n_samples"],) and out[r["id"]].max() < arch.quant_channels
+        for r in requests), "the mel pool did not deliver every request")
+    recycled = [r["id"] for r in requests[first:] if lanes[r["id"]] < first]
+    require(len(recycled) == 2, f"late mel requests did not take recycled lanes: {lanes}")
+    rep = min((r for r in requests if r["temperature"] > 0 and r["id"] in recycled),
+              key=lambda r: r["n_samples"])
+    rep_out = serve_pool(params, arch, [rep], 1, first_wave=1)[0]
+    replay_equal = bool(np.array_equal(rep_out[rep["id"]], out[rep["id"]]))
+    require(replay_equal, f"replay of mel request {rep['id']} differs")
+    nst = max(stats["steps"], 1)
+    pool_8 = {"requests": len(requests), "pool_batch": MEL_B,
+              "audio_sec": sum(lengths) / arch.sample_rate, "wall_s": wall,
+              "delivered_audio_sec_per_s": sum(lengths) / arch.sample_rate / wall,
+              "recycled_lanes": {rid: lanes[rid] for rid in recycled},
+              "replay": {"request": rep["id"], "bit_identical": replay_equal},
+              "phase_ms_per_step": {k[:-2]: 1000.0 * v / nst for k, v in stats.items()
+                                    if k.endswith("_s")}}
+
+    # Full pools: every lane a 2-chunk mel request (the 8 utterances' cond
+    # shared), delivered audio-sec/s and the cond slab's share of the wall.
+    full = {}
+    for bb in (MEL_B, B):
+        reqs = [{"id": f"f{i}", "n_samples": 2 * CHUNK, "seed": i, "temperature": 1.0,
+                 "cond_fn": spans(conds[i % MEL_REQUESTS])} for i in range(bb)]
+        o, _, st, w = serve_pool(params, arch, reqs, bb, first_wave=bb)
+        require(len(o) == bb, f"the full mel pool of {bb} did not deliver")
+        full[f"B={bb}"] = {"wall_s": w, "delivered_audio_sec_per_s":
+                           bb * 2 * CHUNK / arch.sample_rate / w,
+                           "cond_share_of_wall": st["cond_s"] / w,
+                           "cond_ms_per_step": 1000.0 * st["cond_s"] / max(st["steps"], 1)}
+
+    # A turbo pool, and a speaker-conditioned mega pool (Cc' = 80).
+    treqs = [dict(r, n_samples=min(r["n_samples"], 3 * CHUNK)) for r in requests[:3]]
+    n_turbo = counters["turbo_step"].launches
+    tout, _, tst, _ = serve_pool(params, arch, treqs, 10, first_wave=3, engine="turbo")
+    turbo_steps = counters["turbo_step"].launches - n_turbo
+    require(len(tout) == 3 and turbo_steps == tst["steps"] * CHUNK,
+            f"the turbo mel pool: {len(tout)} delivered, {turbo_steps} launches")
+    sreqs = [dict(r, speaker=s) for r, s in zip(requests[:4], (0, 3, 5, 7))]
+    sout, _, _, _ = serve_pool(sp, sarch, sreqs, MEL_B, first_wave=4)
+    srep = min((r for r in sreqs if r["temperature"] > 0), key=lambda r: r["n_samples"])
+    speaker_replay = bool(np.array_equal(serve_pool(sp, sarch, [srep], 1, first_wave=1)[0][
+        srep["id"]], sout[srep["id"]]))
+    require(len(sout) == 4 and speaker_replay, "the speaker pool failed or its replay differs")
+
+    # The pallas engine with cond: B1 once per step.
+    n_stack = counters["fused_stack"].launches
+    cond64 = torch.stack([conds[i % MEL_REQUESTS][:64] for i in range(MEL_B)])
+    pcls = G.generate_classes(params, arch, 3, MEL_B, 64, cond=cond64, engine="pallas")
+    require(pcls.shape == (MEL_B, 64) and counters["fused_stack"].launches - n_stack == 64,
+            "the conditioned pallas engine did not launch B1 once per step")
+
+    # A chunked mel run replays the one-shot run bit for bit.
+    n = 4 * CHUNK
+    cond8 = torch.stack([cond[:n] for cond in conds])
+    one_shot = G.generate_classes(params, arch, 11, MEL_REQUESTS, n, cond=cond8, engine="mega")
+    stream = G.start_stream(arch, MEL_REQUESTS, 11, engine="mega", params=params)
+    parts = []
+    for i in range(4):
+        cls, stream = G.stream_chunk(params, arch, stream, CHUNK,
+                                     cond=cond8[:, i * CHUNK: (i + 1) * CHUNK], engine="mega")
+        parts.append(cls)
+    chunked_equal = bool(torch.equal(torch.cat(parts, 1), one_shot))
+    require(chunked_equal, "a chunked mel run differs from the one-shot run")
+
+    # `cli generate --mel --stream-chunk` (the StreamingUpsampler path) from
+    # a checkpoint against the in-process one-shot audio.
+    work = os.path.join(BUILD, "chip_smoke_mel")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        save_params(os.path.join(work, "ckpt"), params, 0)
+        n_cli = 2 * CHUNK
+        mel = frames[:, : -(-n_cli // arch.hop_size) + 4].cpu().numpy()
+        np.save(os.path.join(work, "mel.npy"), mel)
+        proc = subprocess.run([
+            sys.executable, "-m", "lb_wavenet_tpu_torch.cli", "generate",
+            "--config", MEL_CONFIG, "--mel", os.path.join(work, "mel.npy"),
+            "--stream-chunk", str(CHUNK),
+            "--set", f"gen.checkpoint_dir={os.path.join(work, 'ckpt')}",
+            "--set", f"gen.out_dir={os.path.join(work, 'wav')}",
+            "--set", f"gen.batch_size={MEL_REQUESTS}", "--set", f"gen.n_samples={n_cli}",
+            "--set", "gen.engine=mega", "--set", "gen.seed=5"],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        require(proc.returncode == 0, f"cli generate --mel failed:\n{proc.stderr[-4000:]}")
+        ref = G.generate(params, arch, 5, MEL_REQUESTS, n_cli, cond_frames=mel,
+                         engine="mega").cpu().numpy()
+        cli_equal = all(np.array_equal(
+            wavfile.read(os.path.join(work, "wav", f"gen_{i:04d}.wav"))[1],
+            (np.clip(ref[i], -1, 1) * 32767.0).astype(np.int16)) for i in range(MEL_REQUESTS))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(cli_equal, "cli generate --mel --stream-chunk differs from the one-shot audio")
+
+    # One-rank model-sharded conditioned serving on NCCL (B7 with cond).
+    work = os.path.join(BUILD, "chip_smoke_mel_tp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    n_tp = counters["tp_fused_stack"].launches
+    cond_tp = torch.stack([conds[i % MEL_REQUESTS][:MEL_TP_STEPS] for i in range(MEL_B)])
+    try:
+        backend = init_distributed(device="cuda", init_method=f"file://{work}/store", rank=0,
+                                   world_size=1)
+        mesh = make_mesh(1, 1)
+        with no_plain_tp():
+            greedy = S.mesh_generate_classes(params, arch, 19, MEL_B, MEL_TP_STEPS, mesh,
+                                             engine="mega", temperature=0.0, cond=cond_tp)
+            sess = S.ShardedSession(params, arch, MEL_B, 19, mesh, engine="mega")
+            q = MEL_TP_STEPS // 4
+            chunks = torch.cat([sess.chunk(q, cond=cond_tp[:, i * q: (i + 1) * q],
+                                           temperature=1.0) for i in range(4)], 1)
+            one = S.mesh_generate_classes(params, arch, 19, MEL_B, MEL_TP_STEPS, mesh,
+                                          engine="mega", temperature=1.0, cond=cond_tp)
+            torch.cuda.synchronize()
+    finally:
+        shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    tp_launches = counters["tp_fused_stack"].launches - n_tp
+    ref = G.generate_classes(params, arch, 19, MEL_B, MEL_TP_STEPS, cond=cond_tp,
+                             engine="mega", temperature=0.0)
+    first_div, lanes_equal = compare_runs(greedy, ref)
+    gap = hold_tp_choices(params, arch, greedy, 0.0, cond=cond_tp)
+    tp_chunked_equal = bool(torch.equal(chunks, one))
+    launches = {f"{k}_cond": f.launches for k, f in counters.items()}
+    log(json.dumps({
+        "phase": "mel_serving", "gpu": gpu, "config": "configs/wavenet30_mel.json",
+        "chunk": CHUNK, "upsample_ms_per_utterance": up_ms, "utterance_samples": lengths,
+        "mel_pool": pool_8, "full_pools": full,
+        "turbo_pool": {"requests": len(treqs), "pool_batch": 10, "launches": turbo_steps},
+        "speaker_pool": {"requests": len(sreqs), "Cc_folded": sarch.cond_channels
+                         + sarch.speaker_embed_dim, "replay_bit_identical": speaker_replay},
+        "pallas_engine_steps": 64, "chunked_equals_one_shot": chunked_equal,
+        "cli_generate_mel_stream_equals_one_shot": cli_equal,
+        "tp_1rank": {"backend": backend, "B": MEL_B, "steps": MEL_TP_STEPS,
+                     "b7_launches": tp_launches, "greedy_vs_single_device_mega": {
+                         "first_divergent_step": first_div, "lanes_equal": lanes_equal,
+                         "max_choice_gap": gap, "gap_tol": 2 * LOGIT_ATOL},
+                     "chunked_equals_one_shot": tp_chunked_equal},
+        "launches": launches,
+    }))
+    require(backend == "nccl", f"one rank on its card should run NCCL, not {backend}")
+    require(tp_launches == 3 * MEL_TP_STEPS, f"B7 launched {tp_launches} times")
+    require(gap <= 2 * LOGIT_ATOL, f"conditioned B7 chose a class {gap} below the plain max")
+    require(tp_chunked_equal, "the conditioned sharded session differs from one-shot")
+    require(all(v > 0 for v in launches.values()), f"a conditioned kernel never ran: {launches}")
+    return launches, {"upsample_ms": up_ms, "pool": pool_8, "full": full}
+
+
+def phase_mel_timing(params, arch, measured, errs, launches, gpu):
+    """The conditioned kernels timed against the unconditioned ones on the
+    same inputs (mega per 1024-step chunk and turbo and B1 per step at B=64
+    and 512, B7 per step at S_l=128, B=64), each beside its bound; one
+    utterance's upsampling; the `kernels` rows of the conditioned variants
+    (B=64, Cc'=64)."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.conditioning import upsample_cond
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_step, ar_tp, ar_turbo
+
+    dt = compute_dtype(arch)
+    wb, cc = torch.finfo(dt).bits // 8, arch.cond_channels
+    lp = params["layers"]
+    g = torch.Generator(device="cuda").manual_seed(41)
+    table, rows = {}, []
+    with comparison_launches():
+        for b in (MEL_B, B):
+            h0, e0 = G._fused_frontend_zero(params, arch, b)
+            carry = ar_mega.mega_zero_carry(arch, h0, e0)
+            free = torch.full((CHUNK, b), -1, device="cuda", dtype=torch.int32)
+            lane = torch.stack([torch.arange(b, device="cuda", dtype=torch.int32),
+                                torch.zeros(b, device="cuda", dtype=torch.int32),
+                                torch.full((b,), 1 / 0.7, device="cuda").view(torch.int32)])
+            cond = mel_inputs(arch, g, b, (CHUNK,))[1]
+            state = {"bufs": torch.zeros((sum(arch.dilations), b, arch.residual_channels),
+                                         device="cuda"), "h": h0.clone(), "e": e0.clone()}
+            ring = torch.randn((sum(arch.dilations), b, arch.residual_channels), device="cuda",
+                               generator=g)
+            hh = torch.randn((b, arch.residual_channels), device="cuda", generator=g)
+            for name, kw in (("uncond", {}), ("cond", {"cond": cond})):
+                table[f"mega B={b} {name}"] = cuda_ms(lambda: ar_mega.mega_generate_cuda(
+                    params, lp, arch, carry, 0, free, 1.0, False, lane, 0, **kw), 2)
+                tc = {} if not kw else {"cond": cond[:64]}
+                table[f"turbo B={b} {name}"] = cuda_ms(lambda: ar_turbo.turbo_generate_cuda(
+                    params, lp, arch, state, 0, free[:64], 1.0, False, lane, 0, **tc), 3) / 64
+                ct = None if not kw else cond[0]
+                table[f"fused_stack B={b} {name}"] = cuda_ms(
+                    lambda: ar_step.fused_stack(lp, arch, hh, ring, 700, ct), 50)
+            table[f"bound mega B={b}"] = [bound_ms(*mega_cost(arch, b, CHUNK, 3, wb, k))[0]
+                                          for k in (0, cc)]
+            table[f"bound turbo B={b}"] = [bound_ms(*turbo_cost(arch, b, 3, wb, k))[0]
+                                           for k in (0, cc)]
+            table[f"bound fused_stack B={b}"] = [bound_ms(*stack_cost(arch, b, wb, k))[0]
+                                                 for k in (0, cc)]
+        b = MEL_B
+        lp_h = skip_half(lp, arch, 0)
+        fm_u = G._tp_weights(params, {k: v for k, v in lp_h.items() if k != "w_cond"}, dt)
+        fm_c = G._tp_weights(params, lp_h, dt)
+        ring_t = torch.randn((sum(arch.dilations), arch.residual_channels, b), device="cuda",
+                             generator=g)
+        h0_t = torch.randn((arch.residual_channels, b), device="cuda", generator=g)
+        cond_fm = mel_inputs(arch, g, b, ())[1].t().contiguous()
+        table["tp_fused_stack S_l=128 uncond"] = cuda_ms(
+            lambda: ar_tp.tp_fused_stack(fm_u, arch, h0_t, ring_t, 700), 50)
+        table["tp_fused_stack S_l=128 cond"] = cuda_ms(
+            lambda: ar_tp.tp_fused_stack(fm_c, arch, h0_t, ring_t, 700, cond_fm), 50)
+        s_l = arch.skip_channels // 2
+        table["bound tp_fused_stack S_l=128"] = [bound_ms(*tp_cost(arch, b, s_l, wb, k))[0]
+                                                 for k in (0, cc)]
+        # The kernels rows (B = 64, Cc' = 64): mega over a 256-step launch
+        # (its plain version emulates the tensor cores in float64).
+        n = 256
+        h0, e0 = G._fused_frontend_zero(params, arch, b)
+        carry = ar_mega.mega_zero_carry(arch, h0, e0)
+        free = torch.full((n, b), -1, device="cuda", dtype=torch.int32)
+        lane = torch.stack([torch.arange(b, device="cuda", dtype=torch.int32),
+                            torch.zeros(b, device="cuda", dtype=torch.int32)])
+        cond = mel_inputs(arch, g, b, (n,))[1]
+        state = {"bufs": torch.zeros((sum(arch.dilations), b, arch.residual_channels),
+                                     device="cuda"), "h": h0.clone(), "e": e0.clone()}
+
+        def plain_ms(fn, reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return 1000 * (time.perf_counter() - t0) / reps
+
+        mega = (cuda_ms(lambda: ar_mega.mega_generate_cuda(
+            params, lp, arch, carry, 0, free, 1.0, False, lane, 0, cond=cond), 3),
+            plain_ms(lambda: ar_mega.mega_generate_plain(
+                params, lp, arch, carry, 0, free, 1.0, False, lane, 0, cond=cond), 1),
+            mega_cost(arch, b, n, 2, wb, cc))
+        turbo = (cuda_ms(lambda: ar_turbo.turbo_generate_cuda(
+            params, lp, arch, state, 0, free[:64], 1.0, False, lane, 0, cond=cond[:64]), 3) / 64,
+            plain_ms(lambda: ar_turbo.turbo_generate_plain(
+                params, lp, arch, state, 0, free[:4], 1.0, False, lane, 0, cond=cond[:4]), 1) / 4,
+            turbo_cost(arch, b, 2, wb, cc))
+        ring = torch.randn((sum(arch.dilations), b, arch.residual_channels), device="cuda",
+                           generator=g)
+        hh = torch.randn((b, arch.residual_channels), device="cuda", generator=g)
+        stack = (cuda_ms(lambda: ar_step.fused_stack(lp, arch, hh, ring, 700, cond[0]), 50),
+                 plain_ms(lambda: ar_step.fused_stack_plain(lp, arch, hh, ring, 700,
+                                                            cond_t=cond[0]), 3),
+                 stack_cost(arch, b, wb, cc))
+        tp = (table["tp_fused_stack S_l=128 cond"],
+              plain_ms(lambda: ar_tp.tp_fused_stack_plain(fm_c, arch, h0_t, ring_t, 700,
+                                                          cond_t=cond_fm), 3),
+              tp_cost(arch, b, s_l, wb, cc))
+        frames = torch.randn((1, -(-arch.sample_rate // arch.hop_size), arch.n_mels),
+                             device="cuda", generator=g)
+        up = cuda_ms(lambda: upsample_cond(params["upsampler"], arch, frames, dt), 5)
+    ratios = {k.replace(" cond", ""): table[k] / table[k.replace(" cond", " uncond")]
+              for k in table if k.endswith(" cond")}
+    log(json.dumps({
+        "phase": "mel_timing", "gpu": gpu, "config": "configs/wavenet30_mel.json",
+        "Cc": cc, "ms": {k: v for k, v in table.items() if not k.startswith("bound")},
+        "bound_ms_uncond_cond": {k[6:]: v for k, v in table.items() if k.startswith("bound")},
+        "cond_over_uncond": ratios,
+        "units": {"mega": f"ms per {CHUNK}-step launch", "turbo": "ms per step",
+                  "fused_stack": "ms per step", "tp_fused_stack": "ms per step"},
+        "upsample_cond_ms_per_1s_utterance": up,
+        "pool_cond_share_of_wall": {k: v["cond_share_of_wall"]
+                                    for k, v in measured["full"].items()},
+        "delivered_audio_sec_per_s": {k: v["delivered_audio_sec_per_s"]
+                                      for k, v in measured["full"].items()},
+    }))
+    for name, src, rep, (ms, plain, cost), unit in (
+        ("mega_generate_cond", "ar_mega.cu", "ar_mega.py:397", mega,
+         f"ms per launch ({n} steps, B={b}, Cc'={cc})"),
+        ("turbo_step_cond", "ar_turbo.cu", "ar_turbo.py:202", turbo,
+         f"ms per launch (1 step, B={b}, Cc'={cc})"),
+        ("fused_stack_cond", "ar_step.cu", "ar_step.py:105", stack,
+         f"ms per launch (1 step, B={b}, Cc'={cc})"),
+        ("tp_fused_stack_cond", "ar_tp.cu", "ar_tp.py:112", tp,
+         f"ms per launch (1 step, B={b}, S_l={s_l}, Cc'={cc})"),
+    ):
+        bms, by = bound_ms(*cost)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"lb_wavenet_tpu_torch/csrc/{src}",
+            "replaces": f"lb_wavenet_tpu/ops/pallas/{rep}", "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "unit": unit, "launches_per_call": 1,
+            "config": "configs/wavenet30_mel.json"})
+    return rows
+
+
 def train_timings(params, arch):
     """{name: (ms, plain ms, (bytes, flops))} of the six training kernels
     at the training shapes (tapcat on, as wavenet30.json trains)."""
@@ -2218,7 +2909,7 @@ def sampling_timings(params, arch, b: int, plain: bool) -> dict:
     return {"mega": (mega_ms, mega_plain), "turbo": (turbo_ms, turbo_plain)}
 
 
-def phase_timing(params, arch, errs, launches, gpu, tp):
+def phase_timing(params, arch, errs, launches, gpu, tp, mel):
     import torch
 
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
@@ -2333,6 +3024,7 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
             row["ms_S_l256"], _, cost_h = tp_times[s_whole // 2]
             row["bound_ms_S_l256"] = bound_ms(*cost_h)[0]
         kernels.append(row)
+    kernels += phase_mel_timing(*mel, errs, launches, gpu)
     train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
                    "tapcat": True}
     log(json.dumps({"phase": "shapes", "gpu": gpu,
@@ -2347,6 +3039,14 @@ def phase_timing(params, arch, errs, launches, gpu, tp):
                                        "S_l": s_whole, "steps": 1,
                                        "also": f"S_l={s_whole // 2}"}}))
     log(json.dumps({"kernels": kernels}))
+
+
+def timed(name, fn, *args):
+    """fn(*args), logging the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(json.dumps({"phase_seconds": name, "seconds": round(time.perf_counter() - t0, 2)}))
+    return out
 
 
 def main() -> int:
@@ -2368,28 +3068,38 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         gpu = gpu_line()
-        phase_environment()
+        timed("environment", phase_environment)
         arch = Config.load(os.path.join(ROOT, "configs", "wavenet30.json")).arch
         params = params_from_jax(numpy_params(arch, 0), device="cuda")
-        errs = phase_kernels(params, arch, gpu)
-        errs.update(phase_turbo_kernels(params, arch, gpu))
-        phase_cuda_core_sampling(arch, gpu)
-        phase_stack_cuda_core(arch, gpu)
-        errs.update(phase_train_kernels(params, arch, gpu))
-        phase_train_stack_cuda_core(arch, gpu)
-        phase_post_loss_cuda_core(arch, gpu)
-        launches = {"mega_generate": phase_serving(params, arch, gpu),
-                    "fused_stack": phase_pallas_engine(params, arch, gpu),
-                    "turbo_step": phase_turbo_serving(params, arch, gpu)}
+        errs = timed("kernels", phase_kernels, params, arch, gpu)
+        errs.update(timed("turbo_kernels", phase_turbo_kernels, params, arch, gpu))
+        timed("cuda_core_sampling", phase_cuda_core_sampling, arch, gpu)
+        timed("stack_cuda_core", phase_stack_cuda_core, arch, gpu)
+        errs.update(timed("train_kernels", phase_train_kernels, params, arch, gpu))
+        timed("train_stack_cuda_core", phase_train_stack_cuda_core, arch, gpu)
+        timed("post_loss_cuda_core", phase_post_loss_cuda_core, arch, gpu)
+        launches = {"mega_generate": timed("serving", phase_serving, params, arch, gpu),
+                    "fused_stack": timed("pallas_engine", phase_pallas_engine, params, arch,
+                                         gpu),
+                    "turbo_step": timed("turbo_serving", phase_turbo_serving, params, arch,
+                                        gpu)}
         tp_arch, tp_params = tp_setup()
-        errs.update(phase_tp_kernel(tp_params, tp_arch, gpu))
-        launches["tp_fused_stack"], one_rank, tp_measured = phase_tp_serving_1rank(
-            tp_params, tp_arch, gpu)
-        tp_measured["two_rank_step_ms"] = phase_tp_serving_2rank(tp_params, tp_arch, one_rank,
-                                                                 gpu)
-        train_launches, _ = phase_training(arch, gpu)
+        errs.update(timed("tp_kernel", phase_tp_kernel, tp_params, tp_arch, gpu))
+        launches["tp_fused_stack"], one_rank, tp_measured = timed(
+            "tp_serving_1rank", phase_tp_serving_1rank, tp_params, tp_arch, gpu)
+        tp_measured["two_rank_step_ms"] = timed("tp_serving_2rank", phase_tp_serving_2rank,
+                                                tp_params, tp_arch, one_rank, gpu)
+        mel_arch, mel_params = mel_setup()
+        spk_arch, spk_params = mel_setup(MEL_SPEAKERS)
+        errs.update(timed("mel_kernels", phase_mel_kernels, mel_params, mel_arch, spk_params,
+                          gpu))
+        mel_launches, mel_measured = timed("mel_serving", phase_mel_serving, mel_params,
+                                           mel_arch, spk_params, spk_arch, gpu)
+        launches.update(mel_launches)
+        train_launches, _ = timed("training", phase_training, arch, gpu)
         launches.update(train_launches)
-        phase_timing(params, arch, errs, launches, gpu, (tp_arch, tp_params, tp_measured))
+        timed("timing", phase_timing, params, arch, errs, launches, gpu,
+              (tp_arch, tp_params, tp_measured), (mel_params, mel_arch, mel_measured))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

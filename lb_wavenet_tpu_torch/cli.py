@@ -1,6 +1,5 @@
 """Command-line entry points of the port: `train`, `eval`, `serve --requests`
-and `generate` (the unconditioned, single-device parts of
-`lb_wavenet_tpu/cli.py`).
+and `generate` (the in-process parts of `lb_wavenet_tpu/cli.py`).
 
     python -m lb_wavenet_tpu_torch.cli train --config configs/wavenet30.json \
         --set train.data_dir=/data/wavs
@@ -10,6 +9,14 @@ and `generate` (the unconditioned, single-device parts of
         --requests requests.jsonl --set gen.checkpoint_dir=/ckpt
     python -m lb_wavenet_tpu_torch.cli generate --config configs/wavenet30.json \
         --set gen.batch_size=8 --set gen.n_samples=16000 --set gen.engine=turbo
+    python -m lb_wavenet_tpu_torch.cli generate --config configs/wavenet30_mel.json \
+        --mel frames.npy --set gen.checkpoint_dir=/ckpt
+
+The mel-conditioned vocoder takes `generate --mel <(B, F, n_mels) .npy>`
+(upsampled once, or streamed through the StreamingUpsampler with
+--stream-chunk) and `serve` request lines with "mel": "<(F, n_mels) .npy>";
+speaker-conditioned archs take `generate --speakers 3` (or one id per lane)
+and "speaker" in request lines.
 
 Model-sharded serving and synthesis run one process per rank under
 torchrun (`torch.distributed`; NCCL when each rank has a card, gloo when
@@ -31,8 +38,9 @@ to run the plain PyTorch paths. `train` writes its checkpoints to
 train.checkpoint_dir and resumes from them; `generate`/`serve` read the
 params of the latest checkpoint in gen.checkpoint_dir (a training directory
 or `utils.checkpoint.save_params` files), and so does `eval`. The other
-subcommands (info, export, warm, pack), `train --profile` and the serving
-options (--listen, --artifact, mel/speaker requests) are ROADMAP.md items.
+subcommands (info, export, warm, pack), `train --profile`, `generate
+--prime` and the serving options (--listen, --artifact) are ROADMAP.md
+items.
 """
 from __future__ import annotations
 
@@ -69,7 +77,8 @@ def _engine(cfg, default: str) -> str:
 
 
 def _read_requests(path: str, cfg):
-    """[(id, n_samples, seed, temperature)] from a JSONL file, validated."""
+    """[(id, n_samples, speaker, mel, seed, temperature)] from a JSONL file,
+    validated."""
     requests = []
     seen = set()
     seen_safe: dict = {}
@@ -83,6 +92,7 @@ def _read_requests(path: str, cfg):
                 rid, n = str(r["id"]), int(r["n_samples"])
                 seed = int(r["seed"]) if "seed" in r else None
                 temp = float(r["temperature"]) if "temperature" in r else None
+                speaker = int(r["speaker"]) if "speaker" in r else None
             except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
                 raise SystemExit(f"{path}:{ln}: {e}")
             if temp is not None and temp < 0:
@@ -100,11 +110,17 @@ def _read_requests(path: str, cfg):
                     f"({safe}.wav)"
                 )
             seen_safe[safe] = rid
-            if "mel" in r or "speaker" in r:
+            mel = r.get("mel")
+            if cfg.arch.use_local_cond and not mel:
                 raise SystemExit(
-                    f"{path}:{ln}: mel/speaker requests are not ported yet "
-                    "(ROADMAP.md A queue item 4)"
-                )
+                    f"{path}:{ln}: mel-conditioned arch: each request needs "
+                    '"mel": "<frames.npy>" ((F, n_mels), F * hop_size >= n_samples)')
+            if mel and not cfg.arch.use_local_cond:
+                raise SystemExit(f"{path}:{ln}: request has mel but the arch is not "
+                                 "mel-conditioned (arch.n_mels == 0)")
+            if speaker is not None and not (0 <= speaker < cfg.arch.n_speakers):
+                raise SystemExit(f"{path}:{ln}: speaker {speaker} is not one of the arch's "
+                                 f"{cfg.arch.n_speakers} speakers")
             if seed is not None and cfg.gen.global_rng:
                 raise SystemExit(
                     f"{path}:{ln}: per-request seeds need the per-lane "
@@ -116,7 +132,7 @@ def _read_requests(path: str, cfg):
                     "per-lane sampling default (gen.global_rng=false) and a "
                     "sampled pool (gen.temperature > 0)"
                 )
-            requests.append((rid, n, seed, temp))
+            requests.append((rid, n, speaker, mel, seed, temp))
     if not requests:
         raise SystemExit(f"{path}: no requests")
     return requests
@@ -213,6 +229,33 @@ def cmd_serve(args) -> int:
     if lead:
         os.makedirs(cfg.gen.out_dir, exist_ok=True)
 
+    def make_cond_fn(mel_path: str, n_samples: int, where: str):
+        """A request's conditioning: its (F, n_mels) frames upsampled ONCE
+        on the pool's device, served to the pool in slices. The frames are
+        zero-padded to a multiple of 32 first, as the JAX CLI pads them (to
+        bound its compiled shapes), so the two serve the same cond."""
+        from .models.conditioning import upsample_cond
+        from .models.wavenet import compute_dtype
+
+        frames = np.load(mel_path)
+        if frames.ndim != 2 or frames.shape[1] != cfg.arch.n_mels:
+            raise SystemExit(f"{where}: mel {mel_path} has shape {frames.shape}, "
+                             f"expected (F, {cfg.arch.n_mels})")
+        if frames.shape[0] * cfg.arch.hop_size < n_samples:
+            raise SystemExit(f"{where}: mel {mel_path} covers "
+                             f"{frames.shape[0] * cfg.arch.hop_size} samples < "
+                             f"n_samples={n_samples}")
+        padded = np.zeros((1, -(-frames.shape[0] // 32) * 32, cfg.arch.n_mels), np.float32)
+        padded[0, : frames.shape[0]] = frames
+        cond = upsample_cond(pool.params["upsampler"], cfg.arch,
+                             torch.from_numpy(padded).to(pool.device),
+                             compute_dtype(cfg.arch))[0, :n_samples]
+
+        def cond_fn(t_local: int, n: int):
+            return cond[t_local: t_local + n]
+
+        return cond_fn
+
     next_req = 0
     parts: dict = {}
     used_seed: dict = {}
@@ -220,13 +263,16 @@ def cmd_serve(args) -> int:
     def fill():
         nonlocal next_req
         while next_req < len(requests):
-            rid, n, seed, temp = requests[next_req]
+            rid, n, speaker, mel, seed, temp = requests[next_req]
             if seed is None and pool.per_lane_rng:
                 # Deterministic per-request seed, logged on completion so a
                 # served request can be replayed on a dedicated session.
                 seed = (cfg.gen.seed * 0x9E3779B1 + next_req) & 0x7FFFFFFF
-            if not pool.submit(rid, n, seed=seed if pool.per_lane_rng else None,
-                               temperature=temp):
+            if not pool.free_lanes():
+                break
+            cond_fn = (make_cond_fn(mel, n, f"{args.requests}:{rid}") if mel else None)
+            if not pool.submit(rid, n, speaker=speaker, cond_fn=cond_fn,
+                               seed=seed if pool.per_lane_rng else None, temperature=temp):
                 break
             parts[rid] = []
             used_seed[rid] = seed
@@ -299,13 +345,43 @@ def cmd_generate(args) -> int:
     from .utils.checkpoint import restore_params
 
     params = restore_params(cfg.gen.checkpoint_dir)
+    b = cfg.gen.batch_size
+    if not (_distributed(args) or args.fleet):
+        # Once, not per chunk: the kernels' packed weights are cached per
+        # weight tensor (ops/cuda/build.prepared).
+        from .generate import resolve_device
+        from .models.wavenet import params_to
+
+        params = params_to(params, resolve_device(args.device))
+    cond_frames = None
+    if cfg.arch.use_local_cond:
+        if not args.mel:
+            raise SystemExit("mel-conditioned arch needs --mel <npy file of (B, F, n_mels)>")
+        cond_frames = np.load(args.mel).astype(np.float32)
+        if cond_frames.shape[0] != b or cond_frames.ndim != 3 \
+                or cond_frames.shape[2] != cfg.arch.n_mels:
+            raise SystemExit(f"--mel {args.mel}: shape {cond_frames.shape}, expected "
+                             f"({b}, F, {cfg.arch.n_mels})")
+        if cond_frames.shape[1] * cfg.arch.hop_size < cfg.gen.n_samples:
+            raise SystemExit(f"--mel frames cover {cond_frames.shape[1] * cfg.arch.hop_size} "
+                             f"samples < gen.n_samples={cfg.gen.n_samples}")
+    elif args.mel:
+        raise SystemExit("--mel given but the arch is not mel-conditioned (arch.n_mels == 0)")
+    speaker_ids = None
+    if args.speakers:
+        if not cfg.arch.use_global_cond:
+            raise SystemExit("--speakers given but arch.n_speakers == 0")
+        ids = [int(x) for x in args.speakers.split(",")]
+        ids = ids * b if len(ids) == 1 else ids
+        if len(ids) != b:
+            raise SystemExit(f"--speakers needs 1 or {b} ids, got {len(ids)}")
+        speaker_ids = np.asarray(ids, np.int64)
     if _distributed(args) or args.fleet:
         if args.stream_chunk:
             raise SystemExit("--stream-chunk sessions are single-process; drop it for "
                              "mesh synthesis (or serve through `serve --mesh-model`)")
-        return _generate_mesh(args, cfg, params)
+        return _generate_mesh(args, cfg, params, cond_frames, speaker_ids)
     engine = _engine(cfg, "xla")
-    b = cfg.gen.batch_size
     if args.stream_chunk:
         chunk = int(args.stream_chunk)
         if chunk <= 0:
@@ -313,11 +389,16 @@ def cmd_generate(args) -> int:
         device_b = padded_stream_batch(b, engine)
         stream = start_stream(cfg.arch, device_b, cfg.gen.seed, engine=engine,
                               params=params, device=args.device)
+        cond_chunks = None if cond_frames is None else _cond_chunks(
+            params, cfg.arch, cond_frames, chunk, device_b, params["embed"].device)
+        spk = None if speaker_ids is None else np.concatenate(
+            [speaker_ids, np.zeros(device_b - b, np.int64)])   # pad lanes: speaker 0
         parts = []
         emitted = 0
         while emitted < cfg.gen.n_samples:
             classes, stream = stream_chunk(
                 params, cfg.arch, stream, chunk,
+                cond=None if cond_chunks is None else next(cond_chunks), speaker_ids=spk,
                 temperature=cfg.gen.temperature, engine=engine,
                 global_rng=cfg.gen.global_rng,
             )
@@ -329,8 +410,9 @@ def cmd_generate(args) -> int:
     else:
         wav_np = generate(
             params, cfg.arch, cfg.gen.seed, batch=b,
-            n_samples=cfg.gen.n_samples, temperature=cfg.gen.temperature,
-            engine=engine, global_rng=cfg.gen.global_rng, device=args.device,
+            n_samples=cfg.gen.n_samples, cond_frames=cond_frames, speaker_ids=speaker_ids,
+            temperature=cfg.gen.temperature, engine=engine,
+            global_rng=cfg.gen.global_rng, device=args.device,
         ).cpu().numpy()
 
     os.makedirs(cfg.gen.out_dir, exist_ok=True)
@@ -345,13 +427,48 @@ def cmd_generate(args) -> int:
     return 0
 
 
-def _generate_mesh(args, cfg, params) -> int:
+def _cond_chunks(params, arch, cond_frames, chunk: int, device_b: int, device):
+    """Yield (device_b, chunk, Cc) conditioning chunks from frame-rate mel
+    (B, F, n_mels) through the StreamingUpsampler (a fixed lookahead of
+    cond_halo_frames), so the chunked output equals the one-shot mel path.
+    The tail past the last frame and the pad lanes are zeros (the caller
+    trims those samples and lanes)."""
+    import torch
+
+    from .models.conditioning import StreamingUpsampler
+    from .models.wavenet import compute_dtype, params_to
+
+    dt = compute_dtype(arch)
+    ups = StreamingUpsampler(params_to(params["upsampler"], device), arch, dt)
+    b, cc = cond_frames.shape[0], arch.cond_channels
+    pending = torch.zeros((b, 0, cc), dtype=dt, device=device)
+    fed, done = 0, False
+    fpc = max(chunk // arch.hop_size, 1)   # frames fed per refill
+    while True:
+        while pending.shape[1] < chunk and not done:
+            if fed < cond_frames.shape[1]:
+                out = ups.feed(cond_frames[:, fed: fed + fpc])
+                fed += fpc
+            else:
+                out = ups.finish()
+                done = True
+            pending = torch.cat([pending, out], 1)
+        out = torch.zeros((device_b, chunk, cc), dtype=dt, device=device)
+        out[:b, : min(chunk, pending.shape[1])] = pending[:, :chunk]
+        yield out
+        pending = pending[:, chunk:]
+
+
+def _generate_mesh(args, cfg, params, cond_frames=None, speaker_ids=None) -> int:
     """Synthesis over a (data, model) process mesh: the GLOBAL
     gen.batch_size is split over the data axis; --mesh-model N > 1 splits
     the model's skip width over the model axis (mesh_generate_classes),
     otherwise the model is replicated (fleet_generate_classes). The classes
-    are gathered on every rank; rank 0 writes the wavs and the summary."""
+    are gathered on every rank; rank 0 writes the wavs and the summary.
+    Mel frames are upsampled once on each rank, host-replicated as every
+    input."""
     import numpy as np
+    import torch
 
     from .data import write_wav
     from .generate import mu_law_decode
@@ -364,10 +481,18 @@ def _generate_mesh(args, cfg, params) -> int:
     if batch % mesh.data:
         raise SystemExit(f"gen.batch_size {batch} must divide by the data axis {mesh.data}")
     engine = _engine(cfg, "mega" if (batch // mesh.data) % LANE_TILE == 0 else "turbo")
+    cond = None
+    if cond_frames is not None:
+        from .models.conditioning import upsample_cond
+        from .models.wavenet import compute_dtype, params_to
+
+        cond = upsample_cond(params_to(params["upsampler"], mesh.device), cfg.arch,
+                             torch.from_numpy(cond_frames).to(mesh.device),
+                             compute_dtype(cfg.arch))
     run = mesh_generate_classes if mesh.model > 1 else fleet_generate_classes
     classes = run(params, cfg.arch, cfg.gen.seed, batch, cfg.gen.n_samples, mesh,
                   engine=engine, temperature=cfg.gen.temperature,
-                  global_rng=cfg.gen.global_rng)
+                  global_rng=cfg.gen.global_rng, cond=cond, speaker_ids=speaker_ids)
     if (mesh.data_rank, mesh.model_rank) == (0, 0):
         wav_np = mu_law_decode(classes, cfg.arch.quant_channels).cpu().numpy()
         os.makedirs(cfg.gen.out_dir, exist_ok=True)
@@ -417,6 +542,13 @@ def main(argv=None) -> int:
         help="split the model's skip width over an N-rank model axis (run under "
         "torchrun; the data axis takes the rest of the ranks)",
     )
+    p_gen.add_argument("--mel", default="",
+                       help="mel-conditioned archs: .npy of frames (B, F, n_mels)")
+    p_gen.add_argument(
+        "--speakers", default="",
+        help="speaker-conditioned archs: comma-separated speaker ids, one per "
+        "lane or a single id for every lane",
+    )
     p_gen.add_argument(
         "--fleet", action="store_true",
         help="shard gen.batch_size over every rank with the model replicated "
@@ -429,9 +561,11 @@ def main(argv=None) -> int:
     p_serve.add_argument(
         "--requests", required=True,
         help='JSONL of {"id": ..., "n_samples": N[, "seed": N]'
-        '[, "temperature": T]} requests; "seed" pins the per-lane sampling '
-        "seed (defaults to a deterministic derivation, logged on completion "
-        "for replay)",
+        '[, "temperature": T][, "mel": "<(F, n_mels) .npy>"][, "speaker": N]} '
+        'requests; "seed" pins the per-lane sampling seed (defaults to a '
+        "deterministic derivation, logged on completion for replay); mel "
+        "(mel-conditioned archs, required there) and speaker condition the "
+        "request",
     )
     p_serve.add_argument("--stream-chunk", default=0, type=int,
                          help="samples emitted per pool step (default 1024)")

@@ -50,6 +50,18 @@
 //     instantiation WaveNet-30 selects; 168 registers and 180/552 bytes of
 //     spills at 6 (the stress config); 207,744 bytes of dynamic shared
 //     memory at WaveNet-30. Measured: PERF.md, Findings.
+//
+// Conditioning (the JAX kernel's has_cond variant: mel and/or speaker,
+// cond_ts (T, B, Cc') in the compute dtype, w_cond (L, Cc', 2G)): every
+// layer adds cond_t @ w_cond[l] to its gate pre-activation. On the tensor
+// cores the cond k-steps extend the gate product ([w_cur ; w_prev ;
+// w_cond] against [h | tap | cond], one chain, then + b; ar_tc.cuh), the
+// step's cond row staged into the bf16 tile at the start of each step (Cc'
+// bf16 a lane, 128 B at Cc' = 64; the row of the 8 lanes is contiguous);
+// on CUDA cores a separate in-order product after the bias, (wcat-sum + b)
+// + cond-sum, the JAX order. Per 1024-step launch it adds 2 B T L Cc' 2G
+// operations (+0.26 TFLOP at B = 512, Cc' = 64: +20%) and T B Cc' bf16
+// cond bytes (64 MB at B = 512); shared memory grows by 8 Cc' bf16 (1 KB).
 #include "ar_tc.cuh"
 
 namespace wn {
@@ -83,6 +95,9 @@ struct MegaArgs {
   const int* prods;    // bf16: (n_prod, 2) (M, K) of each packed product
   int n_prod, grid;    // bf16: products per step; blocks (lane tiles)
   int tc;              // bf16: 1 the tensor-core kernel, 0 the CUDA-core one
+  const void* cond;    // (T, B, Cc) compute dtype, or null: unconditioned
+  const void* wcond;   // CUDA-core route: (L, Cc, 2G) compute dtype
+  int Cc;              // conditioning channels (tensor cores: a multiple of 16)
 };
 
 template <typename T>
@@ -101,9 +116,11 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
   float* d1 = lg + Q * TB;          // [n_d1][C][TB] previous h of d == 1 layers
   float* es = d1 + a.n_d1 * C * TB; // [(K-1)C][TB] embedding stack (fp32)
   float* er = es + (K - 1) * C * TB;  // [C][TB] rounded embedding operand
-  int* cls = reinterpret_cast<int*>(er + C * TB);  // [TB]
+  float* cr = er + C * TB;          // [Cc][TB] rounded conditioning of the step
+  int* cls = reinterpret_cast<int*>(cr + a.Cc * TB);  // [TB]
   const int b0 = blockIdx.x * TB;
   const T* wcat = static_cast<const T*>(a.wcat);
+  const T* wcond = static_cast<const T*>(a.wcond);
   const T* wrs = static_cast<const T*>(a.wrs);
   const T* w1 = static_cast<const T*>(a.w1);
   const T* w2 = static_cast<const T*>(a.w2);
@@ -137,6 +154,10 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
   for (int t = 0; t < a.T; ++t) {
     const int t_abs = a.t0 + t;
     const bool last = t == a.T - 1;
+    if (wcond) {  // synced by layer 0's staging barrier
+      stage_cond<T, false>(static_cast<const T*>(a.cond) + (size_t)t * B * a.Cc, cr, B, b0,
+                           a.Cc, NT);
+    }
     int off = 0, i1 = 0;
     for (int l = 0; l < a.L; ++l) {
       const int d = a.dils[l];
@@ -168,6 +189,10 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
                [&](int m, int j, float acc) {
                  pre[m * TB + j] = acc + a.bcat[l * 2 * G + m];
                });
+      if (wcond) {  // (wcat-sum + b) + cond-sum; same M, same threads
+        block_mm(wcond + (size_t)l * a.Cc * 2 * G, 2 * G, 2 * G, a.Cc, cr,
+                 [&](int m, int j, float acc) { pre[m * TB + j] = pre[m * TB + j] + acc; });
+      }
       __syncthreads();
       for (int i = threadIdx.x; i < G * TB; i += NT) {
         zr[i] = rnd<T>(tanhf(pre[i]) * sigmoidf(pre[G * TB + i]));
@@ -212,9 +237,11 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
 
 template <typename T>
 static cudaError_t launch(const MegaArgs& a, cudaStream_t stream, int* launches) {
+  if ((a.wcond != nullptr) != (a.cond != nullptr) || (a.cond ? a.Cc < 1 : a.Cc != 0))
+    return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * TB *
                           (4 * a.C + 3 * a.G + 3 * a.S + a.Q + a.n_d1 * a.C +
-                           (a.K - 1) * a.C + a.C) +
+                           (a.K - 1) * a.C + a.C + (a.cond ? a.Cc : 0)) +
                       sizeof(int) * TB;
   cudaError_t err = cudaFuncSetAttribute(
       mega_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -254,7 +281,7 @@ __host__ __device__ inline MegaTc mega_tc_carve(const MegaArgs& a, char* base, i
   s.tap[0] = cv.take<float>(a.C * TB);
   s.tap[1] = cv.take<float>(a.C * TB);
   s.dl = cv.take<int>(a.L);
-  s.xb = cv.take<tc::bf16>(TB * (2 * a.C + 8));
+  s.xb = cv.take<tc::bf16>(TB * (2 * a.C + a.Cc + 8));
   s.zb = cv.take<tc::bf16>(TB * (a.G + 8));
   s.ab = cv.take<tc::bf16>(TB * (a.S + 8));
   s.hb = cv.take<tc::bf16>(TB * (a.S + 8));
@@ -267,8 +294,8 @@ __host__ __device__ inline MegaTc mega_tc_carve(const MegaArgs& a, char* base, i
 template <int TPW>
 __global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_slots) {
   extern __shared__ __align__(128) char smem[];
-  const int C = a.C, G = a.G, S = a.S, Q = a.Q, K = a.K, B = a.B;
-  const int CS = C + S, lda = 2 * C + 8, ldg = G + 8;
+  const int C = a.C, G = a.G, S = a.S, Q = a.Q, K = a.K, B = a.B, Cc = a.Cc;
+  const int CS = C + S, lda = 2 * C + Cc + 8, ldg = G + 8;
   size_t bytes;
   MegaTc s = mega_tc_carve(a, smem, n_slots, &bytes);
   tc::Ring ring = s.ring;  // locals: no lambda captures the struct
@@ -318,6 +345,15 @@ __global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_s
   for (int t = 0, q = 0; t < a.T; ++t) {
     const int t_abs = a.t0 + t;
     const bool last = t == a.T - 1;
+    // The step's cond row into columns 2C.. of the staged tile (the
+    // frontend's scratch use of xb ended at the last barrier); synced by
+    // layer 0's staging barrier.
+    if (Cc) {
+      const tc::bf16* ct = static_cast<const tc::bf16*>(a.cond) + ((size_t)t * B + b0) * Cc;
+      for (int i = threadIdx.x; i < Cc * TB; i += tc::NC) {
+        xb[(i / Cc) * lda + 2 * C + i % Cc] = ct[i];
+      }
+    }
     int off = 0, i1 = 0;
     for (int l = 0; l < a.L; ++l, ++q) {
       const int d = dl[l];
@@ -349,9 +385,10 @@ __global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_s
         prefetch(0, t_abs + 1, 0, next);
       }
       tc::csync();
-      // pre = [h ; tap] @ wcat + b: ONE 2C-deep sum (mega's merged tap);
-      // z = tanh(pre[m]) sigmoid(pre[G + m]) from the same thread's pair.
-      tc::mm<TPW, true>(ring, 2 * G, 2 * C, xb, lda, a.bcat + l * 2 * G,
+      // pre = [h ; tap (; cond)] @ wcat + b: ONE (2C + Cc)-deep sum
+      // (mega's merged tap, the cond k-steps last); z = tanh(pre[m])
+      // sigmoid(pre[G + m]) from the same thread's pair.
+      tc::mm<TPW, true>(ring, 2 * G, 2 * C + Cc, xb, lda, a.bcat + l * 2 * G,
                    [&](int m, int j, float at, float bt, float as, float bs) {
                      zb[j * ldg + m] =
                          __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
@@ -406,7 +443,9 @@ static cudaError_t launch_nt(const MegaArgs& a, int n_slots, size_t smem, cudaSt
 }
 
 static cudaError_t launch_tc(const MegaArgs& a, cudaStream_t stream, int* launches) {
-  if (a.grid * TB != a.B || !a.wpk || !a.prods) return cudaErrorInvalidValue;
+  if (a.grid * TB != a.B || !a.wpk || !a.prods || a.Cc < 0 || a.Cc % 16 ||
+      (a.Cc > 0) != (a.cond != nullptr))
+    return cudaErrorInvalidValue;
   size_t fixed;
   mega_tc_carve(a, nullptr, 0, &fixed);
   const int n_slots = tc::ring_slots(fixed);

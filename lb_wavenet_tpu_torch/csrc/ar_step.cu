@@ -36,6 +36,19 @@
 //   * fp32, and bf16 at other widths: stack_kernel below, CUDA-core FMAs in
 //     k order through common.cuh (split_layer), the first version.
 // The step keeps every intermediate on chip.
+//
+// Conditioning (the JAX kernel's cond_t / w_cond inputs: mel and/or speaker
+// folded into one row of Cc' channels a lane, cond_t (B, Cc') lane-major):
+// every layer adds cond_t @ w_cond[l] to its gate pre-activation. On the
+// tensor cores w_cond's k-steps follow w_prev's in the gate product of the
+// packed stream ((2C + Cc') x 2G) and are summed in the tap half of the
+// split, pre = (h @ w_cur + [tap | cond] @ [w_prev ; w_cond]) + b, the cond
+// row staged once a step into columns 2C.. of the bf16 tile (+TB Cc' bf16 of
+// shared memory, 1 KB at Cc' = 64); on CUDA cores a third in-order product
+// after the bias, ((h-sum + tap-sum) + b) + cond-sum, the JAX kernel's
+// order, from a [Cc'][TB] fp32 tile. It adds 2 B L Cc' 2G operations a step
+// (+0.25 GFLOP at B = 512, Cc' = 64: +22%), L Cc' 2G bf16 weight bytes
+// (+0.49 MB) and B Cc' cond bytes.
 #include "ar_tc.cuh"
 
 namespace wn {
@@ -53,6 +66,9 @@ struct StackArgs {
   const float* b_skip; // (L, S)
   float* skip;         // (B, S) out
   int B, L, C, G, S, t, bf16;
+  const void* cond;    // (B, Cc) compute dtype, or null: unconditioned
+  const void* w_cond;  // (L, Cc, 2G) compute dtype
+  int Cc;
 };
 
 template <typename T>
@@ -65,6 +81,7 @@ __global__ void __launch_bounds__(NT) stack_kernel(StackArgs a) {
   float* pre = tr + C * TB;      // [2G][TB]
   float* zr = pre + 2 * G * TB;  // [G][TB] rounded gate output
   float* skip = zr + G * TB;     // [S][TB]
+  float* cr = skip + S * TB;     // [Cc][TB] rounded conditioning
   const int b0 = blockIdx.x * TB;
 
   for (int i = threadIdx.x; i < C * TB; i += NT) {
@@ -72,15 +89,16 @@ __global__ void __launch_bounds__(NT) stack_kernel(StackArgs a) {
     x[c * TB + j] = b < B ? a.h0[(size_t)b * C + c] : 0.f;
   }
   for (int i = threadIdx.x; i < S * TB; i += NT) skip[i] = 0.f;
+  if (a.w_cond) stage_cond<T, false>(static_cast<const T*>(a.cond), cr, B, b0, a.Cc, NT);
   __syncthreads();
 
   int off = 0;
   for (int l = 0; l < a.L; ++l) {
     const int d = a.dils[l];
     const LayerW<T> w = layer_w<T>(a.w_cur, a.w_prev, a.b, a.w_res, a.b_res, a.w_skip,
-                                   a.b_skip, l, C, G, S);
+                                   a.b_skip, a.w_cond, l, C, G, S, a.Cc);
     split_layer(w, a.bufs + (size_t)(off + a.t % d) * B * C, B, b0, C, G, S, x, xr, tr, pre,
-                zr, skip);
+                zr, skip, cr);
     off += d;
   }
   for (int i = threadIdx.x; i < S * TB; i += NT) {
@@ -91,7 +109,9 @@ __global__ void __launch_bounds__(NT) stack_kernel(StackArgs a) {
 
 template <typename T>
 static cudaError_t launch(const StackArgs& a, cudaStream_t stream, int* launches) {
-  const size_t smem = sizeof(float) * TB * (3 * a.C + 3 * a.G + a.S);
+  if ((a.w_cond != nullptr) != (a.cond != nullptr) || (a.cond ? a.Cc < 1 : a.Cc != 0))
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * TB * (3 * a.C + 3 * a.G + a.S + (a.cond ? a.Cc : 0));
   cudaError_t err = cudaFuncSetAttribute(
       stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -121,7 +141,7 @@ extern "C" int wn_fused_stack_tc(const wn::tc::StackArgs* a, void* stream, int* 
 
 // Bytes of dynamic shared memory of the tensor-core route at these widths
 // on this device (ar_tc.py `stack_smem` must agree).
-extern "C" long long wn_fused_stack_tc_smem(int L, int C, int G, int S) {
+extern "C" long long wn_fused_stack_tc_smem(int L, int C, int G, int S, int Cc) {
   int n_slots;
-  return (long long)wn::tc::stack_smem(L, C, G, S, &n_slots);
+  return (long long)wn::tc::stack_smem(L, C, G, S, Cc, &n_slots);
 }

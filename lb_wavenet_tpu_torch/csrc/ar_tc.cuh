@@ -30,6 +30,18 @@
 //   * Kernels are instantiated per tile entries per warp (TPW: 3, or 6 for
 //     products up to 768 outputs), picked on the host, so that fragments
 //     and sums stay in registers.
+//   * Conditioning (mel and/or speaker, Cc' channels, a multiple of 16):
+//     w_cond joins the packed stream as extra k-steps of the gate product,
+//     [w_cur ; w_prev ; w_cond] ((2C + Cc') x 2G), against [h | tap | cond]
+//     staged in the same bf16 row (lda = 2C + Cc' + 8). Sum order: the cond
+//     k-steps continue the gate's chain, so pre = (chain over h, tap, cond)
+//     + b in mega's and B7's merged order, and (chain over h + chain over
+//     [tap | cond]) + b in turbo's and B1's split order; ar_tc.py
+//     `tc_product` and the plain versions sum the same way. Cost a layer
+//     and lane: 2 Cc' 2G more operations (+50% of the gate product at Cc'
+//     = 64, C = 64) and Cc' 2G bf16 weight bytes in the stream; the cond
+//     row (Cc' bf16 a lane) is read once a step; shared memory grows by TB
+//     Cc' bf16 (1 KB at Cc' = 64).
 #pragma once
 
 #include <algorithm>
@@ -246,15 +258,15 @@ __device__ __forceinline__ int tile_of(int warp, int i, int MT) {
 // k-steps per turn in two register sets) while the current one multiplies; the
 // biases load before the first wait. epi(m, lane, acc, bias[m]) consumes
 // each sum, or with PAIRED epi(m, lane, acc, bias[m], acc', bias[m']) each
-// pair m < M/2, m' = m + M/2. With SPLIT the two halves of K are summed
-// apart and then added, (first + second), turbo's split order for
-// [h | tap] @ [w_cur ; w_prev]. TPW >= tiles_per_warp(M, PAIRED), a
+// pair m < M/2, m' = m + M/2. With SPLIT the k-steps below kh and from kh
+// on are summed apart and then added, (first + second), turbo's split order
+// for [h | tap (| cond)] @ [w_cur ; w_prev (; w_cond)]. TPW >= tiles_per_warp(M, PAIRED), a
 // compile-time count so that fragments and sums stay in registers: the
 // kernels are instantiated per TPW and the host picks one for all of a
 // step's products, so each call site is compiled once.
 template <int TPW, bool PAIRED = false, bool SPLIT = false, typename Epi>
 __device__ __forceinline__ void mm(Ring& r, int M, int K, const bf16* act, int lda,
-                                   const float* bias, Epi epi) {
+                                   const float* bias, Epi epi, int kh = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int MT = M / 16, ks = K / 16, kg = kgroup(M, K);
   int mt[TPW];
@@ -277,9 +289,9 @@ __device__ __forceinline__ void mm(Ring& r, int M, int K, const bf16* act, int l
   // (rows 2t..2t+1, then 2t+8..2t+9 of column g), A tile (k, m) of a piece
   // at sb + (k MT + m) FRAG.
   const uint32_t bb = saddr(act + g * lda + 2 * t);
-  // acc (or, with SPLIT, acc2 over the second half of K) += s, in k order.
+  // acc (or, with SPLIT, acc2 over the k-steps from kh on) += s, in k order.
   auto add = [&](const float (&s)[TPW][4], int k) {
-    const bool upper = SPLIT && 2 * k >= ks;
+    const bool upper = SPLIT && k >= kh;
 #pragma unroll
     for (int i = 0; i < TPW; ++i) {
       if (mt[i] < MT) {
@@ -427,26 +439,29 @@ __device__ __forceinline__ void prefetch_taps(const float* row, float* dst, int 
 
 // One gated layer l of the tile (lanes b0.. of B) on the consumer warps: x
 // [C][TB] (h, fp32) and skip [S][TB] are updated in place, the weights are
-// the next two products of the ring's stream ([w_cur ; w_prev] (2C, 2G),
-// then [w_res | w_skip] (G, C+S)), bg (2G) and brs (C+S) their biases.
-//   * Stage bf16 [h | tap] per lane into xb [TB][2C+8], the tap from the
-//     prefetched buffer tp, and h into the tap's ring row `row`;
+// the next two products of the ring's stream ([w_cur ; w_prev (; w_cond)]
+// (2C + Cc, 2G), then [w_res | w_skip] (G, C+S)), bg (2G) and brs (C+S)
+// their biases.
+//   * Stage bf16 [h | tap] per lane into xb [TB][2C+Cc+8], the tap from the
+//     prefetched buffer tp, and h into the tap's ring row `row` (columns
+//     2C.. hold the step's cond, staged by the caller);
 //   * start the copies of the next layer's taps (ring row next_row, unless
 //     null, into `next`), which land during this layer's products;
-//   * pre = [h | tap] @ [w_cur ; w_prev] + b on paired tiles, z =
-//     tanh(pre[m]) sigmoid(pre[G + m]) into zb [TB][G+8]. SPLIT: the two
-//     halves of K summed apart, (h @ w_cur + tap @ w_prev) + b (turbo's
-//     and B1's order); else one 2C-deep sum (mega's and B7's);
+//   * pre = [h | tap | cond] @ [w_cur ; w_prev ; w_cond] + b on paired
+//     tiles, z = tanh(pre[m]) sigmoid(pre[G + m]) into zb [TB][G+8].
+//     SPLIT: h's k-steps and the rest summed apart, (h @ w_cur + [tap |
+//     cond] @ [w_prev ; w_cond]) + b (turbo's and B1's order); else one
+//     (2C + Cc)-deep sum (mega's and B7's);
 //   * one z @ [w_res | w_skip] product: h = (h + res) + b_res; SPLIT: skip
 //     = (skip + sk) + b_skip; else skip = skip + (sk + b_skip) (the first
 //     layer's sum is its contribution), mega's bias order.
 // Ends with the tap copies landed and the consumer warps synced.
 template <int TPW, bool SPLIT, bool FM>
 __device__ __forceinline__ void layer(Ring& r, float* x, float* skip, bf16* xb, bf16* zb,
-                                      int l, int B, int b0, int C, int G, int S,
+                                      int l, int B, int b0, int C, int G, int S, int Cc,
                                       const float* bg, const float* brs, float* row,
                                       const float* tp, const float* next_row, float* next) {
-  const int lda = 2 * C + 8, ldg = G + 8;
+  const int lda = 2 * C + Cc + 8, ldg = G + 8;
   for (int i = threadIdx.x; i < C * TB; i += NC) {
     const int c = FM ? i / TB : i % C, j = FM ? i % TB : i / C, b = b0 + j;
     const float h = x[c * TB + j];
@@ -456,10 +471,12 @@ __device__ __forceinline__ void layer(Ring& r, float* x, float* skip, bf16* xb, 
   }
   if (next_row) prefetch_taps<FM>(next_row, next, B, b0, C);
   csync();
-  mm<TPW, true, SPLIT>(r, 2 * G, 2 * C, xb, lda, bg,
-                       [&](int m, int j, float at, float bt, float as, float bs) {
-                         zb[j * ldg + m] = __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
-                       });
+  mm<TPW, true, SPLIT>(
+      r, 2 * G, 2 * C + Cc, xb, lda, bg,
+      [&](int m, int j, float at, float bt, float as, float bs) {
+        zb[j * ldg + m] = __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
+      },
+      C / 16);
   csync();
   mm<TPW>(r, C + S, G, zb, ldg, brs, [&](int m, int j, float acc, float b) {
     if (m < C) {
@@ -605,12 +622,14 @@ struct StackArgs {
   const float* h0;    // (B, C) lane-major, (C, B) feature-major
   float* bufs;        // (sum_d, B, C) or (sum_d, C, B) ring, in place
   const int* dils;    // (L,)
-  const void* wpk;    // packed bf16: per layer [w_cur ; w_prev], [w_res | w_skip]
+  const void* wpk;    // packed bf16: per layer [w_cur ; w_prev (; w_cond)], [w_res | w_skip]
   const int* prods;   // (2L, 2) (M, K) of each packed product
   const float* bg;    // (L, 2G)
   const float* brs;   // (L, C+S) [b_res | b_skip]
   float* skip;        // (B, S) or (S, B) out
   int B, L, C, G, S, t, grid;
+  const bf16* cond;   // the step's conditioning (B, Cc) or (Cc, B) bf16, or null
+  int Cc;             // its channels (a multiple of 16), 0 unconditioned
 };
 
 struct StackSmem {  // the block's shared memory
@@ -620,8 +639,8 @@ struct StackSmem {  // the block's shared memory
   Ring ring;
 };
 
-__host__ __device__ inline StackSmem stack_carve(int L, int C, int G, int S, char* base,
-                                                 int n_slots, size_t* bytes) {
+__host__ __device__ inline StackSmem stack_carve(int L, int C, int G, int S, int Cc,
+                                                 char* base, int n_slots, size_t* bytes) {
   Carve cv{base, 0};
   StackSmem s;
   s.ring.full = cv.take<uint64_t>(MAX_SLOTS);
@@ -634,7 +653,7 @@ __host__ __device__ inline StackSmem stack_carve(int L, int C, int G, int S, cha
   s.tap[0] = cv.take<float>(C * TB);
   s.tap[1] = cv.take<float>(C * TB);
   s.dl = cv.take<int>(L);
-  s.xb = cv.take<bf16>(TB * (2 * C + 8));
+  s.xb = cv.take<bf16>(TB * (2 * C + Cc + 8));
   s.zb = cv.take<bf16>(TB * (G + 8));
   *bytes = cv.off;
   return s;
@@ -645,7 +664,7 @@ __global__ void __launch_bounds__(NTH, 1) stack_tc_kernel(StackArgs a, int n_slo
   extern __shared__ __align__(128) char smem[];
   const int C = a.C, S = a.S, B = a.B;
   size_t bytes;
-  StackSmem s = stack_carve(a.L, C, a.G, S, smem, n_slots, &bytes);
+  StackSmem s = stack_carve(a.L, C, a.G, S, a.Cc, smem, n_slots, &bytes);
   Ring ring = s.ring;  // locals: no lambda captures the struct
   float *x = s.x, *skip = s.skip, *tap0 = s.tap[0], *tap1 = s.tap[1];
   int* dl = s.dl;
@@ -663,6 +682,13 @@ __global__ void __launch_bounds__(NTH, 1) stack_tc_kernel(StackArgs a, int n_slo
     x[c * TB + j] = b < B ? a.h0[FM ? (size_t)c * B + b : (size_t)b * C + c] : 0.f;
   }
   for (int i = threadIdx.x; i < S * TB; i += NC) skip[i] = 0.f;
+  // The step's cond into columns 2C.. of the staged rows (0 past B).
+  const int Cc = a.Cc, lda = 2 * C + Cc + 8;
+  for (int i = threadIdx.x; i < Cc * TB; i += NC) {
+    const int c = FM ? i / TB : i % Cc, j = FM ? i % TB : i / Cc, b = b0 + j;
+    s.xb[j * lda + 2 * C + c] =
+        b < B ? a.cond[FM ? (size_t)c * B + b : (size_t)b * Cc + c] : __float2bfloat16_rn(0.f);
+  }
   csync();
   prefetch_taps<FM>(a.bufs + (size_t)(a.t % dl[0]) * rows, tap0, B, b0, C);
   cp_async_wait_all();
@@ -673,7 +699,8 @@ __global__ void __launch_bounds__(NTH, 1) stack_tc_kernel(StackArgs a, int n_slo
     const int d = dl[l];
     const bool odd = l & 1;  // tap buffers by select: no dynamic index
     layer<TPW, SPLIT, FM>(
-        ring, x, skip, s.xb, s.zb, l, B, b0, C, a.G, S, a.bg + l * 2 * a.G, a.brs + l * (C + S),
+        ring, x, skip, s.xb, s.zb, l, B, b0, C, a.G, S, Cc, a.bg + l * 2 * a.G,
+        a.brs + l * (C + S),
         a.bufs + (size_t)(off + a.t % d) * rows, odd ? tap1 : tap0,
         l + 1 < a.L ? a.bufs + (size_t)(off + d + a.t % dl[l + 1]) * rows : nullptr,
         odd ? tap0 : tap1);
@@ -695,9 +722,9 @@ inline int stack_tpw(int C, int G, int S) {
 // Dynamic shared memory of a stack launch at these widths on this device:
 // activations plus as many weight slots as fit (ar_tc.py `stack_smem`
 // reckons the same bytes; the wrapper checks it before every launch).
-inline size_t stack_smem(int L, int C, int G, int S, int* n_slots) {
+inline size_t stack_smem(int L, int C, int G, int S, int Cc, int* n_slots) {
   size_t fixed;
-  stack_carve(L, C, G, S, nullptr, 0, &fixed);
+  stack_carve(L, C, G, S, Cc, nullptr, 0, &fixed);
   *n_slots = ring_slots(fixed);
   return fixed + (size_t)*n_slots * SLOT;
 }
@@ -717,10 +744,11 @@ inline cudaError_t stack_launch_nt(const StackArgs& a, int n_slots, size_t smem,
 template <bool SPLIT, bool FM>
 inline cudaError_t stack_launch(const StackArgs& a, cudaStream_t stream, int* launches) {
   if (a.B < 1 || a.L < 1 || a.grid * TB < a.B || (a.grid - 1) * TB >= a.B || !a.wpk ||
-      !a.prods || a.C % 16 || a.G % 16 || a.S % 16)
+      !a.prods || a.C % 16 || a.G % 16 || a.S % 16 || a.Cc < 0 || a.Cc % 16 ||
+      (a.Cc > 0) != (a.cond != nullptr))
     return cudaErrorInvalidValue;
   int n_slots;
-  const size_t smem = stack_smem(a.L, a.C, a.G, a.S, &n_slots);
+  const size_t smem = stack_smem(a.L, a.C, a.G, a.S, a.Cc, &n_slots);
   if (n_slots < 2) return cudaErrorInvalidValue;
   switch (stack_tpw(a.C, a.G, a.S)) {
     case 3: return stack_launch_nt<3, SPLIT, FM>(a, n_slots, smem, stream, launches);

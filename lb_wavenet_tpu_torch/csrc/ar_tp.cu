@@ -47,6 +47,19 @@
 //   * fp32, and bf16 at other widths (an S_l split 3 ways): tp_kernel below,
 //     CUDA-core fp32 FMAs on weights read from L2 in a dependent k-loop
 //     (common.cuh block_mm), the first version; latency-bound.
+//
+// Conditioning (the JAX kernel's cond_ref / wcond_ref: mel and/or speaker
+// folded into one row of Cc' channels, cond_t (Cc', B) feature-major, as
+// the TP carry): every layer adds w_cond[l]^T @ cond_t to its gate
+// pre-activation; the gate is not split across ranks, so every rank adds
+// the whole term. On the tensor cores w_cond's k-steps continue the merged
+// chain, pre = (chain over h, tap, cond) + b (mega's order; the packed gate
+// product is (2C + Cc') x 2G), the cond tile staged once a step into
+// columns 2C.. of the bf16 tile by masked 2-byte loads (any B, down to 4;
+// +TB Cc' bf16 of shared memory); on CUDA cores a separate in-order product
+// after the bias, (wcat-sum + b) + cond-sum, the JAX kernel's order. It adds
+// 2 B L Cc' 2G operations a step (+0.13 GFLOP at B = 256, Cc' = 64), L Cc'
+// 2G bf16 weight bytes (+0.49 MB) and B Cc' cond bytes.
 #include "ar_tc.cuh"
 
 namespace wn {
@@ -61,6 +74,9 @@ struct TpArgs {
   const float* brs;    // (L, C + S)
   float* skip;         // (S, B) out: the local skip sum
   int B, L, C, G, S, t, bf16;
+  const void* cond;    // (Cc, B) compute dtype, or null: unconditioned
+  const void* wcond;   // (L, Cc, 2G) compute dtype, k-major
+  int Cc;
 };
 
 template <typename T>
@@ -73,8 +89,10 @@ __global__ void __launch_bounds__(NT) tp_kernel(TpArgs a) {
   float* pre = xr + 2 * C * TB;   // [2G][TB]
   float* zr = pre + 2 * G * TB;   // [G][TB] rounded gate output
   float* skip = zr + G * TB;      // [S][TB] local skip sum
+  float* cr = skip + S * TB;      // [Cc][TB] rounded conditioning
   const int b0 = blockIdx.x * TB;
   const T* wcat = static_cast<const T*>(a.wcat);
+  const T* wcond = static_cast<const T*>(a.wcond);
   const T* wrs = static_cast<const T*>(a.wrs);
 
   for (int i = threadIdx.x; i < C * TB; i += NT) {
@@ -82,6 +100,7 @@ __global__ void __launch_bounds__(NT) tp_kernel(TpArgs a) {
     x[i] = b < B ? a.h0[(size_t)c * B + b] : 0.f;
   }
   for (int i = threadIdx.x; i < S * TB; i += NT) skip[i] = 0.f;
+  if (wcond) stage_cond<T, true>(static_cast<const T*>(a.cond), cr, B, b0, a.Cc, NT);
   __syncthreads();
 
   int off = 0;
@@ -103,6 +122,10 @@ __global__ void __launch_bounds__(NT) tp_kernel(TpArgs a) {
     __syncthreads();
     block_mm(wcat + (size_t)l * 2 * C * 2 * G, 2 * G, 2 * G, 2 * C, xr,
              [&](int m, int j, float acc) { pre[m * TB + j] = acc + a.b[l * 2 * G + m]; });
+    if (wcond) {  // (wcat-sum + b) + cond-sum; same M, same threads
+      block_mm(wcond + (size_t)l * a.Cc * 2 * G, 2 * G, 2 * G, a.Cc, cr,
+               [&](int m, int j, float acc) { pre[m * TB + j] = pre[m * TB + j] + acc; });
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < G * TB; i += NT) {
       zr[i] = rnd<T>(tanhf(pre[i]) * sigmoidf(pre[G * TB + i]));
@@ -128,7 +151,9 @@ __global__ void __launch_bounds__(NT) tp_kernel(TpArgs a) {
 
 template <typename T>
 static cudaError_t launch(const TpArgs& a, cudaStream_t stream, int* launches) {
-  const size_t smem = sizeof(float) * TB * (3 * a.C + 3 * a.G + a.S);
+  if ((a.wcond != nullptr) != (a.cond != nullptr) || (a.cond ? a.Cc < 1 : a.Cc != 0))
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * TB * (3 * a.C + 3 * a.G + a.S + (a.cond ? a.Cc : 0));
   cudaError_t err = cudaFuncSetAttribute(
       tp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -156,7 +181,7 @@ extern "C" int wn_tp_fused_stack_tc(const wn::tc::StackArgs* a, void* stream, in
 
 // Bytes of dynamic shared memory of the tensor-core route at these widths
 // on this device (ar_tc.py `stack_smem` must agree).
-extern "C" long long wn_tp_fused_stack_tc_smem(int L, int C, int G, int S) {
+extern "C" long long wn_tp_fused_stack_tc_smem(int L, int C, int G, int S, int Cc) {
   int n_slots;
-  return (long long)wn::tc::stack_smem(L, C, G, S, &n_slots);
+  return (long long)wn::tc::stack_smem(L, C, G, S, Cc, &n_slots);
 }

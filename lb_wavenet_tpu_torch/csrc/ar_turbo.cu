@@ -44,6 +44,20 @@
 // (chip_smoke.py prints the report): 128 registers, no spills at 3 tiles
 // per warp (WaveNet-30); 168 registers, 12/20 bytes of spills at 6; 201,600
 // bytes of dynamic shared memory at WaveNet-30.
+//
+// Conditioning (the JAX kernel's has_cond variant: mel and/or speaker folded
+// into one cond row of Cc' channels, cond (T, B, Cc') in the compute dtype,
+// w_cond (L, Cc', 2G)): every layer adds cond_t @ w_cond[l] to its gate
+// pre-activation. On the tensor cores w_cond's k-steps follow w_prev's in
+// the gate product of the packed stream, summed in the tap half of the split,
+// pre = (h @ w_cur + [tap | cond] @ [w_prev ; w_cond]) + b; the step's cond
+// row is staged once per launch into columns 2C.. of the bf16 tile (lda = 2C
+// + Cc' + 8; +TB Cc' bf16 of shared memory, 1 KB at Cc' = 64). On CUDA cores
+// a third in-order product after the bias, ((h-sum + tap-sum) + b) +
+// cond-sum, the JAX kernel's order, from a [Cc'][TB] fp32 tile (+TB Cc' 4
+// bytes). Per step and lane it adds 2 L Cc' 2G operations (+31 MFLOP a step
+// at B = 64, Cc' = 64: +20% of the step's products), L Cc' 2G bf16
+// weight bytes to the stream (+0.49 MB, +20%) and Cc' cond bytes a lane.
 #include "ar_tc.cuh"
 
 namespace wn {
@@ -80,6 +94,9 @@ struct TurboArgs {
   int n_prod, grid;     // bf16: products per step; blocks (lane tiles)
   const float* brs;     // bf16: (L, C+S) [b_res | b_skip]
   int tc;               // bf16: 1 the tensor-core kernel, 0 the CUDA-core one
+  const void* cond;     // (T, B, Cc) compute dtype, or null: unconditioned
+  const void* w_cond;   // CUDA-core route: (L, Cc, 2G) compute dtype
+  int Cc;               // conditioning channels (tensor cores: a multiple of 16)
 };
 
 template <typename T>
@@ -97,7 +114,8 @@ __global__ void __launch_bounds__(NT) turbo_kernel(TurboArgs a, int t, int step)
   float* lg = hid + S * TB;           // [Q][TB] logits
   float* es = lg + Q * TB;            // [(K-1)C][TB] embedding stack (fp32)
   float* er = es + (K - 1) * C * TB;  // [C][TB] rounded embedding operand
-  int* cls = reinterpret_cast<int*>(er + C * TB);  // [TB]
+  float* cr = er + C * TB;            // [Cc][TB] rounded conditioning of the step
+  int* cls = reinterpret_cast<int*>(cr + a.Cc * TB);  // [TB]
   const int b0 = blockIdx.x * TB;
 
   for (int i = threadIdx.x; i < C * TB; i += NT) {
@@ -109,15 +127,19 @@ __global__ void __launch_bounds__(NT) turbo_kernel(TurboArgs a, int t, int step)
     es[(p * C + c) * TB + j] = b < B ? a.e[((size_t)p * B + b) * C + c] : 0.f;
   }
   for (int i = threadIdx.x; i < S * TB; i += NT) skip[i] = 0.f;
+  if (a.w_cond) {
+    stage_cond<T, false>(static_cast<const T*>(a.cond) + (size_t)step * B * a.Cc, cr, B, b0,
+                         a.Cc, NT);
+  }
   __syncthreads();
 
   int off = 0;
   for (int l = 0; l < a.L; ++l) {
     const int d = a.dils[l];
     const LayerW<T> w = layer_w<T>(a.w_cur, a.w_prev, a.b, a.w_res, a.b_res, a.w_skip,
-                                   a.b_skip, l, C, G, S);
+                                   a.b_skip, a.w_cond, l, C, G, S, a.Cc);
     split_layer(w, a.bufs + (size_t)(off + t % d) * B * C, B, b0, C, G, S, x, xr, tr, pre,
-                zr, skip);
+                zr, skip, cr);
     off += d;
   }
 
@@ -148,8 +170,11 @@ __global__ void __launch_bounds__(NT) turbo_kernel(TurboArgs a, int t, int step)
 template <typename T>
 static cudaError_t steps(const TurboArgs& a, int t0, int n, cudaStream_t stream,
                          int* launches) {
+  if ((a.w_cond != nullptr) != (a.cond != nullptr) || (a.cond ? a.Cc < 1 : a.Cc != 0))
+    return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * TB *
-                          (4 * a.C + 3 * a.G + 3 * a.S + a.Q + (a.K - 1) * a.C) +
+                          (4 * a.C + 3 * a.G + 3 * a.S + a.Q + (a.K - 1) * a.C +
+                           (a.cond ? a.Cc : 0)) +
                       sizeof(int) * TB;
   cudaError_t err = cudaFuncSetAttribute(
       turbo_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -192,7 +217,7 @@ __host__ __device__ inline TurboTc turbo_tc_carve(const TurboArgs& a, char* base
   s.tap[0] = cv.take<float>(a.C * TB);
   s.tap[1] = cv.take<float>(a.C * TB);
   s.dl = cv.take<int>(a.L);
-  s.xb = cv.take<tc::bf16>(TB * (2 * a.C + 8));
+  s.xb = cv.take<tc::bf16>(TB * (2 * a.C + a.Cc + 8));
   s.zb = cv.take<tc::bf16>(TB * (a.G + 8));
   s.ab = cv.take<tc::bf16>(TB * (a.S + 8));
   s.hb = cv.take<tc::bf16>(TB * (a.S + 8));
@@ -206,8 +231,8 @@ template <int TPW>
 __global__ void __launch_bounds__(tc::NTH, 1) turbo_tc_kernel(TurboArgs a, int t, int step,
                                                               int n_slots) {
   extern __shared__ __align__(128) char smem[];
-  const int C = a.C, G = a.G, S = a.S, Q = a.Q, K = a.K, B = a.B;
-  const int CS = C + S, lda = 2 * C + 8, ldg = G + 8;
+  const int C = a.C, G = a.G, S = a.S, Q = a.Q, K = a.K, B = a.B, Cc = a.Cc;
+  const int CS = C + S, lda = 2 * C + Cc + 8, ldg = G + 8;
   size_t bytes;
   TurboTc s = turbo_tc_carve(a, smem, n_slots, &bytes);
   tc::Ring ring = s.ring;  // locals: no lambda captures the struct
@@ -252,6 +277,12 @@ __global__ void __launch_bounds__(tc::NTH, 1) turbo_tc_kernel(TurboArgs a, int t
     es[(p * C + c) * TB + j] = b < B ? a.e[((size_t)p * B + b) * C + c] : 0.f;
   }
   for (int i = threadIdx.x; i < S * TB; i += tc::NC) skip[i] = 0.f;
+  // The step's cond row into columns 2C.. of the staged tile (0 past B).
+  const tc::bf16* ct = static_cast<const tc::bf16*>(a.cond) + (size_t)step * B * Cc;
+  for (int i = threadIdx.x; i < Cc * TB; i += tc::NC) {
+    const int j = i / Cc, b = b0 + j;
+    xb[j * lda + 2 * C + i % Cc] = b < B ? ct[(size_t)b0 * Cc + i] : __float2bfloat16_rn(0.f);
+  }
   tc::csync();
   prefetch(0, 0, tap0);
   tc::cp_async_wait_all();
@@ -272,14 +303,15 @@ __global__ void __launch_bounds__(tc::NTH, 1) turbo_tc_kernel(TurboArgs a, int t
     }
     if (l + 1 < a.L) prefetch(l + 1, off + d, l & 1 ? tap0 : tap1);
     tc::csync();
-    // pre = (h @ w_cur + tap @ w_prev) + b, turbo's split order: the two
-    // halves of [h | tap] @ [w_cur ; w_prev] summed apart (SPLIT), then
+    // pre = (h @ w_cur + [tap | cond] @ [w_prev ; w_cond]) + b, turbo's
+    // split order: h's k-steps and the rest summed apart (SPLIT), then
     // z = tanh(pre[m]) sigmoid(pre[G + m]) from the same thread's pair.
-    tc::mm<TPW, true, true>(ring, 2 * G, 2 * C, xb, lda, a.b + l * 2 * G,
-                            [&](int m, int j, float at, float bt, float as, float bs) {
-                              zb[j * ldg + m] =
-                                  __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
-                            });
+    tc::mm<TPW, true, true>(
+        ring, 2 * G, 2 * C + Cc, xb, lda, a.b + l * 2 * G,
+        [&](int m, int j, float at, float bt, float as, float bs) {
+          zb[j * ldg + m] = __float2bfloat16_rn(tanhf(at + bt) * sigmoidf(as + bs));
+        },
+        C / 16);
     tc::csync();
     // One z @ [w_res | w_skip] product: h = (h + res) + b_res,
     // skip = (skip + sk) + b_skip.
@@ -340,7 +372,8 @@ static cudaError_t steps_nt(const TurboArgs& a, int t0, int n, int n_slots, size
 
 static cudaError_t steps_tc(const TurboArgs& a, int t0, int n, cudaStream_t stream,
                             int* launches) {
-  if (a.grid * TB < a.B || (a.grid - 1) * TB >= a.B || !a.wpk || !a.prods || !a.brs)
+  if (a.grid * TB < a.B || (a.grid - 1) * TB >= a.B || !a.wpk || !a.prods || !a.brs ||
+      a.Cc < 0 || a.Cc % 16 || (a.Cc > 0) != (a.cond != nullptr))
     return cudaErrorInvalidValue;
   size_t fixed;
   turbo_tc_carve(a, nullptr, 0, &fixed);

@@ -95,29 +95,47 @@ struct LayerW {  // layer l's weights (compute dtype) and biases (fp32)
   const float* b_res;  // (C,)
   const T* w_skip;     // (G, S)
   const float* b_skip; // (S,)
+  const T* w_cond;     // (Cc, 2G), or null: unconditioned
+  int Cc;
 };
 
 template <typename T>
 __device__ __forceinline__ LayerW<T> layer_w(const void* w_cur, const void* w_prev,
                                              const float* b, const void* w_res,
                                              const float* b_res, const void* w_skip,
-                                             const float* b_skip, int l, int C, int G,
-                                             int S) {
+                                             const float* b_skip, const void* w_cond, int l,
+                                             int C, int G, int S, int Cc) {
   return {static_cast<const T*>(w_cur) + (size_t)l * C * 2 * G,
           static_cast<const T*>(w_prev) + (size_t)l * C * 2 * G, b + l * 2 * G,
           static_cast<const T*>(w_res) + (size_t)l * G * C, b_res + l * C,
-          static_cast<const T*>(w_skip) + (size_t)l * G * S, b_skip + l * S};
+          static_cast<const T*>(w_skip) + (size_t)l * G * S, b_skip + l * S,
+          w_cond ? static_cast<const T*>(w_cond) + (size_t)l * Cc * 2 * G : nullptr, Cc};
+}
+
+// Stage a tile's conditioning rounded to the compute dtype into cr
+// [Cc][TB] (0 past B), from lane-major rows (B, Cc) (FM false) or
+// feature-major ones (Cc, B). The caller syncs.
+template <typename T, bool FM>
+__device__ __forceinline__ void stage_cond(const T* cond, float* cr, int B, int b0, int Cc,
+                                           int nthreads) {
+  for (int i = threadIdx.x; i < Cc * TB; i += nthreads) {
+    const int c = i / TB, j = i % TB, b = b0 + j;
+    cr[i] = b < B ? rnd<T>(to_f(cond[FM ? (size_t)c * B + b : (size_t)b * Cc + c])) : 0.f;
+  }
 }
 
 // The layer on the tile's residual stream x [C][TB] and skip sum [S][TB]
 // (shared memory; xr, tr [C][TB], pre [2G][TB], zr [G][TB] scratch). `ring`
 // is the layer's ring row (B, C): each lane's tap is read, then the same row
-// takes its h. pre = (h @ w_cur + tap @ w_prev) + b (two sums);
-// h = (h + z @ w_res) + b_res; skip = (skip + z @ w_skip) + b_skip.
+// takes its h. pre = (h @ w_cur + tap @ w_prev) + b (two sums), then, when
+// conditioned, pre + cr @ w_cond (cr [Cc][TB] the staged conditioning; the
+// JAX order); h = (h + z @ w_res) + b_res; skip = (skip + z @ w_skip) +
+// b_skip.
 template <typename T>
 __device__ __forceinline__ void split_layer(const LayerW<T>& w, float* ring, int B, int b0,
                                             int C, int G, int S, float* x, float* xr,
-                                            float* tr, float* pre, float* zr, float* skip) {
+                                            float* tr, float* pre, float* zr, float* skip,
+                                            const float* cr) {
   for (int i = threadIdx.x; i < C * TB; i += NT) {
     const int j = i / C, c = i % C, b = b0 + j;
     const float h = x[c * TB + j];
@@ -136,6 +154,10 @@ __device__ __forceinline__ void split_layer(const LayerW<T>& w, float* ring, int
   block_mm(w.w_prev, 2 * G, 2 * G, C, tr, [&](int m, int j, float acc) {
     pre[m * TB + j] = (pre[m * TB + j] + acc) + w.b[m];
   });
+  if (w.w_cond) {  // same M: each (m, lane) stays with its thread
+    block_mm(w.w_cond, 2 * G, 2 * G, w.Cc, cr,
+             [&](int m, int j, float acc) { pre[m * TB + j] = pre[m * TB + j] + acc; });
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < G * TB; i += NT) {
     const float z = tanhf(pre[i]) * sigmoidf(pre[G * TB + i]);

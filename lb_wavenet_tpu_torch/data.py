@@ -7,7 +7,7 @@ corpus; each epoch is a seeded permutation of all (file, window) pairs; a
 host takes rows `host_id::host_count` of every batch. For the same seed and
 step the batches equal the JAX package's row for row.
 
-Not ported yet (ROADMAP.md A): mel frames (`with_mel`, A queue item 4), the
+Not ported yet (ROADMAP.md A): mel frames (`with_mel`, A queue item 4b), the
 packed out-of-core corpus (`Corpus.from_pack`, `load_corpus` of a file) and
 the native C++ ingest/assembly tier (A queue item 8).
 """
@@ -229,7 +229,7 @@ def make_batches(
     resumes exactly (the dataset cursor is the step count)."""
     if with_mel:
         raise NotImplementedError(
-            "mel frames wait for the conditioning slice (ROADMAP.md A queue item 4)")
+            "mel frames wait for the conditioning slice (ROADMAP.md A queue item 4b)")
     if train.batch_size % host_count:
         raise ValueError("global batch size must divide evenly across hosts")
     n = len(corpus.index)

@@ -59,7 +59,7 @@ def eval_batches(corpus: Corpus, batch_size: int, host_id: int = 0, host_count: 
         raise ValueError("eval batch size must divide evenly across hosts")
     if corpus.arch.use_local_cond:
         raise NotImplementedError(
-            "mel frames wait for the conditioning slice (ROADMAP.md A queue item 4)")
+            "mel frames wait for the conditioning slice (ROADMAP.md A queue item 4b)")
     n = len(corpus.index)
     n_batches = -(-n // batch_size)
     if max_batches:

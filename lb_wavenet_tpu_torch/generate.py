@@ -36,9 +36,17 @@ is not reproduced); `turbo` and `mega` sample from the stateless per-lane
 counter hash, whose bits equal the JAX package's, so per-lane seeds replay
 across frameworks and devices.
 
-Not ported yet (raise NotImplementedError, see ROADMAP.md A):
-cond/speaker_ids (A queue item 4) and the TPU VMEM-ring layout
-WAVENET_MEGA_VMEM_D > 1.
+Conditioning (the mel-conditioned vocoder, speaker conditioning): `cond`
+is the upsampled local conditioning (B, T, Cc) at sample rate
+(models/conditioning.py; `generate` upsamples `cond_frames` itself) and
+`speaker_ids` (B,) index the speaker table. The xla and pallas engines add
+cond @ w_cond and speaker_embed[id] @ w_gcond to every gate after the bias,
+as the JAX step; the kernel engines see one folded conditioning row per
+step and lane, [cond | speaker row] against [w_cond ; w_gcond]
+(`_fold_gcond`, the folded weight made once per weight set).
+
+Not ported yet (raise NotImplementedError, see ROADMAP.md A): the TPU
+VMEM-ring layout WAVENET_MEGA_VMEM_D > 1.
 """
 from __future__ import annotations
 
@@ -76,10 +84,6 @@ def resolve_device(device) -> torch.device:
             "device='cpu' to run the plain PyTorch paths on the CPU"
         )
     return dev
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md A queue item {item})")
 
 
 def _model_group(model_axis):
@@ -151,9 +155,9 @@ def stack_step(
     standing in for the d-shifted activations. Returns (new embed_buf,
     bufs (updated in place), logits). With `model_axis` the skip width is
     this rank's slice (w_skip's) and the post network is
-    post_network_sharded."""
-    if cond_t is not None or gcond is not None:
-        raise _not_ported("conditioning", 4)
+    post_network_sharded. cond_t (B, Cc) and gcond (B, E), the step's
+    conditioning and the lanes' speaker rows, add their products to every
+    gate after the bias, in that order."""
     dt = compute_dtype(arch)
     lp = params["layers"]
     h, new_embed_buf = input_step(params, arch, state.embed_buf, x_class)
@@ -168,6 +172,10 @@ def stack_step(
         h_prev = bufs[slot].clone()
         bufs[slot] = h
         pre = _mm(h, lp["w_cur"][i], dt) + _mm(h_prev, lp["w_prev"][i], dt) + lp["b"][i]
+        if cond_t is not None:
+            pre = pre + _mm(cond_t, lp["w_cond"][i], dt)
+        if gcond is not None:
+            pre = pre + _mm(gcond, lp["w_gcond"][i], dt)
         z = torch.tanh(pre[..., :g]) * torch.sigmoid(pre[..., g:])
         h = h + _mm(z, lp["w_res"][i], dt) + lp["b_res"][i]
         skip_sum = skip_sum + _mm(z, lp["w_skip"][i], dt) + lp["b_skip"][i]
@@ -271,6 +279,8 @@ def generate_classes(
     Engines: "xla" | "pallas" | "turbo" | "mega". turbo and mega sample
     by default from the per-lane hash with seeds derived from the session
     seed; global_rng=True switches them to the batch-wide counter hash.
+    `cond` (B, T >= n_samples, Cc) is the upsampled local conditioning,
+    `speaker_ids` (B,) the speakers.
 
     `model_axis` (the model axis's process group or Mesh; `params` hold this
     rank's skip slice, as parallel/synthesis.py cuts them): model-sharded
@@ -278,13 +288,13 @@ def generate_classes(
     (kernel B7), which samples greedy or from the per-lane hash only.
     """
     _check_env()
-    if cond is not None or speaker_ids is not None:
-        raise _not_ported("conditioning", 4)
     dev = resolve_device(device)
     params = params_to(params, dev)
     if forced is not None:
         forced = torch.as_tensor(forced, dtype=torch.int32).to(dev)
     b = int(batch)
+    cond = _as_cond(params, cond, b, n_samples, dev)
+    gcond = _speaker_rows(params, speaker_ids, dev)
     if model_axis is not None:
         _model_group(model_axis)
     if model_axis is not None and engine in ("turbo", "mega"):
@@ -298,26 +308,69 @@ def generate_classes(
                 "the fused kernels, which the TP path's sampler does not "
                 "reproduce; use the default per-lane hash (or greedy)")
         return _generate_classes_tp(params, arch, rng, b, n_samples, forced,
-                                    temperature, model_axis)
+                                    temperature, model_axis, cond, gcond)
     if engine == "mega":
         return _generate_classes_mega(
             params, arch, rng, b, n_samples, forced, temperature,
-            return_logits, global_rng,
+            return_logits, global_rng, cond, gcond,
         )
     if engine == "turbo":
         return _generate_classes_turbo(
             params, arch, rng, b, n_samples, forced, temperature,
-            return_logits, global_rng,
+            return_logits, global_rng, cond, gcond,
         )
     state = init_ring_state(arch, b, rng, device=dev)
     _, out = _run_scan_engine(
         params, arch, state, 0, n_samples, forced, temperature,
-        return_logits, engine, model_axis=model_axis,
+        return_logits, engine, model_axis=model_axis, cond=cond, gcond=gcond,
     )
     if return_logits:
         classes, logits = out
         return classes.t(), logits.transpose(0, 1)
     return out.t()
+
+
+def _as_cond(params: Params, cond, b: int, n_steps: int, dev, exact: bool = False):
+    """The upsampled conditioning as a (B, T, Cc) tensor on `dev`, checked
+    to cover n_steps (exactly, for a streaming chunk), or None."""
+    if cond is None:
+        return None
+    if "w_cond" not in params["layers"]:
+        raise ValueError("cond given, but the params have no w_cond (arch.n_mels == 0)")
+    cond = torch.as_tensor(cond).to(dev)
+    if cond.ndim != 3 or cond.shape[0] != b or cond.shape[1] < n_steps or (
+            exact and cond.shape[1] != n_steps):
+        want = f"(B, {n_steps}, Cc)" if exact else f"(B, T >= {n_steps}, Cc)"
+        raise ValueError(f"cond must be {want} with B = {b}, got {tuple(cond.shape)}")
+    return cond
+
+
+def _speaker_rows(params: Params, speaker_ids, dev):
+    """The lanes' speaker embeddings (B, E), or None."""
+    if speaker_ids is None:
+        return None
+    if "speaker_embed" not in params:
+        raise ValueError("speaker_ids given, but the params have no speaker table "
+                         "(arch.n_speakers == 0)")
+    return params["speaker_embed"][torch.as_tensor(speaker_ids).to(dev).long()]
+
+
+def _fold_gcond(lp: dict, cond_ts, gcond, n_steps: Optional[int] = None):
+    """Fold the speaker rows gcond (B, E) into the conditioning that the
+    kernels see (JAX `_fold_gcond`): cond_ts (T, B, Cc) (or a step's
+    (B, Cc) with n_steps None) becomes [cond_ts | gcond] (.., B, Cc + E)
+    and lp["w_cond"] becomes [w_cond ; w_gcond] (L, Cc + E, 2G), or with
+    gcond alone gcond and w_gcond. The folded weight is made once per
+    weight set (build.prepared), so the kernels' packed weights stay cached
+    from chunk to chunk. Returns (lp, cond_ts)."""
+    if gcond is None:
+        return lp, cond_ts
+    g = gcond if n_steps is None else gcond[None].expand(n_steps, *gcond.shape)
+    if cond_ts is None:
+        return {**lp, "w_cond": lp["w_gcond"]}, g
+    w = build.prepared("fold_gcond", (lp["w_cond"], lp["w_gcond"]),
+                       lambda: torch.cat([lp["w_cond"], lp["w_gcond"]], 1))
+    return {**lp, "w_cond": w}, torch.cat([cond_ts, g.to(cond_ts.dtype)], -1)
 
 
 def _resolve_step_fn(engine: str):
@@ -331,12 +384,14 @@ def _resolve_step_fn(engine: str):
 def _run_scan_engine(params, arch: ArchConfig, state: RingState, t0: int,
                      n_samples: int, forced, temperature: float,
                      return_logits: bool, engine: str, lane_seed=None,
-                     lane_t0=None, lane_inv_temp=None, model_axis=None):
+                     lane_t0=None, lane_inv_temp=None, model_axis=None,
+                     cond=None, gcond=None):
     """Run n_samples steps from `state` at absolute time t0 (one-shot and
     streaming chunks share it: ring phase and RNG continue exactly).
 
     lane_seed/lane_t0 (B,) switch sampling to the per-lane counter hash;
     lane_inv_temp (B,) f32 gives each lane its own inverse temperature.
+    cond (B, T, Cc): step i reads cond[:, i] (chunk-local); gcond (B, E).
     Returns (state, classes (T, B)[, logits (T, B, Q)])."""
     step_fn = _resolve_step_fn(engine)
     classes, logits_all = [], []
@@ -345,6 +400,7 @@ def _run_scan_engine(params, arch: ArchConfig, state: RingState, t0: int,
         t = t0 + i
         embed_buf, _, logits = step_fn(
             params, arch, state._replace(embed_buf=embed_buf), t, prev,
+            cond_t=None if cond is None else cond[:, i], gcond=gcond,
             model_axis=model_axis,
         )
         if lane_seed is not None:
@@ -402,12 +458,20 @@ def _forced_ts(forced, n: int, b: int, device) -> torch.Tensor:
     return forced[:, :n].t().contiguous()
 
 
+def _cond_ts(cond, n_steps: int):
+    """(B, T, Cc) -> time-major (n_steps, B, Cc), or None."""
+    return None if cond is None else cond[:, :n_steps].transpose(0, 1)
+
+
 def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
-                           temperature, return_logits, global_rng):
+                           temperature, return_logits, global_rng, cond=None,
+                           gcond=None):
     """One-shot mega: lanes padded to the kernel's lane tile (pad lanes are
-    forced to class 0 and dropped)."""
+    forced to class 0, conditioned on zeros, and dropped)."""
     dev = params["embed"].device
     forced_ts = _forced_ts(forced, n_samples, b, dev)
+    lp, cond_ts = _fold_gcond(params["layers"], _cond_ts(cond, n_samples), gcond,
+                              n_samples)
     h0, e0 = _fused_frontend_zero(params, arch, b)
     seed_base = _seed_base(rng)
     pad = (-b) % LANE_TILE
@@ -416,6 +480,9 @@ def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
             forced_ts,
             torch.zeros((n_samples, pad), dtype=torch.int32, device=dev),
         ], 1)
+        if cond_ts is not None:
+            cond_ts = torch.cat([cond_ts, cond_ts.new_zeros(
+                (n_samples, pad, cond_ts.shape[-1]))], 1)
         h0 = torch.cat([h0, h0[:1].expand(pad, -1)], 0)
         e0 = torch.cat([e0, e0[:, :1].expand(-1, pad, -1)], 1)
     lane = None
@@ -425,8 +492,8 @@ def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
             torch.zeros((b + pad,), dtype=torch.int32, device=dev),
         ])
     out = mega_generate(
-        params, params["layers"], arch, h0, e0, seed_base,
-        forced_ts[:, None, :], None, n_samples, temperature, False,
+        params, lp, arch, h0, e0, seed_base,
+        forced_ts[:, None, :], cond_ts, n_samples, temperature, cond_ts is not None,
         emit_logits=return_logits, lane=lane,
     )
     if return_logits:
@@ -436,11 +503,14 @@ def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
 
 
 def _generate_classes_turbo(params, arch, rng, b, n_samples, forced,
-                            temperature, return_logits, global_rng):
+                            temperature, return_logits, global_rng, cond=None,
+                            gcond=None):
     """One-shot turbo from the zero-class frontend and empty rings; per-lane
     seeds derived from the session seed unless global_rng."""
     dev = params["embed"].device
     forced_ts = _forced_ts(forced, n_samples, b, dev)
+    lp, cond_ts = _fold_gcond(params["layers"], _cond_ts(cond, n_samples), gcond,
+                              n_samples)
     h0, e0 = _fused_frontend_zero(params, arch, b)
     state = {"bufs": torch.zeros((sum(arch.dilations), b, arch.residual_channels),
                                  device=dev), "e": e0, "h": h0}
@@ -449,8 +519,8 @@ def _generate_classes_turbo(params, arch, rng, b, n_samples, forced,
     if temperature > 0.0 and not global_rng:
         lane = torch.stack([derive_lane_seeds(seed_base, b, dev),
                             torch.zeros((b,), dtype=torch.int32, device=dev)])
-    classes, logits = turbo_generate(params, params["layers"], arch, state, 0, forced_ts,
-                                     temperature, return_logits, lane, seed_base)
+    classes, logits = turbo_generate(params, lp, arch, state, 0, forced_ts,
+                                     temperature, return_logits, lane, seed_base, cond_ts)
     if return_logits:
         return classes.t(), logits.transpose(0, 1)
     return classes.t()
@@ -469,12 +539,15 @@ def _tp_weights(params: Params, lp: dict, dt: torch.dtype) -> dict:
     (L, C+S_l, G) (the skip part is this rank's slice) and brs. The post
     network's and the frontend's matrices (w1T (S, S_l), w2T, embT, wicurT,
     wipastT) are held already rounded to the compute dtype, which their
-    products would otherwise do on every step."""
+    products would otherwise do on every step. With the folded lp["w_cond"]
+    (L, Cc', 2G), wcond (L, 2G, Cc') too: the gate is not split, so every
+    rank holds all of it."""
     pp, ic = params["post"], params["input_conv"]
     k = ic["w"].shape[0]
 
     def make():
         return {
+            **({"wcond": _tr(lp["w_cond"])} if "w_cond" in lp else {}),
             "wcat": _tr(torch.cat([lp["w_cur"], lp["w_prev"]], 1)),
             "b": lp["b"][:, :, None],
             "wrs": torch.cat([_tr(lp["w_res"]), _tr(lp["w_skip"])], 1),
@@ -490,7 +563,7 @@ def _tp_weights(params: Params, lp: dict, dt: torch.dtype) -> dict:
         }
 
     sources = (*(lp[n] for n in LAYER_KEYS), *(pp[n] for n in ("w1", "b1", "w2", "b2")),
-               params["embed"], ic["w"], ic["b"])
+               params["embed"], ic["w"], ic["b"]) + ((lp["w_cond"],) if "w_cond" in lp else ())
     return build.prepared(f"tp_weights {dt}", sources, make)
 
 
@@ -534,20 +607,23 @@ def _tp_next_frontend(fm: dict, state: dict, cls: torch.Tensor, dt) -> None:
 
 
 def _tp_scan(fm: dict, arch: ArchConfig, state: dict, t0: int, forced_ts,
-             temperature: float, model_axis, lane=None) -> torch.Tensor:
+             temperature: float, model_axis, lane=None, cond_ts=None) -> torch.Tensor:
     """Steps t0 .. t0 + T - 1 of the TP step: kernel B7 through the LOCAL
     skip sum, one all-reduce completing the post hidden, sampling (greedy
     or the per-lane hash with the (2|3, B) lane block: ar_mega.sample_fm,
     JAX's `_perlane_gumbel_fm` noise and first-max argmax) and the next
     step's frontend, in the JAX op order. state {"bufs" (sum_d, C, B), "h"
-    (C, B), "e_s" ((K-1)C, B)} is updated in place; forced_ts (T, B) int32.
-    Returns classes (T, B) int32."""
+    (C, B), "e_s" ((K-1)C, B)} is updated in place; forced_ts (T, B) int32;
+    cond_ts (T, B, Cc') the folded conditioning (with fm["wcond"]), step i
+    reading row i. Returns classes (T, B) int32."""
     dt = compute_dtype(arch)
     group = _model_group(model_axis)
     classes = torch.empty(forced_ts.shape, dtype=torch.int32, device=state["h"].device)
+    cond_fm = None if cond_ts is None else cond_ts.transpose(1, 2).to(dt).contiguous()
     for i in range(forced_ts.shape[0]):
         t = t0 + i
-        _, skip_local = tp_fused_stack(fm, arch, state["h"], state["bufs"], t)
+        _, skip_local = tp_fused_stack(fm, arch, state["h"], state["bufs"], t,
+                                       None if cond_fm is None else cond_fm[i])
         logits = _tp_logits(fm, skip_local, group, dt)
         classes[i] = sample_fm(logits, temperature, lane, t, 0, forced_ts[i])
         _tp_next_frontend(fm, state, classes[i], dt)
@@ -555,7 +631,7 @@ def _tp_scan(fm: dict, arch: ArchConfig, state: dict, t0: int, forced_ts,
 
 
 def _generate_classes_tp(params, arch, rng, b, n_samples, forced, temperature,
-                         model_axis):
+                         model_axis, cond=None, gcond=None):
     """One-shot model-sharded turbo/mega from a fresh TP carry; per-lane
     seeds derived from the session seed when sampling."""
     dev = params["embed"].device
@@ -564,22 +640,27 @@ def _generate_classes_tp(params, arch, rng, b, n_samples, forced, temperature,
     if temperature > 0.0:
         lane = torch.stack([derive_lane_seeds(_seed_base(rng), b, dev),
                             torch.zeros((b,), dtype=torch.int32, device=dev)])
-    fm = _tp_weights(params, params["layers"], compute_dtype(arch))
+    lp, cond_ts = _fold_gcond(params["layers"], _cond_ts(cond, n_samples), gcond,
+                              n_samples)
+    fm = _tp_weights(params, lp, compute_dtype(arch))
     return _tp_scan(fm, arch, state, 0, _forced_ts(forced, n_samples, b, dev),
-                    temperature, model_axis, lane).t()
+                    temperature, model_axis, lane, cond_ts).t()
 
 
 def _tp_stream_chunk(params, arch, stream, chunk_size: int, forced, temperature: float,
-                     model_axis, lane_seed=None, lane_t0=None, lane_inv_temp=None):
+                     model_axis, lane_seed=None, lane_t0=None, lane_inv_temp=None,
+                     cond=None, gcond=None):
     """One model-sharded chunk of the TP step at ABSOLUTE time stream.t + i
     (ring slots and the per-lane hash), so chunked output equals the
     one-shot TP run; the carry is updated in place."""
     st = stream.state
     b = st["h"].shape[-1]
-    fm = _tp_weights(params, params["layers"], compute_dtype(arch))
+    lp, cond_ts = _fold_gcond(params["layers"], _cond_ts(cond, chunk_size), gcond,
+                              chunk_size)
+    fm = _tp_weights(params, lp, compute_dtype(arch))
     forced_ts = _forced_ts(forced, chunk_size, b, st["h"].device)
     classes = _tp_scan(fm, arch, st, stream.t, forced_ts, temperature, model_axis,
-                       _pack_lane(lane_seed, lane_t0, lane_inv_temp))
+                       _pack_lane(lane_seed, lane_t0, lane_inv_temp), cond_ts)
     return classes.t(), Stream(st, stream.t + chunk_size)
 
 
@@ -687,9 +768,9 @@ def stream_chunk(
     session seed (lane time == absolute time); explicit lane_seed/lane_t0
     override them; global_rng=True uses the batch-wide counter hash.
     `model_axis` as in generate_classes (turbo/mega: the TP step, greedy or
-    per-lane sampling only)."""
-    if cond is not None or speaker_ids is not None:
-        raise _not_ported("conditioning", 4)
+    per-lane sampling only). `cond` (B, chunk_size, Cc) covers exactly this
+    chunk (the caller slices the upsampled conditioning to the chunk's
+    span); `speaker_ids` (B,) as in generate_classes."""
     tp = model_axis is not None and engine in ("mega", "turbo")
     if model_axis is not None:
         _model_group(model_axis)
@@ -728,6 +809,9 @@ def stream_chunk(
     else:
         dev = stream.state.bufs.device
     params = params_to(params, dev)
+    b_lanes = b_dev if (tp or engine in ("mega", "turbo")) else stream.state.bufs.shape[1]
+    cond = _as_cond(params, cond, b_lanes, chunk_size, dev, exact=True)
+    gcond = _speaker_rows(params, speaker_ids, dev)
     lane_seed = _as_lanes(lane_seed, torch.int32, dev)
     lane_t0 = _as_lanes(lane_t0, torch.int32, dev)
     lane_inv_temp = _as_lanes(lane_inv_temp, torch.float32, dev)
@@ -742,16 +826,16 @@ def stream_chunk(
         lane_t0 = torch.zeros((b_dev,), dtype=torch.int32, device=dev)
     if tp:
         return _tp_stream_chunk(params, arch, stream, chunk_size, forced, temperature,
-                                model_axis, lane_seed, lane_t0, lane_inv_temp)
+                                model_axis, lane_seed, lane_t0, lane_inv_temp, cond, gcond)
     if engine == "mega":
         return _mega_stream_chunk(
             params, arch, stream, chunk_size, forced, temperature,
-            return_logits, lane_seed, lane_t0, lane_inv_temp,
+            return_logits, lane_seed, lane_t0, lane_inv_temp, cond, gcond,
         )
     if engine == "turbo":
         return _turbo_stream_chunk(
             params, arch, stream, chunk_size, forced, temperature,
-            return_logits, lane_seed, lane_t0, lane_inv_temp,
+            return_logits, lane_seed, lane_t0, lane_inv_temp, cond, gcond,
         )
     if lane_inv_temp is not None and lane_seed is None:
         raise ValueError(
@@ -762,6 +846,7 @@ def stream_chunk(
         params, arch, stream.state, stream.t, chunk_size, forced,
         temperature, return_logits, engine, lane_seed=lane_seed,
         lane_t0=lane_t0, lane_inv_temp=lane_inv_temp, model_axis=model_axis,
+        cond=cond, gcond=gcond,
     )
     new_stream = Stream(new_state, stream.t + chunk_size)
     if return_logits:
@@ -772,9 +857,11 @@ def stream_chunk(
 
 def _mega_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
                        temperature: float, return_logits: bool,
-                       lane_seed=None, lane_t0=None, lane_inv_temp=None):
+                       lane_seed=None, lane_t0=None, lane_inv_temp=None,
+                       cond=None, gcond=None):
     """One mega chunk: the whole chunk in ONE launch, carrying (ring, staged
-    pairs, frontend) between chunks at ABSOLUTE time stream.t + step."""
+    pairs, frontend) between chunks at ABSOLUTE time stream.t + step; the
+    chunk's cond row t is read at its chunk-local step t."""
     carry = stream.state["carry"]
     b = carry["h_s"].shape[-1]
     dev = carry["h_s"].device
@@ -784,10 +871,12 @@ def _mega_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
             "the session at padded_stream_batch(batch, 'mega')"
         )
     forced_ts = _forced_ts(forced, chunk_size, b, dev)
+    lp, cond_ts = _fold_gcond(params["layers"], _cond_ts(cond, chunk_size), gcond,
+                              chunk_size)
     out = mega_generate(
-        params, params["layers"], arch, None, None,
-        stream.state["seed_base"], forced_ts[:, None, :], None, chunk_size,
-        temperature, False, emit_logits=return_logits, streaming=True,
+        params, lp, arch, None, None,
+        stream.state["seed_base"], forced_ts[:, None, :], cond_ts, chunk_size,
+        temperature, cond_ts is not None, emit_logits=return_logits, streaming=True,
         carry=carry, t0=stream.t,
         lane=_pack_lane(lane_seed, lane_t0, lane_inv_temp),
     )
@@ -807,7 +896,7 @@ def _mega_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
 
 def _turbo_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
                         temperature: float, return_logits: bool, lane_seed=None,
-                        lane_t0=None, lane_inv_temp=None):
+                        lane_t0=None, lane_inv_temp=None, cond=None, gcond=None):
     """One turbo chunk: a launch per step at ABSOLUTE time stream.t + i
     (ring slots and sampling counters follow absolute time, so chunked
     output continues the one-shot sequence), carrying (rings, embedding
@@ -815,9 +904,12 @@ def _turbo_stream_chunk(params, arch, stream: Stream, chunk_size: int, forced,
     st = stream.state
     b = st["h"].shape[0]
     forced_ts = _forced_ts(forced, chunk_size, b, st["h"].device)
+    lp, cond_ts = _fold_gcond(params["layers"], _cond_ts(cond, chunk_size), gcond,
+                              chunk_size)
     classes, logits = turbo_generate(
-        params, params["layers"], arch, st, stream.t, forced_ts, temperature,
+        params, lp, arch, st, stream.t, forced_ts, temperature,
         return_logits, _pack_lane(lane_seed, lane_t0, lane_inv_temp), st["seed_base"],
+        cond_ts,
     )
     new_stream = Stream(st, stream.t + chunk_size)
     if return_logits:
@@ -895,11 +987,20 @@ def generate(params: Params, arch: ArchConfig, rng: Rng, batch: int,
              temperature: float = 1.0, engine: str = "xla",
              global_rng: bool = False, device="cuda") -> torch.Tensor:
     """Synthesize waveforms (B, n_samples) in [-1, 1]; `forced` primes the
-    generator (forced[b, t] >= 0 is emitted and fed back, -1 free-runs)."""
+    generator (forced[b, t] >= 0 is emitted and fed back, -1 free-runs).
+    `cond_frames` (B, F, n_mels) frame-rate features are upsampled once
+    (models/conditioning.upsample_cond, F * hop >= n_samples) and condition
+    every step; `speaker_ids` (B,) pick the speakers."""
+    cond = None
     if cond_frames is not None:
-        raise _not_ported("conditioning", 4)
+        from .models.conditioning import upsample_cond
+
+        dev = resolve_device(device)
+        params = params_to(params, dev)
+        frames = torch.as_tensor(cond_frames, dtype=torch.float32).to(dev)
+        cond = upsample_cond(params["upsampler"], arch, frames, compute_dtype(arch))
     classes = generate_classes(
-        params, arch, rng, batch, n_samples, speaker_ids=speaker_ids,
+        params, arch, rng, batch, n_samples, cond=cond, speaker_ids=speaker_ids,
         forced=forced, temperature=temperature, engine=engine,
         global_rng=global_rng, device=device,
     )

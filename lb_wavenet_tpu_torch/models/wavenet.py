@@ -12,14 +12,19 @@ b.bfloat16()` would return a bf16 result, so the rounding is done by
 `.to(dt).float()` on both operands (a product of two bf16 values is exact in
 float32) and the product runs in float32.
 
+Conditioning, as in the JAX package: local (mel) conditioning adds
+cond @ w_cond[l] to every layer's gate pre-activation, after the bias, with
+cond the upsampled frame features (`models/conditioning.py`); global
+(speaker) conditioning adds speaker_embed[id] @ w_gcond[l] after that.
+
 The forward is differentiable with autograd; `masked_loss_sums` /
 `masked_loss` are the training loss. The embedding's gradient is the
 gather's own backward (an index add), the same gradient as the JAX
 package's `mm_embed_grad` (a matmul formulation written for the TPU), so
 that training option is accepted and changes nothing here.
 
-Not ported yet (ROADMAP.md A): mel/speaker conditioning (A queue item 4)
-and the sequence-parallel input mask (A queue item 7b).
+Not ported yet (ROADMAP.md A): the sequence-parallel input mask (A queue
+item 7b).
 """
 from __future__ import annotations
 
@@ -55,11 +60,8 @@ def init_params(
     rng: Union[int, torch.Generator], arch: ArchConfig, device="cpu"
 ) -> Params:
     """Random parameters in the JAX package's layout (its own RNG stream:
-    tests convert JAX parameters instead of relying on equal draws)."""
-    if arch.use_local_cond or arch.use_global_cond:
-        raise NotImplementedError(
-            "mel/speaker conditioning is not ported yet (ROADMAP.md A queue item 4)"
-        )
+    tests convert JAX parameters instead of relying on equal draws), the
+    conditioning leaves in the JAX order after the others."""
     gen = _generator(rng)
     L = len(arch.dilations)
     C = arch.residual_channels
@@ -71,7 +73,7 @@ def init_params(
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
-    return {
+    params = {
         "embed": _dense_init(gen, (Q, C), device),
         "input_conv": {
             "w": _dense_init(gen, (K, C, C), device),  # taps t-(K-1) .. t
@@ -93,14 +95,27 @@ def init_params(
             "b2": zeros(Q),
         },
     }
+    if arch.use_local_cond:
+        from .conditioning import init_upsampler_params
+
+        params["layers"]["w_cond"] = _dense_init(gen, (L, arch.cond_channels, 2 * G), device)
+        params["upsampler"] = init_upsampler_params(gen, arch, device)
+    if arch.use_global_cond:
+        params["speaker_embed"] = _dense_init(
+            gen, (arch.n_speakers, arch.speaker_embed_dim), device)
+        params["layers"]["w_gcond"] = _dense_init(
+            gen, (L, arch.speaker_embed_dim, 2 * G), device)
+    return params
 
 
-def params_to(params: Params, device) -> Params:
-    """The parameter dict with every leaf on `device` (no copy if there)."""
-    return {
-        k: params_to(v, device) if isinstance(v, dict) else v.to(device)
-        for k, v in params.items()
-    }
+def params_to(params, device):
+    """The parameter tree (dicts and lists) with every leaf on `device` (no
+    copy if there)."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, device) for v in params]
+    return params.to(device)
 
 
 def rnd(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -121,24 +136,30 @@ def shift_right(x: torch.Tensor, d: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, d, 0))[:, :t]
 
 
-def gated_unit(x, x_prev, layer_params: Params, i: int, dt):
-    """Gated activation + residual update; returns (residual_out, z)."""
+def gated_unit(x, x_prev, layer_params: Params, i: int, dt, cond=None, gcond=None):
+    """Gated activation + residual update; returns (residual_out, z).
+    `cond` (..., Cc) and `gcond` (..., E) add their products after the
+    bias, in that order."""
     lp = layer_params
     pre = (
         _mm(x, lp["w_cur"][i], dt)
         + _mm(x_prev, lp["w_prev"][i], dt)
         + lp["b"][i]
     )
+    if cond is not None:
+        pre = pre + _mm(cond, lp["w_cond"][i], dt)
+    if gcond is not None:
+        pre = pre + _mm(gcond, lp["w_gcond"][i], dt)
     g = lp["w_cur"].shape[-1] // 2
     z = torch.tanh(pre[..., :g]) * torch.sigmoid(pre[..., g:])
     res = x + _mm(z, lp["w_res"][i], dt) + lp["b_res"][i]
     return res, z
 
 
-def gated_layer(x, x_prev, layer_params: Params, i: int, dt):
+def gated_layer(x, x_prev, layer_params: Params, i: int, dt, cond=None, gcond=None):
     """One gated residual unit; returns (residual_out, skip_contribution)."""
     lp = layer_params
-    res, z = gated_unit(x, x_prev, layer_params, i, dt)
+    res, z = gated_unit(x, x_prev, layer_params, i, dt, cond, gcond)
     return res, _mm(z, lp["w_skip"][i], dt) + lp["b_skip"][i]
 
 
@@ -194,6 +215,7 @@ def forward(
     return_skip: bool = False,
     remat: bool = False,
     fused_frontend: bool = False,
+    cond: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Teacher-forced forward: classes (B, T) -> logits (B, T, Q), or the
     skip sum (B, T, S) with return_skip.
@@ -204,17 +226,28 @@ def forward(
     each layer in the backward (torch.utils.checkpoint) instead of keeping
     its activations; `fused_frontend` runs the frontend through its kernel
     pair.
+
+    Conditioning comes as frame-rate `cond_frames` (B, F, n_mels),
+    upsampled here, or as pre-upsampled sample-rate `cond` (B, T, Cc), not
+    both; `speaker_ids` (B,) index the speaker table.
     """
-    if cond_frames is not None or speaker_ids is not None:
-        raise NotImplementedError(
-            "mel/speaker conditioning is not ported yet (ROADMAP.md A queue item 4)"
-        )
+    if cond is not None and cond_frames is not None:
+        raise ValueError("pass cond_frames OR pre-upsampled cond, not both")
     dt = compute_dtype(arch)
     lp = params["layers"]
+    if cond_frames is not None:
+        from .conditioning import upsample_cond
+
+        cond = upsample_cond(params["upsampler"], arch, cond_frames, dt)
+        cond = cond[:, : x_classes.shape[1]]
+    gcond = None
+    if speaker_ids is not None:
+        table = params["speaker_embed"]
+        gcond = table[torch.as_tensor(speaker_ids).to(table.device).long()][:, None, :]
     h = input_frontend(params, arch, x_classes, dt, fused_frontend)
 
     def one_layer(h, i, d):
-        return gated_unit(h, shift_right(h, d), lp, i, dt)
+        return gated_unit(h, shift_right(h, d), lp, i, dt, cond=cond, gcond=gcond)
 
     zs = []
     for i, d in enumerate(arch.dilations):

@@ -16,6 +16,12 @@ module). Everything is FEATURE-major (channels, lanes), like the JAX carry.
 The streaming carry {bufs, hstate, h_s, e_s} is updated IN PLACE (the JAX
 kernel aliased it onto its outputs) and returned. A CPU tensor takes
 `mega_generate_plain`; a CUDA tensor launches the kernel or raises.
+
+Conditioning (has_cond): cond_ts (T, B, Cc') holds each step's
+conditioning row, mel and/or speaker folded into one
+(generate._fold_gcond), and lp["w_cond"] (L, Cc', 2G) the matching folded
+weight; step t of the chunk reads row t (chunk-local), while the ring
+slots and the sampling counters use the absolute time t0 + t.
 """
 from __future__ import annotations
 
@@ -148,28 +154,35 @@ def mega_zero_carry(arch: ArchConfig, h0: torch.Tensor, estack0: torch.Tensor):
 def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
                         forced: torch.Tensor, temperature: float,
                         emit_logits: bool, lane, seed_base: int,
-                        tensor_cores: Optional[bool] = None):
+                        tensor_cores: Optional[bool] = None, cond=None):
     """PyTorch version of the kernel on any device, op for op as the JAX
-    kernel. forced (T, B) int32. Updates `carry` in place; returns
-    (classes (T, B) int32, logits (T, Q, B) or None). With tensor_cores
-    (the default on a CUDA carry in bf16 at widths the kernel takes,
-    ar_tc.default_order) each product is summed as the bf16 kernel sums it
-    on the tensor cores (ar_tc.tc_product), so the two agree bit for bit;
-    otherwise in one fp32 product, as the fp32 kernel's in-order sums (and
-    kernel B7's) come out."""
+    kernel. forced (T, B) int32; cond (T, B, Cc') or None, against the
+    folded lp["w_cond"]. Updates `carry` in place; returns (classes (T, B)
+    int32, logits (T, Q, B) or None). With tensor_cores (the default on a
+    CUDA carry in bf16 at widths the kernel takes, ar_tc.default_order)
+    each product is summed as the bf16 kernel sums it on the tensor cores
+    (ar_tc.tc_product), the cond k-steps continuing the gate's chain before
+    the bias, so the two agree bit for bit; otherwise in one fp32 product,
+    as the fp32 kernel's in-order sums (and kernel B7's) come out, cond's
+    after the bias (the JAX order)."""
     dt = compute_dtype(arch)
     dils = arch.dilations
     c = arch.residual_channels
     k_taps = arch.input_kernel
     pp = params["post"]
     w_in = params["input_conv"]["w"]
+    cc = 0 if cond is None else cond.shape[-1]
     if tensor_cores is None:
-        tensor_cores = ar_tc.default_order(arch, dt, carry["h_s"].device)
+        tensor_cores = ar_tc.default_order(arch, dt, carry["h_s"].device, cc)
 
     def mm(w, a):  # (M, K) @ (K, B), weights pre-rounded
         return ar_tc.tc_product(w, rnd(a, dt)) if tensor_cores else w @ rnd(a, dt)
 
     wcat = rnd(torch.cat([lp["w_cur"], lp["w_prev"]], 1).transpose(1, 2), dt)
+    if cc:
+        wcond = rnd(lp["w_cond"].transpose(1, 2), dt)          # (L, 2G, Cc')
+        if tensor_cores:  # one chain over [h ; tap ; cond]
+            wcat = torch.cat([wcat, wcond], 2)
     wrs = rnd(torch.cat([lp["w_res"], lp["w_skip"]], 2).transpose(1, 2), dt)
     bcat = lp["b"][:, :, None]
     brs = torch.cat([lp["b_res"], lp["b_skip"]], 1)[:, :, None]
@@ -197,7 +210,12 @@ def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
             else:
                 hst[r0 + c: r0 + 2 * c] = hst[r0: r0 + c]
             hst[r0: r0 + c] = h
-            pre = mm(wcat[l], hst[r0: r0 + 2 * c]) + bcat[l]
+            if cc and tensor_cores:
+                pre = mm(wcat[l], torch.cat([hst[r0: r0 + 2 * c], cond[t].t()], 0)) + bcat[l]
+            else:
+                pre = mm(wcat[l], hst[r0: r0 + 2 * c]) + bcat[l]
+                if cc:
+                    pre = pre + mm(wcond[l], cond[t].t())
             g = pre.shape[0] // 2
             z = torch.tanh(pre[:g]) * torch.sigmoid(pre[g:])
             rs = mm(wrs[l], z)
@@ -239,7 +257,7 @@ class _MegaArgs(ctypes.Structure):
         (n, ctypes.c_int) for n in ("bf16", "n_d1")
     ] + [(n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
         (n, ctypes.c_int) for n in ("n_prod", "grid", "tc")
-    ]
+    ] + [(n, ctypes.c_void_p) for n in ("cond", "wcond")] + [("Cc", ctypes.c_int)]
 
 
 def _library() -> ctypes.CDLL:
@@ -252,7 +270,7 @@ def _library() -> ctypes.CDLL:
 
 def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
                        forced: torch.Tensor, temperature: float,
-                       emit_logits: bool, lane, seed_base: int):
+                       emit_logits: bool, lane, seed_base: int, cond=None):
     """The kernel: same contract as mega_generate_plain."""
     dev = carry["h_s"].device
     dt = compute_dtype(arch)
@@ -286,7 +304,9 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         return x.to(dev, torch.float32).contiguous()
 
     bf16 = dt == torch.bfloat16
-    tc = ar_tc.route(arch, dt) == "tensor_cores"
+    cc = 0 if cond is None else cond.shape[-1]
+    tc = ar_tc.route(arch, dt, cc) == "tensor_cores"
+    w_cond = lp["w_cond"] if cc else None
 
     def merge():  # the kernel's weight layout, made once per weight set
         out = {
@@ -297,9 +317,11 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
             "b_in": f(params["input_conv"]["b"]),
         }
         if tc:     # the tensor-core kernel streams every product's weights from wpk
-            return {**out, **ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev),
-                    **dict.fromkeys(("wcat", "wrs", "w1", "w2", "w_in"))}
+            return {**out, **ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch, w_cond),
+                                               dev),
+                    **dict.fromkeys(("wcat", "wrs", "w1", "w2", "w_in", "wcond"))}
         return {**out, "wpk": None, "prods": None,
+                "wcond": None if w_cond is None else w(w_cond),
                 "wcat": w(torch.cat([lp["w_cur"], lp["w_prev"]], 1)),
                 "wrs": w(torch.cat([lp["w_res"], lp["w_skip"]], 2)),
                 "w1": w(pp["w1"]), "w2": w(pp["w2"]),
@@ -310,10 +332,18 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
                           "b_res", "b_skip")),
         *(pp[k] for k in ("w1", "b1", "w2", "b2")), params["embed"],
         params["input_conv"]["w"], params["input_conv"]["b"],
-    )
+    ) + (() if w_cond is None else (w_cond,))
     if lp["w_cur"].shape != (L, c, 2 * arch.gate_channels) \
             or lp["w_prev"].shape != lp["w_cur"].shape:
         raise ValueError(f"w_cur/w_prev do not match the arch: {lp['w_cur'].shape}")
+    if cc:
+        if w_cond.shape != (L, cc, 2 * arch.gate_channels):
+            raise ValueError(f"w_cond {tuple(w_cond.shape)} does not match cond "
+                             f"{tuple(cond.shape)}")
+        cond = cond.to(dev, dt).contiguous()
+        if cond.shape != (n_steps, b, cc):
+            raise ValueError(f"cond must be (T, B, Cc) = {(n_steps, b, cc)}, got "
+                             f"{tuple(cond.shape)}")
     ops = dict(build.prepared(f"mega_generate {dev} {dt} tc={tc}", sources, merge))
     ops["forced"] = forced.to(dev, torch.int32).contiguous()
     ops["lane"] = None if lane is None else lane.to(dev, torch.int32).contiguous()
@@ -340,6 +370,7 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         int(bf16), sum(1 for d in arch.dilations if d == 1),
         ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
         ar_tc.launch_shape(b)[0], int(tc),
+        ptr(cond), ptr(ops["wcond"]), cc,
     )
     mega_generate.launches += build.launch(_library(), "wn_mega_generate", args, dev)
     return classes, logits
@@ -367,11 +398,11 @@ def mega_generate(
     logits (T, Q, B) when emit_logits). With streaming=True also returns
     the carry, updated in place: ring slots and the sampling counters use
     the ABSOLUTE time t0 + t, so chunked output continues the one-shot
-    sequence exactly. One-shot calls run from mega_zero_carry(h0, e0)."""
-    if has_cond or cond_ts is not None:
-        raise NotImplementedError(
-            "conditioned mega_generate waits for the mel slice (ROADMAP.md A queue item 4)"
-        )
+    sequence exactly. One-shot calls run from mega_zero_carry(h0, e0).
+    has_cond: cond_ts (T, B, Cc') against the folded lp["w_cond"], row t
+    at the chunk's step t."""
+    if has_cond != (cond_ts is not None):
+        raise ValueError("pass cond_ts exactly when has_cond")
     if not streaming:
         carry = mega_zero_carry(arch, h0, e0)
         t0 = 0
@@ -385,7 +416,7 @@ def mega_generate(
         raise ValueError(f"mega_generate runs on cpu or cuda, not {dev}")
     classes, logits = run(
         params, lp, arch, carry, int(t0), forced, temperature, emit_logits,
-        lane, int(seed_base),
+        lane, int(seed_base), cond=None if cond_ts is None else cond_ts[:n_samples],
     )
     classes = classes[:, None, :]
     out = (classes, logits) if emit_logits else (classes,)

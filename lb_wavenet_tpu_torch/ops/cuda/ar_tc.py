@@ -23,6 +23,14 @@ fp32. That model matched every one of 2,097,152 mma results on an H100 (a
 calibration run of random tiles with exponents spread over 2^-12..2^12);
 the sampling network is chaotic enough that any other order moves logits by
 a few hundredths within a few steps (PERF.md, Findings).
+
+Conditioning (mel and/or speaker, folded into one row of Cc' channels a
+lane, generate._fold_gcond): w_cond[l] (Cc', 2G) joins the gate product as
+its last k-steps, [w_cur ; w_prev ; w_cond] ((2C + Cc') x 2G) against [h |
+tap | cond]. mega and B7 sum that one chain, then add b; turbo and B1 sum
+h's k-steps and [tap | cond]'s apart, then add, then add b. The plain
+versions on the card sum the same way; on the CPU they keep the JAX order,
+((h @ w_cur + tap @ w_prev) + b) + cond @ w_cond, one fp32 sum per product.
 """
 from __future__ import annotations
 
@@ -96,10 +104,12 @@ def lane_tiles(batch: int) -> list:
     return [(i * lanes, min(lanes, batch - i * lanes)) for i in range(blocks)]
 
 
-def unsupported(arch):
-    """Why the tensor-core kernels do not take the arch's widths, or None."""
+def unsupported(arch, cc: int = 0):
+    """Why the tensor-core kernels do not take the arch's widths (and a
+    folded conditioning row of `cc` channels), or None."""
     widths = {"residual_channels": arch.residual_channels, "gate_channels": arch.gate_channels,
-              "skip_channels": arch.skip_channels, "quant_channels": arch.quant_channels}
+              "skip_channels": arch.skip_channels, "quant_channels": arch.quant_channels,
+              "conditioning channels": cc}
     for name, v in widths.items():
         if v % 16:
             return (f"the bf16 sampling kernels need {name} % 16 == 0 (mma.sync tiles "
@@ -115,24 +125,25 @@ def unsupported(arch):
     return None
 
 
-def route(arch, dt) -> str:
+def route(arch, dt, cc: int = 0) -> str:
     """Which instantiation of the mega and turbo kernels runs the arch in
-    compute dtype `dt`, decided before launch from the widths alone:
+    compute dtype `dt` with `cc` folded conditioning channels (0:
+    unconditioned), decided before launch from the widths alone:
     "tensor_cores" for bf16 at widths `unsupported` accepts, "cuda_cores"
     (the in-order fp32-FMA instantiation of common.cuh, any width) for
     fp32 and for bf16 at any other width."""
-    if dt == torch.bfloat16 and unsupported(arch) is None:
+    if dt == torch.bfloat16 and unsupported(arch, cc) is None:
         return "tensor_cores"
     return "cuda_cores"
 
 
-def default_order(arch, dt, device) -> bool:
+def default_order(arch, dt, device, cc: int = 0) -> bool:
     """Whether a plain version sums as the tensor-core kernels do: on a CUDA
     tensor, where it is the kernels' reference, on the tensor-core route.
     On the CPU it sums each product in one fp32 product: the float64
     emulation of tc_product is several times slower and only a bit-for-bit
     comparison with the kernels needs it."""
-    return torch.device(device).type == "cuda" and route(arch, dt) == "tensor_cores"
+    return torch.device(device).type == "cuda" and route(arch, dt, cc) == "tensor_cores"
 
 
 def _finale(params: dict, arch) -> list:
@@ -142,33 +153,39 @@ def _finale(params: dict, arch) -> list:
             *(w_in[j] for j in range(k - 1))]
 
 
-def layer_stream(lp: dict) -> list:
+def layer_stream(lp: dict, w_cond=None) -> list:
     """The (K, M) matrices of the L layers in the order the kernels use
-    them: per layer [w_cur ; w_prev] (2C, 2G) and [w_res | w_skip] (G, C+S),
-    S the width of the w_skip given (a rank's slice, for B1 under a model
-    axis). The stream of the stack kernels B1 and B7."""
+    them: per layer [w_cur ; w_prev] (2C, 2G), or [w_cur ; w_prev ; w_cond]
+    (2C + Cc', 2G) with the folded w_cond (L, Cc', 2G), and [w_res | w_skip]
+    (G, C+S), S the width of the w_skip given (a rank's slice, for B1 under
+    a model axis). The stream of the stack kernels B1 and B7."""
     mats = []
     for l in range(lp["w_cur"].shape[0]):
-        mats.append(torch.cat([lp["w_cur"][l], lp["w_prev"][l]], 0))
+        gate = [lp["w_cur"][l], lp["w_prev"][l]]
+        mats.append(torch.cat(gate if w_cond is None else gate + [w_cond[l]], 0))
         mats.append(torch.cat([lp["w_res"][l], lp["w_skip"][l]], 1))
     return mats
 
 
 def fm_layer_stream(fm: dict) -> list:
     """layer_stream from B7's feature-major views (`generate._tp_weights`):
-    per layer wcat^T (2C, 2G) and wrs^T (G, C+S_l), the same matrices as
-    layer_stream of the layer params cut to the same skip slice."""
+    per layer wcat^T (2C, 2G), or [wcat | wcond]^T (2C + Cc', 2G) when the
+    views hold the folded wcond (L, 2G, Cc'), and wrs^T (G, C+S_l), the same
+    matrices as layer_stream of the layer params cut to the same skip
+    slice."""
     mats = []
     for l in range(fm["wcat"].shape[0]):
-        mats.append(fm["wcat"][l].t())
+        gate = fm["wcat"][l] if "wcond" not in fm else torch.cat(
+            [fm["wcat"][l], fm["wcond"][l]], 1)
+        mats.append(gate.t())
         mats.append(fm["wrs"][l].t())
     return mats
 
 
-def step_stream(params: dict, lp: dict, arch) -> list:
+def step_stream(params: dict, lp: dict, arch, w_cond=None) -> list:
     """The (K, M) matrices of one sample step in the order the kernels use
     them (mega and turbo alike): the layer stream, then the finale."""
-    return layer_stream(lp) + _finale(params, arch)
+    return layer_stream(lp, w_cond) + _finale(params, arch)
 
 
 def pack_stream(mats: list, device) -> dict:
@@ -226,17 +243,18 @@ def tc_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # The stack kernels B1 and B7 (`tc::stack_tc_kernel`).
 
-def stack_smem(c: int, g: int, s: int, n_layers: int) -> tuple:
+def stack_smem(c: int, g: int, s: int, n_layers: int, cc: int = 0) -> tuple:
     """(bytes, weight slots) of the stack kernels' dynamic shared memory, as
     tc::stack_carve carves it on an H100: the ring's barriers and slots, h,
-    the skip sum, two tap buffers, the dilations, the bf16 [h | tap] and
-    gate tiles, each start aligned to 16 bytes; as many slots as fit, at
-    most MAX_SLOTS. The library's `wn_*_tc_smem` must agree (checked before
+    the skip sum, two tap buffers, the dilations, the bf16 [h | tap (|
+    cond)] and gate tiles, each start aligned to 16 bytes; as many slots as
+    fit, at most MAX_SLOTS. `cc`: the folded conditioning channels (0:
+    unconditioned). The library's `wn_*_tc_smem` must agree (checked before
     every launch)."""
     def carve(slots):
         off = 0
         for n in (8 * MAX_SLOTS, 8 * MAX_SLOTS, slots * SLOT, 4 * c * TB, 4 * s * TB,
-                  4 * c * TB, 4 * c * TB, 4 * n_layers, 2 * TB * (2 * c + 8),
+                  4 * c * TB, 4 * c * TB, 4 * n_layers, 2 * TB * (2 * c + cc + 8),
                   2 * TB * (g + 8)):
             off = -(-off // 16) * 16 + n
         return off
@@ -245,27 +263,29 @@ def stack_smem(c: int, g: int, s: int, n_layers: int) -> tuple:
     return carve(slots), slots
 
 
-def stack_route(c: int, g: int, s: int, n_layers: int, dt) -> str:
+def stack_route(c: int, g: int, s: int, n_layers: int, dt, cc: int = 0) -> str:
     """Which kernel runs a stack step (B1 or B7) of widths (C, G, S) with S
-    the skip slice it is given, decided before the launch from the compute
-    dtype and the widths: "tensor_cores" (tc::stack_tc_kernel) for bf16
-    with C, G and S multiples of 16 (mma.sync tiles), C+S <= MAX_M, G <=
-    MAX_GATES (the instantiated tiles per warp) and two weight slots beside
-    the tile in shared memory; else "cuda_cores" (the first version's
-    in-order fp32 FMAs, any width)."""
-    tiles = all(v >= 16 and v % 16 == 0 for v in (c, g, s))
+    the skip slice it is given and `cc` folded conditioning channels (0:
+    unconditioned), decided before the launch from the compute dtype and
+    the widths: "tensor_cores" (tc::stack_tc_kernel) for bf16 with C, G, S
+    and cc multiples of 16 (mma.sync tiles), C+S <= MAX_M, G <= MAX_GATES
+    (the instantiated tiles per warp) and two weight slots beside the tile
+    in shared memory; else "cuda_cores" (the first version's in-order fp32
+    FMAs, any width)."""
+    tiles = all(v >= 16 and v % 16 == 0 for v in (c, g, s)) and cc % 16 == 0
     if (dt == torch.bfloat16 and tiles and c + s <= MAX_M and g <= MAX_GATES
-            and stack_smem(c, g, s, n_layers)[1] >= 2):
+            and stack_smem(c, g, s, n_layers, cc)[1] >= 2):
         return "tensor_cores"
     return "cuda_cores"
 
 
-def stack_default_order(c: int, g: int, s: int, n_layers: int, dt, device) -> bool:
+def stack_default_order(c: int, g: int, s: int, n_layers: int, dt, device,
+                        cc: int = 0) -> bool:
     """Whether the stack kernels' plain versions sum as the tensor-core
     route does: on a CUDA tensor (where they are the kernels' reference) on
     that route; on the CPU one fp32 sum per product."""
     return (torch.device(device).type == "cuda"
-            and stack_route(c, g, s, n_layers, dt) == "tensor_cores")
+            and stack_route(c, g, s, n_layers, dt, cc) == "tensor_cores")
 
 
 def pack_layers(mats: list, bg: torch.Tensor, brs: torch.Tensor, device) -> dict:
@@ -282,30 +302,36 @@ class StackArgs(ctypes.Structure):
     """tc::StackArgs."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "h0", "bufs", "dils", "wpk", "prods", "bg", "brs", "skip",
-    )] + [(n, ctypes.c_int) for n in ("B", "L", "C", "G", "S", "t", "grid")]
+    )] + [(n, ctypes.c_int) for n in ("B", "L", "C", "G", "S", "t", "grid")] + [
+        ("cond", ctypes.c_void_p), ("Cc", ctypes.c_int)]
 
 
-def lib_stack_smem(lib, name: str, c: int, g: int, s: int, n_layers: int) -> int:
+def lib_stack_smem(lib, name: str, c: int, g: int, s: int, n_layers: int, cc: int = 0) -> int:
     """The built library's own count of stack_smem's bytes (`name`:
     "fused_stack" or "tp_fused_stack")."""
-    f = getattr(lib, f"wn_{name}_tc_smem")
-    f.argtypes, f.restype = [ctypes.c_int] * 4, ctypes.c_longlong
-    return int(f(n_layers, c, g, s))
+    f = build.entry(lib, f"wn_{name}_tc_smem", [ctypes.c_int] * 5, ctypes.c_longlong)
+    return int(f(n_layers, c, g, s, cc))
 
 
 def launch_stack(name: str, ops: dict, h0, bufs, dils, skip, dims: tuple, t: int,
-                 device) -> int:
+                 device, cond=None) -> int:
     """One launch of the tensor-core stack kernel of csrc/ar_step.cu (name
     "fused_stack") or csrc/ar_tp.cu ("tp_fused_stack") on the current
     stream, after checking that the library carves shared memory as
-    stack_smem reckons it. dims (B, L, C, G, S). Returns the launches."""
+    stack_smem reckons it. dims (B, L, C, G, S); `cond` the step's bf16
+    conditioning, (B, Cc') lane-major for B1, (Cc', B) feature-major for
+    B7, or None. Returns the launches."""
     b, n_layers, c, g, s = dims
+    cc = 0 if cond is None else cond.shape[1 if name == "fused_stack" else 0]
     lib = build.load("ar_step" if name == "fused_stack" else "ar_tp")
-    got, want = lib_stack_smem(lib, name, c, g, s, n_layers), stack_smem(c, g, s, n_layers)[0]
+    got = lib_stack_smem(lib, name, c, g, s, n_layers, cc)
+    want = stack_smem(c, g, s, n_layers, cc)[0]
     if got != want:
         raise RuntimeError(f"the {name} library carves {got} bytes of shared memory at "
-                           f"L={n_layers}, C={c}, G={g}, S={s}; ar_tc.stack_smem reckons {want}")
+                           f"L={n_layers}, C={c}, G={g}, S={s}, Cc={cc}; ar_tc.stack_smem "
+                           f"reckons {want}")
     args = StackArgs(build.ptr(h0), build.ptr(bufs), build.ptr(dils), build.ptr(ops["wpk"]),
                      build.ptr(ops["prods"]), build.ptr(ops["bg"]), build.ptr(ops["brs"]),
-                     build.ptr(skip), b, n_layers, c, g, s, int(t), launch_shape(b)[0])
+                     build.ptr(skip), b, n_layers, c, g, s, int(t), launch_shape(b)[0],
+                     build.ptr(cond), cc)
     return build.launch(lib, f"wn_{name}_tc", args, device)

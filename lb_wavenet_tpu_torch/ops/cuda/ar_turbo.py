@@ -22,6 +22,10 @@ one launch each, with h and the embedding stack carried in place; the
 kernel computes each step's ring slots and seed from t, so the chunk is
 queued without a host round trip. A CPU tensor takes the plain version
 (`turbo_generate_plain`); a CUDA tensor launches the kernel or raises.
+
+Conditioning: `cond` (T, B, Cc') holds each step's conditioning row, mel
+and/or speaker folded into one (generate._fold_gcond), against the folded
+lp["w_cond"] (L, Cc', 2G); step i of a chunk reads row i.
 """
 from __future__ import annotations
 
@@ -63,17 +67,20 @@ def sample_bm(logits, temperature: float, lane, t: int, seed_base: int, forced):
 
 def turbo_generate_plain(params, lp, arch: ArchConfig, state: dict, t0: int,
                          forced: torch.Tensor, temperature: float, emit_logits: bool,
-                         lane, seed_base: int, tensor_cores: Optional[bool] = None):
+                         lane, seed_base: int, tensor_cores: Optional[bool] = None,
+                         cond=None):
     """PyTorch version of the kernel on any device, step for step as the JAX
     kernel. state {"bufs", "h", "e"} is updated in place; forced (T, B)
     int32. Returns (classes (T, B) int32, logits (T, B, Q) or None). With
     tensor_cores (the default on a CUDA state in bf16 at widths the kernel
     takes, ar_tc.default_order) each product is summed as the bf16 kernel
     sums it (ar_tc.tc_mm), so the two agree bit for bit; otherwise in one
-    fp32 product, as the fp32 kernel's in-order sums come out."""
+    fp32 product, as the fp32 kernel's in-order sums come out. cond (T, B,
+    Cc') or None: the layers' cond term (ar_step.fused_stack_plain)."""
     dt = compute_dtype(arch)
     if tensor_cores is None:
-        tensor_cores = ar_tc.default_order(arch, dt, state["h"].device)
+        tensor_cores = ar_tc.default_order(arch, dt, state["h"].device,
+                                           0 if cond is None else cond.shape[-1])
 
     def mm(x, w):
         return ar_tc.tc_mm(rnd(x, dt), rnd(w, dt)) if tensor_cores else _mm(x, w, dt)
@@ -86,7 +93,8 @@ def turbo_generate_plain(params, lp, arch: ArchConfig, state: dict, t0: int,
     classes, logits_all = [], []
     for i in range(forced.shape[0]):
         t = t0 + i
-        _, skip = fused_stack_plain(lp, arch, h, state["bufs"], t, mm)
+        _, skip = fused_stack_plain(lp, arch, h, state["bufs"], t, mm,
+                                    None if cond is None else cond[i], tensor_cores)
         hidden = torch.relu(mm(torch.relu(skip), pp["w1"]) + pp["b1"])
         logits = mm(hidden, pp["w2"]) + pp["b2"]
         if emit_logits:
@@ -114,12 +122,13 @@ class _TurboArgs(ctypes.Structure):
     )] + [("inv_temp", ctypes.c_float), ("bf16", ctypes.c_int)] + [
         (n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
         (n, ctypes.c_int) for n in ("n_prod", "grid")] + [("brs", ctypes.c_void_p),
-                                                              ("tc", ctypes.c_int)]
+                                                              ("tc", ctypes.c_int)] + [
+        (n, ctypes.c_void_p) for n in ("cond", "w_cond")] + [("Cc", ctypes.c_int)]
 
 
 def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
                         forced: torch.Tensor, temperature: float, emit_logits: bool,
-                        lane, seed_base: int):
+                        lane, seed_base: int, cond=None):
     """The kernel, one launch per step: same contract as
     turbo_generate_plain."""
     dev = state["h"].device
@@ -139,10 +148,13 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
     names = ("w1", "b1", "w2", "b2")
 
     bf16 = dt == torch.bfloat16
-    tc = ar_tc.route(arch, dt) == "tensor_cores"
+    cc = 0 if cond is None else cond.shape[-1]
+    tc = ar_tc.route(arch, dt, cc) == "tensor_cores"
+    w_cond = lp["w_cond"] if cc else None
 
     def cast():  # weights in the compute dtype, biases fp32, once per weight set
         out = {n: lp[n] for n in LAYER_KEYS}
+        out["w_cond"] = w_cond
         out.update({n: pp[n] for n in names}, emb=params["embed"],
                    w_in=params["input_conv"]["w"], b_in=params["input_conv"]["b"],
                    brs=torch.cat([lp["b_res"], lp["b_skip"]], 1) if tc else None)
@@ -152,14 +164,23 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
         out = {n: None if v is None else
                v.to(dev, torch.float32 if n.startswith("b") else dt).contiguous()
                for n, v in out.items()}
-        out.update(ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch), dev) if tc
+        out.update(ar_tc.pack_stream(ar_tc.step_stream(params, lp, arch, w_cond), dev) if tc
                    else {"wpk": None, "prods": None})
         return out
 
     if lp["w_cur"].shape != (L, c, 2 * arch.gate_channels):
         raise ValueError(f"w_cur does not match the arch: {tuple(lp['w_cur'].shape)}")
     sources = (*(lp[n] for n in LAYER_KEYS), *(pp[n] for n in names), params["embed"],
-               params["input_conv"]["w"], params["input_conv"]["b"])
+               params["input_conv"]["w"], params["input_conv"]["b"]) + (
+        () if w_cond is None else (w_cond,))
+    if cc:
+        if w_cond.shape != (L, cc, 2 * arch.gate_channels):
+            raise ValueError(f"w_cond {tuple(w_cond.shape)} does not match cond "
+                             f"{tuple(cond.shape)}")
+        cond = cond.to(dev, dt).contiguous()
+        if cond.shape != (n_steps, b, cc):
+            raise ValueError(f"cond must be (T, B, Cc) = {(n_steps, b, cc)}, got "
+                             f"{tuple(cond.shape)}")
     ops = dict(build.prepared(f"turbo_step {dev} {dt} tc={tc}", sources, cast))
     ops["forced"] = forced.to(dev, torch.int32).contiguous()
     if ops["forced"].shape != (n_steps, b):
@@ -181,6 +202,7 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
         _inv_temp(temperature) if temperature > 0.0 else 0.0, int(bf16),
         ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
         ar_tc.launch_shape(b)[0], ptr(ops["brs"]), int(tc),
+        ptr(cond), ptr(ops["w_cond"]), cc,
     )
     lib = build.load("ar_turbo")
     fn = lib.wn_turbo_steps
@@ -201,18 +223,15 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
 
 def turbo_generate(params, lp, arch: ArchConfig, state: dict, t0: int,
                    forced: torch.Tensor, temperature: float, emit_logits: bool = False,
-                   lane: Optional[torch.Tensor] = None, seed_base: int = 0):
+                   lane: Optional[torch.Tensor] = None, seed_base: int = 0, cond=None):
     """Steps t0 .. t0 + T - 1 from state {"bufs" (sum_d, B, C), "h" (B, C),
-    "e" (K-1, B, C)}, updated in place; forced (T, B) int32, -1 free-runs.
-    Returns (classes (T, B) int32, logits (T, B, Q) or None)."""
-    if arch.use_local_cond or arch.use_global_cond:
-        raise NotImplementedError(
-            "the conditioned turbo step waits for the mel/speaker slice "
-            "(ROADMAP.md A queue item 4)")
+    "e" (K-1, B, C)}, updated in place; forced (T, B) int32, -1 free-runs;
+    cond (T, B, Cc') or None, against the folded lp["w_cond"]. Returns
+    (classes (T, B) int32, logits (T, B, Q) or None)."""
     run = (turbo_generate_cuda if build.on_card(state["h"].device, "turbo_step")
            else turbo_generate_plain)
     return run(params, lp, arch, state, int(t0), forced, temperature, emit_logits, lane,
-               int(seed_base))
+               int(seed_base), cond=cond)
 
 
 def turbo_step(
@@ -233,15 +252,15 @@ def turbo_step(
 ):
     """One step; returns (bufs, cls (B,), new estack, h0_next[, logits
     (B, Q)]), as the JAX turbo_step (which takes the step's slots and seed
-    instead of t and seed_base)."""
-    if has_cond or cond_t is not None:
-        raise NotImplementedError(
-            "the conditioned turbo step waits for the mel/speaker slice "
-            "(ROADMAP.md A queue item 4)")
+    instead of t and seed_base). has_cond: cond_t (B, Cc') against the
+    folded lp["w_cond"]."""
+    if has_cond != (cond_t is not None):
+        raise ValueError("pass cond_t exactly when has_cond")
     state = {"bufs": bufs, "h": h0.to(torch.float32).clone(),
              "e": estack.to(torch.float32).clone()}
     classes, logits = turbo_generate(params, lp, arch, state, t, forced_t.reshape(1, -1),
-                                     temperature, emit_logits, lane, seed_base)
+                                     temperature, emit_logits, lane, seed_base,
+                                     None if cond_t is None else cond_t[None])
     out = (bufs, classes[0], state["e"], state["h"])
     return out + (logits[0],) if emit_logits else out
 

@@ -368,7 +368,7 @@ def make_fused_stack(arch: ArchConfig, has_cond: bool = False, tapcat: bool = Fa
     if has_cond:
         raise NotImplementedError(
             "the conditioned training stack waits for the mel/speaker slice "
-            "(ROADMAP.md A queue item 4)")
+            "(ROADMAP.md A queue item 4b)")
     if has_mask:
         raise NotImplementedError(
             "the sequence-parallel input mask waits for the parallelism slice "

@@ -16,6 +16,10 @@ computes its own part and gets the global classes back (all-gathered over
   hidden layer with ONE all-reduce per step. turbo and mega run the TP step
   (kernel B7, generate._tp_scan), pallas its fused_stack on the sliced
   w_skip, xla its layer loop. Composes with a data axis.
+* Conditioning (`cond` (B, T, Cc) upsampled, `speaker_ids` (B,)) is
+  host-replicated like every input: each data rank takes its lanes' rows,
+  and the model ranks add the whole cond term to the gate, which is not
+  split.
 
 Where the port differs from the JAX package:
 * JAX partitions its xla engine under a model axis with GSPMD, over the gate
@@ -65,12 +69,6 @@ def _check_skip_split(arch: ArchConfig, n_model: int) -> None:
             f"({arch.skip_channels}) % model axis ({n_model}) == 0")
 
 
-def _check_no_cond(cond, speaker_ids) -> None:
-    if cond is not None or speaker_ids is not None:
-        raise NotImplementedError(
-            "conditioning is not ported yet (ROADMAP.md A queue item 4)")
-
-
 def skip_sharded_params(params: dict, mesh: Mesh) -> dict:
     """This rank's params on its device: the skip-separable dims sliced
     (w_skip and b_skip on S, post.w1 on its rows), everything else whole.
@@ -87,12 +85,14 @@ def skip_sharded_params(params: dict, mesh: Mesh) -> dict:
     return {**local, "layers": lp, "post": pp}
 
 
-def _rows(x, mesh: Mesh, shard_b: int, dtype) -> Optional[torch.Tensor]:
-    """This data rank's rows of a host-replicated global-batch input."""
+def _rows(x, mesh: Mesh, shard_b: int, dtype=None) -> Optional[torch.Tensor]:
+    """This data rank's rows of a host-replicated global-batch input (in
+    `dtype`, or its own)."""
     if x is None:
         return None
     x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-    return x[mesh.data_rank * shard_b: (mesh.data_rank + 1) * shard_b].to(mesh.device, dtype)
+    return x[mesh.data_rank * shard_b: (mesh.data_rank + 1) * shard_b].to(
+        mesh.device, dtype or x.dtype)
 
 
 def mesh_generate_classes(
@@ -113,19 +113,21 @@ def mesh_generate_classes(
     the GLOBAL lane count (a multiple of the data axis); array inputs are
     the global batch, identical on every rank. Fused engines and every
     engine on a model axis of more than one rank take the skip split; the
-    xla engine without one is a fleet."""
-    _check_no_cond(cond, speaker_ids)
+    xla engine without one is a fleet. `cond` (B, T, Cc) and `speaker_ids`
+    (B,) are global-batch inputs too."""
     if batch % mesh.data:
         raise ValueError(f"global batch {batch} % data axis {mesh.data} != 0")
     if engine in FUSED_ENGINES or mesh.model > 1:
         return _skip_sharded_generate(params, arch, rng, batch, n_samples, mesh, engine,
-                                      forced, temperature, **kwargs)
+                                      forced, temperature, cond=cond,
+                                      speaker_ids=speaker_ids, **kwargs)
     return fleet_generate_classes(params, arch, rng, batch, n_samples, mesh, engine=engine,
-                                  forced=forced, temperature=temperature, **kwargs)
+                                  forced=forced, temperature=temperature, cond=cond,
+                                  speaker_ids=speaker_ids, **kwargs)
 
 
 def _skip_sharded_generate(params, arch, rng, batch, n_samples, mesh: Mesh, engine,
-                           forced, temperature, **kwargs):
+                           forced, temperature, cond=None, speaker_ids=None, **kwargs):
     """Model-sharded synthesis: each rank runs its data shard's lanes on
     its skip slice, one all-reduce per step over `model`; the model ranks of
     a data shard follow the same sampling chain, so they emit the same
@@ -139,6 +141,7 @@ def _skip_sharded_generate(params, arch, rng, batch, n_samples, mesh: Mesh, engi
     cls = generate_classes(
         skip_sharded_params(params, mesh), arch, data_shard_seed(rng, mesh.data_rank),
         shard_b, n_samples, forced=_rows(forced, mesh, shard_b, torch.int32),
+        cond=_rows(cond, mesh, shard_b), speaker_ids=_rows(speaker_ids, mesh, shard_b),
         temperature=temperature, engine=engine, model_axis=mesh, device=mesh.device,
         **kwargs)
     return all_gather_rows(cls, mesh)
@@ -146,7 +149,8 @@ def _skip_sharded_generate(params, arch, rng, batch, n_samples, mesh: Mesh, engi
 
 def fleet_generate_classes(params, arch: ArchConfig, rng: int, batch: int, n_samples: int,
                            mesh: Mesh, engine: str = "mega", forced=None,
-                           temperature: float = 1.0, **kwargs) -> torch.Tensor:
+                           temperature: float = 1.0, cond=None, speaker_ids=None,
+                           **kwargs) -> torch.Tensor:
     """Batch-sharded generation over the data axis, the model replicated
     (ranks of one data shard compute the same lanes)."""
     if batch % mesh.data:
@@ -156,7 +160,8 @@ def fleet_generate_classes(params, arch: ArchConfig, rng: int, batch: int, n_sam
     shard_b = batch // mesh.data
     cls = generate_classes(
         params, arch, data_shard_seed(rng, mesh.data_rank), shard_b, n_samples,
-        forced=_rows(forced, mesh, shard_b, torch.int32), temperature=temperature,
+        forced=_rows(forced, mesh, shard_b, torch.int32), cond=_rows(cond, mesh, shard_b),
+        speaker_ids=_rows(speaker_ids, mesh, shard_b), temperature=temperature,
         engine=engine, device=mesh.device, **kwargs)
     return all_gather_rows(cls, mesh)
 
@@ -208,11 +213,12 @@ class ShardedSession:
               temperature: float = 1.0, lane_seed=None, lane_t0=None,
               lane_inv_temp=None) -> torch.Tensor:
         """Emit the next chunk: the global (B, chunk) classes; the session
-        state advances in place."""
-        _check_no_cond(cond, speaker_ids)
+        state advances in place. `cond` (B, chunk, Cc) and `speaker_ids`
+        (B,) are global-batch, as every argument."""
         m, n = self.mesh, self.shard_b
         cls, self.stream = stream_chunk(
             self.params, self.arch, self.stream, chunk_size,
+            cond=_rows(cond, m, n), speaker_ids=_rows(speaker_ids, m, n),
             forced=_rows(forced, m, n, torch.int32), temperature=temperature,
             engine=self.engine, lane_seed=_rows(lane_seed, m, n, torch.int32),
             lane_t0=_rows(lane_t0, m, n, torch.int32),

@@ -19,8 +19,16 @@ parallel.synthesis.ShardedSession (skip split over `model`, lanes over
 lane bookkeeping is replicated; each chunk's classes are all-gathered over
 `data`, so every rank (the CLI: rank 0) can deliver.
 
-Not ported yet: frozen artifacts and mel/speaker requests (ROADMAP.md A
-queue items 4 and 5).
+Conditioned requests (the mel vocoder, speakers): a request on a
+mel-conditioned arch brings `cond_fn(t_local, n) -> (n, Cc)`, its
+upsampled conditioning for samples t_local .. t_local + n - 1 (numpy, a
+CPU tensor, or a tensor on the pool's device); a speaker-conditioned arch
+takes `speaker`. Each chunk asks every leased lane for the steps it will
+consume, zero-pads the tail, and assembles one (B, chunk, Cc) slab in the
+compute dtype: host spans in a pinned buffer (two, used in turn) uploaded
+with one asynchronous copy, device spans copied on the device.
+
+Not ported yet: frozen artifacts (ROADMAP.md A queue item 5).
 """
 from __future__ import annotations
 
@@ -50,6 +58,8 @@ class _Lease:
     request_id: object
     remaining: int          # samples still to emit
     emitted: int = 0
+    speaker: Optional[int] = None
+    cond_fn: Optional[Callable] = None  # (t_local, n) -> (n, Cc)
     t_local: int = 0        # samples generated for THIS request so far
     start_t: int = 0        # pool-global sample index of the lease start
 
@@ -96,10 +106,6 @@ class SessionPool:
         if artifact is not None:
             raise NotImplementedError(
                 "serving artifacts are not ported yet (ROADMAP.md A queue item 5)"
-            )
-        if arch.use_local_cond or arch.use_global_cond:
-            raise NotImplementedError(
-                "mel/speaker serving is not ported yet (ROADMAP.md A queue item 4)"
             )
         self._session = None
         if mesh is not None:
@@ -178,12 +184,16 @@ class SessionPool:
                 raise ValueError("acc_samples must be >= 3 * chunk_size")
             self._acc = torch.zeros((self._device_batch, acc_samples),
                                     dtype=torch.uint8, device=self.device)
-        # Cumulative wall clock per phase (seconds): 'reset'/'dispatch' are
-        # host-side enqueue work (asynchronous on the card), 'fetch' is the
+        # The cond slab's host buffers (pinned on the card), used in turn,
+        # each with the event of its last upload and the rows it wrote.
+        self._cond_host: List[tuple] = []
+        # Cumulative wall clock per phase (seconds): 'reset'/'cond'/
+        # 'dispatch' are host-side enqueue work (asynchronous on the card;
+        # 'cond' is the cond slab's assembly and upload), 'fetch' is the
         # device wait + device-to-host copy, 'slice' the per-request
         # delivery, 'submit' the lease bookkeeping.
         self.stats: Dict[str, float] = {
-            "steps": 0, "reset_s": 0.0, "dispatch_s": 0.0,
+            "steps": 0, "reset_s": 0.0, "cond_s": 0.0, "dispatch_s": 0.0,
             "fetch_s": 0.0, "slice_s": 0.0, "submit_s": 0.0,
         }
 
@@ -213,13 +223,16 @@ class SessionPool:
         `seed` (per_lane_rng pools) pins the request's sampling seed: a
         dedicated session with the same seed replays it bit for bit.
         `temperature` (pools built with temperature > 0) overrides the pool
-        default for this request; 0 means greedy."""
+        default for this request; 0 means greedy. `cond_fn(t_local, n) ->
+        (n, Cc)` (exactly when the arch is mel-conditioned) gives the
+        request's upsampled conditioning; `speaker` (speaker-conditioned
+        archs) its speaker, 0 when None."""
         if n_samples <= 0:
             raise ValueError(f"n_samples must be positive, got {n_samples}")
-        if speaker is not None or cond_fn is not None:
-            raise NotImplementedError(
-                "mel/speaker requests are not ported yet (ROADMAP.md A queue item 4)"
-            )
+        if speaker is not None and not self.arch.use_global_cond:
+            raise ValueError("speaker given but arch.n_speakers == 0")
+        if (cond_fn is not None) != self.arch.use_local_cond:
+            raise ValueError("cond_fn must be passed iff the arch is mel-conditioned")
         if seed is not None and not self.per_lane_rng:
             raise ValueError("submit(seed=...) needs per_lane_rng=True")
         if temperature is not None:
@@ -250,8 +263,8 @@ class SessionPool:
             if not self._free:
                 return False
             i = heapq.heappop(self._free)
-            self._lanes[i] = _Lease(request_id, n_samples,
-                                    start_t=self._t_dispatched)
+            self._lanes[i] = _Lease(request_id, n_samples, speaker=speaker,
+                                    cond_fn=cond_fn, start_t=self._t_dispatched)
             if self.per_lane_rng:
                 if seed is None:
                     seed = (
@@ -314,6 +327,18 @@ class SessionPool:
         t1 = time.perf_counter()
         self.stats["reset_s"] += t1 - t0
 
+        speaker_ids = None
+        if self.arch.use_global_cond:
+            ids = np.zeros(self._device_batch, np.int32)   # idle and pad lanes: 0
+            for i, lease in enumerate(self._lanes):
+                if lease is not None and lease.speaker is not None:
+                    ids[i] = lease.speaker
+            speaker_ids = self._to_device(ids)
+        cond = self._cond_slab() if self.arch.use_local_cond else None
+        t2 = time.perf_counter()
+        self.stats["cond_s"] += t2 - t1
+        t1 = t2
+
         lane_kw = {}
         if self.per_lane_rng:
             lane_kw = dict(
@@ -325,11 +350,12 @@ class SessionPool:
                 # pools: logits * f32(1/tau) equals the folded constant.
                 lane_kw["lane_inv_temp"] = self._to_device(self._lane_inv_temp)
         if self._session is not None:
-            classes = self._session.chunk(self.chunk_size, temperature=self.temperature,
-                                          **lane_kw)
+            classes = self._session.chunk(self.chunk_size, cond=cond, speaker_ids=speaker_ids,
+                                          temperature=self.temperature, **lane_kw)
         else:
             classes, self.stream = stream_chunk(
                 self.params, self.arch, self.stream, self.chunk_size,
+                cond=cond, speaker_ids=speaker_ids,
                 temperature=self.temperature, engine=self.engine,
                 global_rng=not self.per_lane_rng, **lane_kw,
             )
@@ -369,6 +395,66 @@ class SessionPool:
         self.stats["steps"] += 1
         self.stats["dispatch_s"] += time.perf_counter() - t1
         return handle, meta
+
+    def _cond_slab(self) -> torch.Tensor:
+        """This chunk's (device batch, chunk, Cc) conditioning in the
+        compute dtype on the pool's device. Each leased lane's cond_fn is
+        asked only for the steps its request will consume; the rest of the
+        slab is zeros. Host spans (numpy or CPU tensors) are written into a
+        host buffer (pinned on the card; two, used in turn, each reused
+        after its last upload has completed) and uploaded with ONE
+        asynchronous copy; spans already on the device are stacked and
+        written by one indexed copy per span length. With no host span the
+        slab is made on the device."""
+        from .models.wavenet import compute_dtype
+
+        dt = compute_dtype(self.arch)
+        cc, n = self.arch.cond_channels, self.chunk_size
+        host_rows, dev_rows = [], {}
+        for i, lease in enumerate(self._lanes):
+            if lease is None:
+                continue
+            n_need = min(n, lease.remaining)
+            span = lease.cond_fn(lease.t_local, n_need)
+            if tuple(span.shape) != (n_need, cc):
+                raise ValueError(f"cond_fn returned {tuple(span.shape)}, expected "
+                                 f"({n_need}, {cc})")
+            if isinstance(span, torch.Tensor) and span.device.type != "cpu":
+                dev_rows.setdefault(n_need, []).append((i, span))
+            else:
+                host_rows.append((i, span))
+        cuda = self.device.type == "cuda"
+        if host_rows or not cuda:
+            if len(self._cond_host) < (2 if cuda else 1):
+                self._cond_host.append((torch.zeros((self._device_batch, n, cc), dtype=dt,
+                                                    pin_memory=cuda), None, set()))
+            host, uploaded, dirty = self._cond_host.pop(0)
+            if uploaded is not None:
+                uploaded.synchronize()
+            written = set()
+            for i, span in host_rows:
+                k = span.shape[0]
+                span = np.asarray(span, np.float32)
+                host[i, :k].copy_(torch.from_numpy(span if span.flags.writeable
+                                                   else span.copy()))
+                if k < n:
+                    host[i, k:].zero_()
+                written.add(i)
+            for i in dirty - written:   # rows of last use that are idle now
+                host[i].zero_()
+            if cuda:
+                slab = host.to(self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                slab, done = host.clone(), None
+            self._cond_host.append((host, done, written))
+        else:
+            slab = torch.zeros((self._device_batch, n, cc), dtype=dt, device=self.device)
+        for k, rows in dev_rows.items():
+            idx = self._to_device(np.array([i for i, _ in rows], np.int64))
+            slab[idx, :k] = torch.stack([span for _, span in rows]).to(self.device, dt)
+        return slab
 
     def _start_fetch(self, classes: torch.Tensor):
         """Enqueue the device-to-host copy right behind the chunk, into

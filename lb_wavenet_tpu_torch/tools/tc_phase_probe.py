@@ -70,8 +70,8 @@ def patched_tc(tcu: str) -> str:
          "    if (WN_ME) wn_prof[6] += clock64() - w0;\n"),
         ("  if (next_row) prefetch_taps<FM>(next_row, next, B, b0, C);\n  csync();\n",
          "  if (next_row) prefetch_taps<FM>(next_row, next, B, b0, C);\n  csync();\n  P(0)\n"),
-        ("                       });\n  csync();\n  mm<TPW>(r, C + S",
-         "                       });\n  csync();\n  P(1)\n  mm<TPW>(r, C + S"),
+        ("      C / 16);\n  csync();\n  mm<TPW>(r, C + S",
+         "      C / 16);\n  csync();\n  P(1)\n  mm<TPW>(r, C + S"),
         ("  cp_async_wait_all();\n  csync();\n}\n", "  cp_async_wait_all();\n  csync();\n  P(2)\n}\n"),
         ("  cp_async_wait_all();\n  csync();\n\n  int off = 0;\n",
          "  cp_async_wait_all();\n  csync();\n  P0()\n\n  int off = 0;\n"),
@@ -83,7 +83,7 @@ def patched_mega(mega: str) -> str:
     return _patch(mega, "ar_mega.cu", [
         ("  tc::csync();\n\n  for (int t = 0, q = 0; t < a.T; ++t) {",
          "  tc::csync();\n  P0()\n  for (int t = 0, q = 0; t < a.T; ++t) {"),
-        ("      tc::csync();\n      // pre = [h ; tap]", "      tc::csync(); P(0)\n      // pre = [h ; tap]"),
+        ("      tc::csync();\n      // pre = [h ; tap", "      tc::csync(); P(0)\n      // pre = [h ; tap"),
         ("      tc::csync();\n      // One z @", "      tc::csync(); P(1)\n      // One z @"),
         ("      tc::csync();\n      off += d;", "      tc::csync(); P(2)\n      off += d;"),
         ("    tc::sample(", "    P(3) tc::sample("),

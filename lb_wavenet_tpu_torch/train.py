@@ -21,7 +21,7 @@ passes device="cpu" (then the kernels' plain versions run).
 (eval.py). Not ported yet, and raising NotImplementedError (ROADMAP.md A):
 model and sequence parallelism (mesh_model > 1, mesh_data > 1,
 seq_parallel; A queue item 7b), TensorBoard (A queue item 8) and mel/speaker
-conditioning (A queue item 4).
+conditioning (A queue item 4b).
 """
 from __future__ import annotations
 
@@ -50,18 +50,23 @@ class TrainState(NamedTuple):
 
 
 def tree_map(fn, *trees):
-    """fn over the leaves of nested dicts of the same structure (keys in
-    sorted order, as tree_leaves)."""
+    """fn over the leaves of nested dicts and lists of the same structure
+    (keys in sorted order, as tree_leaves)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in sorted(first)}
+    if isinstance(first, list):
+        return [tree_map(fn, *(t[i] for t in trees)) for i in range(len(first))]
     return fn(*trees)
 
 
 def tree_leaves(tree) -> list:
-    """Leaves in sorted-key order (the order of jax.tree.leaves)."""
+    """Leaves in sorted-key order, list items in order (the order of
+    jax.tree.leaves)."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -158,7 +163,7 @@ def forward_fused(params: dict, arch: ArchConfig, x_classes, cond_frames=None,
     if cond_frames is not None or speaker_ids is not None:
         raise NotImplementedError(
             "conditioned training waits for the mel/speaker slice "
-            "(ROADMAP.md A queue item 4)")
+            "(ROADMAP.md A queue item 4b)")
     dt = compute_dtype(arch)
     h0 = input_frontend(params, arch, x_classes, dt, fused_frontend)
     skip = make_fused_stack(arch, tapcat=tapcat)(params["layers"], h0)
@@ -269,7 +274,7 @@ def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
     if arch.use_local_cond or arch.use_global_cond:
         raise NotImplementedError(
             "conditioned training waits for the mel/speaker slice "
-            "(ROADMAP.md A queue item 4)")
+            "(ROADMAP.md A queue item 4b)")
 
 
 def _eval_record(state: TrainState, arch: ArchConfig, train: TrainConfig,

@@ -25,6 +25,8 @@ _NAME = re.compile(r"^params_(\d+)\.pt$")
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.detach().to(device)
     return tree
@@ -130,8 +132,8 @@ def restore_if_available(manager: CheckpointManager, state):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree

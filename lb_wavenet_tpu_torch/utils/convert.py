@@ -2,7 +2,8 @@
 dicts of numpy arrays) to the port's dict of float32 tensors, and back.
 
 The layouts are identical (`models/wavenet.py`), so conversion is leaf by
-leaf; this is how tests and `chip_smoke.py` hand one set of weights to both
+leaf, through dicts and lists (the upsampler's stages are a list of dicts);
+this is how tests and `chip_smoke.py` hand one set of weights to both
 packages. `train_state_from_jax` carries a whole JAX train state (params,
 Adam moments and count, step, EMA) across the same way.
 """
@@ -12,22 +13,24 @@ import numpy as np
 import torch
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict:
-    """Nested dict of array-likes -> nested dict of float32 tensors."""
-    return {
-        k: params_from_jax(v, device) if isinstance(v, dict)
-        else torch.tensor(np.asarray(v, np.float32), device=device)
-        for k, v in tree.items()
-    }
+def params_from_jax(tree, device="cpu"):
+    """Nested dicts and lists of array-likes -> the same structure of
+    float32 tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    return torch.tensor(np.asarray(tree, np.float32), device=device)
 
 
-def params_to_numpy(params: dict) -> dict:
-    """Inverse of params_from_jax: nested dict of float32 numpy arrays."""
-    return {
-        k: params_to_numpy(v) if isinstance(v, dict)
-        else v.detach().to("cpu", torch.float32).numpy()
-        for k, v in params.items()
-    }
+def params_to_numpy(params):
+    """Inverse of params_from_jax: the same structure of float32 numpy
+    arrays."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    return params.detach().to("cpu", torch.float32).numpy()
 
 
 def train_state_from_jax(state, device="cpu"):

@@ -133,9 +133,10 @@ def test_kernel_wrappers_refuse_unknown_devices_and_unported_options():
     h = torch.zeros((2, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_stack(params["layers"], arch, h, torch.zeros((3, 2, 8), device="meta"), 0)
-    for kw, item in ((dict(cond=torch.zeros(2, 4, 3)), "A queue item 4"),
-                     (dict(speaker_ids=torch.zeros(2)), "A queue item 4")):
-        with pytest.raises(NotImplementedError, match=item):
+    # Conditioning is ported; an unconditioned arch refuses it.
+    for kw, msg in ((dict(cond=torch.zeros(2, 4, 3)), "no w_cond"),
+                    (dict(speaker_ids=torch.zeros(2)), "no speaker table")):
+        with pytest.raises(ValueError, match=msg):
             generate_classes(params, arch, 0, 2, 4, device="cpu", **kw)
     # The model axis is ported; it is a process group, not an axis name.
     with pytest.raises(TypeError, match="process group"):

@@ -977,3 +977,89 @@ def test_stack_cuda_core_route_meets_its_tolerance(cuda, kernel, dtype):
         _, s_p = ar_tp.tp_fused_stack_plain(fm, arch, h0, r_p, 700)
         torch.testing.assert_close(r_k, r_p, rtol=0, atol=5e-2)
         assert float((s_k - s_p).abs().max()) <= 1e-2 * float(s_p.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The conditioned variants (mel and/or speaker: one folded cond row of Cc'
+# channels a lane).
+
+COND_SMALL = dataclasses.replace(SMALL, compute_dtype="bfloat16", n_mels=8, cond_channels=16,
+                                 upsample_factors=(4,), n_speakers=4, speaker_embed_dim=16)
+COND_ROUTES = {   # (dtype, Cc, with speakers, atol, route)
+    "tensor_cores": ("bfloat16", 16, False, 0.0, "tensor_cores"),
+    "tensor_cores_speakers": ("bfloat16", 16, True, 0.0, "tensor_cores"),
+    "cuda_cores_fp32": ("float32", 16, True, 1e-4, "cuda_cores"),
+    "cuda_cores_bf16_cc8": ("bfloat16", 8, False, 5e-2, "cuda_cores"),
+}
+
+
+@pytest.mark.parametrize("kernel", ["mega", "turbo", "fused_stack", "tp_fused_stack"])
+@pytest.mark.parametrize("case", list(COND_ROUTES))
+def test_conditioned_kernels_match_plain(cuda, kernel, case):
+    """Each conditioned kernel against its plain version on the same CUDA
+    inputs: bit for bit on the tensor-core route (Cc' = 16, and 32 with the
+    speaker rows folded in), where the plain versions sum cond's k-steps in
+    the gate's chain as the kernels do; on the CUDA-core route (fp32, and
+    bf16 with Cc' = 8, not a multiple of 16) within 1e-4 (fp32 sums in
+    another order) and 5e-2 (a bf16 rounding flip of one activation),
+    over 16 teacher-forced steps from the zero state or one stack step."""
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tc, ar_tp, ar_turbo
+
+    dtype, cc, speakers, atol, route = COND_ROUTES[case]
+    arch = dataclasses.replace(COND_SMALL, compute_dtype=dtype, cond_channels=cc)
+    dt = compute_dtype(arch)
+    p = init_params(13, arch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    b, t = 16, 16
+    cond = torch.randn((t, b, cc), device=cuda, generator=g)
+    lp = p["layers"]
+    if speakers:
+        ids = torch.randint(0, 4, (b,), device=cuda, generator=g)
+        lp, cond = G._fold_gcond(lp, cond, p["speaker_embed"][ids], t)
+    width = cond.shape[-1]
+    assert ar_tc.route(arch, dt, width) == route
+    assert ar_tc.stack_route(16, 16, 16, len(arch.dilations), dt, width) == route
+    h0, e0 = _fused_frontend_zero(p, arch, b)
+    lane = torch.stack([torch.randint(0, 2**31 - 1, (b,), generator=g, device=cuda),
+                        torch.zeros(b, device=cuda, dtype=torch.int64)]).to(torch.int32)
+    forced = torch.randint(0, 256, (t, b), generator=g, device=cuda, dtype=torch.int32)
+    outs = []
+    for fn in ("kernel", "plain"):
+        if kernel == "mega":
+            st = ar_mega.mega_zero_carry(arch, h0, e0)
+            run = ar_mega.mega_generate_cuda if fn == "kernel" else ar_mega.mega_generate_plain
+            _, lg = run(p, lp, arch, st, 0, forced, 1.0, True, lane, 3, cond=cond)
+            out = [lg, *st.values()]
+        elif kernel == "turbo":
+            st = {"bufs": torch.zeros((sum(arch.dilations), b, 16), device=cuda),
+                  "h": h0.clone(), "e": e0.clone()}
+            run = (ar_turbo.turbo_generate_cuda if fn == "kernel"
+                   else ar_turbo.turbo_generate_plain)
+            _, lg = run(p, lp, arch, st, 0, forced, 1.0, True, lane, 3, cond=cond)
+            out = [lg, *st.values()]
+        elif kernel == "fused_stack":
+            ring = torch.randn((sum(arch.dilations), b, 16), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(1))
+            if fn == "kernel":
+                _, skip = ar_step.fused_stack(lp, arch, h0, ring, 37, cond[0])
+            else:
+                _, skip = ar_step.fused_stack_plain(lp, arch, h0, ring, 37, cond_t=cond[0])
+            out = [ring, skip]
+        else:
+            half = {**lp, "w_skip": lp["w_skip"][..., :16], "b_skip": lp["b_skip"][..., :16]}
+            fm = G._tp_weights(p, half, dt)
+            ring = torch.randn((sum(arch.dilations), 16, b), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(1))
+            cond_fm = cond[0].t().contiguous()
+            if fn == "kernel":
+                _, skip = ar_tp.tp_fused_stack(fm, arch, h0.t().contiguous(), ring, 37, cond_fm)
+            else:
+                _, skip = ar_tp.tp_fused_stack_plain(fm, arch, h0.t().contiguous(), ring, 37,
+                                                     cond_t=cond_fm)
+            out = [ring, skip]
+        torch.cuda.synchronize()
+        outs.append(out)
+    for k, p_ in zip(*outs):
+        torch.testing.assert_close(k, p_, rtol=0, atol=atol)

@@ -104,8 +104,10 @@ def test_pool_validation(pair):
         pool.submit("x", 0)
     with pytest.raises(ValueError, match=">= 0"):
         pool.submit("x", 4, temperature=-1.0)
-    with pytest.raises(NotImplementedError, match="A queue item 4"):
+    with pytest.raises(ValueError, match="n_speakers"):   # speakers are ported
         pool.submit("x", 4, speaker=1)
+    with pytest.raises(ValueError, match="cond_fn"):
+        pool.submit("x", 4, cond_fn=lambda t, n: None)
     assert pool.submit("x", 4) and not pool.submit("y", 4)
     with pytest.raises(ValueError, match="deliver"):
         PPool(pp, parch, 1, 0, deliver="bogus", device="cpu")
@@ -156,7 +158,7 @@ def test_cli_serve_writes_wavs(pair, tmp_path, capsys):
     summary = json.loads(lines[-1])
     assert summary["served"] == 3 and summary["engine"] == "mega"
     assert set(summary["phase_ms_per_step"]) == {
-        "reset", "dispatch", "fetch", "slice", "submit"}
+        "reset", "cond", "dispatch", "fetch", "slice", "submit"}
     seeds = {json.loads(ln)["done"]: json.loads(ln).get("seed") for ln in lines[:-1]}
     ref = _serve(PPool(pp, parch, 2, 0, engine="mega", chunk_size=CHUNK,
                        temperature=1.0, pipeline=True, device="cpu"),

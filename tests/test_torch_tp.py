@@ -112,7 +112,24 @@ LAYOUTS = [(1, 2), (2, 2)]
 CHECKS = ["greedy_mega", "greedy_turbo", "greedy_pallas", "greedy_xla", "forced_mega",
           "lane_seed_mega", "lane_seed_pallas", "chunked_mega", "chunked_turbo",
           "reset_lane", "guard_skip_channels", "guard_return_logits", "guard_global_rng",
-          "post_network_sharded", "pool_greedy", "cli_serve", "cli_generate"]
+          "post_network_sharded", "pool_greedy", "cli_serve", "cli_generate",
+          "cond_greedy_mega", "cond_lane_seed_mega"]
+# The conditioned case of the spawn: MICRO with mel (Cc = 8) and speakers.
+COND_MICRO = dataclasses.replace(MICRO, n_mels=8, cond_channels=8, upsample_factors=(4,),
+                                 n_speakers=4, speaker_embed_dim=6)
+
+
+def _cond_case():
+    """(jax params, numpy params, cond (B, T, Cc), speakers (B,)) of the
+    conditioned case, the cond upsampled by JAX from random frames."""
+    from lb_wavenet_tpu.models.conditioning import upsample_cond
+
+    jp = jinit(jax.random.key(4), COND_MICRO)
+    rng = np.random.default_rng(8)
+    frames = rng.standard_normal((R.B, -(-R.T // 4), 8)).astype(np.float32)
+    cond = np.asarray(upsample_cond(jp["upsampler"], COND_MICRO, jnp.asarray(frames),
+                                    jnp.float32))[:, :R.T]
+    return jp, jax.tree.map(np.asarray, jp), cond, rng.integers(0, 4, R.B)
 
 
 def _spawn(layout, work, np_params, parch):
@@ -125,7 +142,9 @@ def _spawn(layout, work, np_params, parch):
         json.dumps({"id": rid, "n_samples": n}) + "\n" for rid, n in R.pool_requests()))
     torch.multiprocessing.spawn(
         R.run_rank, args=(world, str(work / "store"), layout, dataclasses.asdict(parch),
-                          np_params, str(work)),
+                          np_params, str(work),
+                          (dataclasses.asdict(PArch(**dataclasses.asdict(COND_MICRO))),
+                           *_cond_case()[1:])),
         nprocs=world, join=True)
     return [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
@@ -174,6 +193,22 @@ def _check(name, layout, results, work, pair):
         forced = R.forced_primer() if name == "forced_mega" else None
         ref = JS.mesh_generate_classes(jp, MICRO, key, R.B, R.T, mesh, engine=engine,
                                        temperature=0.0, forced=forced)
+        np.testing.assert_array_equal(r0[name].numpy(), np.asarray(ref))
+        same_on_every_rank(r0[name])
+    elif name.startswith("cond_"):
+        cjp, _, cond, spk = _cond_case()
+        kw = dict(cond=jnp.asarray(cond), speaker_ids=jnp.asarray(spk))
+        if name == "cond_greedy_mega":
+            ref = JS.mesh_generate_classes(cjp, COND_MICRO, key, R.B, R.T, mesh, engine="mega",
+                                           temperature=0.0, **kw)
+        else:
+            sess = JS.ShardedSession(cjp, COND_MICRO, R.B, jax.random.key(5), mesh,
+                                     engine="mega")
+            h = R.T // 2
+            ref = np.concatenate([np.asarray(sess.chunk(
+                h, cond=kw["cond"][:, i * h: (i + 1) * h], speaker_ids=kw["speaker_ids"],
+                temperature=0.9, lane_seed=R.LANE_SEEDS, lane_t0=R.LANE_T0,
+                lane_inv_temp=R.LANE_INV)) for i in range(2)], 1)
         np.testing.assert_array_equal(r0[name].numpy(), np.asarray(ref))
         same_on_every_rank(r0[name])
     elif name.startswith("lane_seed_"):
@@ -253,6 +288,8 @@ def test_sharded_slice_over_gloo_ranks(ranks, pair, layout, name):
     guards raise with JAX's messages; post_network_sharded's partial
     products sum to the unsharded post network; a mesh SessionPool's greedy
     audio equals the single-device pool's; `cli serve/generate
-    --mesh-model` write that audio."""
+    --mesh-model` write that audio; with mel and speaker conditioning
+    (B7's cond term), greedy classes and lane-seeded session chunks equal
+    JAX's."""
     results, work = ranks(layout)
     _check(name, layout, results, work, pair)

@@ -50,7 +50,7 @@ def _raises(fn) -> str:
     return "did not raise"
 
 
-def run_rank(rank, world, store, layout, arch_kw, np_params, work):
+def run_rank(rank, world, store, layout, arch_kw, np_params, work, cond_case=None):
     torch.set_num_threads(1)
     import dataclasses
 
@@ -96,6 +96,20 @@ def run_rank(rank, world, store, layout, arch_kw, np_params, work):
     recycled = sess.chunk(T, temperature=0.0)
     fresh = S.ShardedSession(params, arch, B, 9, mesh, engine="mega").chunk(T, temperature=0.0)
     res["reset_lane"] = (recycled, fresh)
+
+    if cond_case is not None:
+        # The conditioned TP step (B7 with the folded cond): mel + speaker
+        # lanes, greedy one-shot and lane-seeded chunks of a session.
+        c_arch_kw, c_np, cond, spk = cond_case
+        c_arch, c_params = ArchConfig(**c_arch_kw), params_from_jax(c_np)
+        res["cond_greedy_mega"] = S.mesh_generate_classes(
+            c_params, c_arch, 3, B, T, mesh, engine="mega", temperature=0.0, cond=cond,
+            speaker_ids=spk)
+        sess = S.ShardedSession(c_params, c_arch, B, 5, mesh, engine="mega")
+        h = T // 2
+        res["cond_lane_seed_mega"] = torch.cat([sess.chunk(
+            h, cond=cond[:, i * h: (i + 1) * h], speaker_ids=spk, temperature=0.9, **lane_kw)
+            for i in range(2)], 1)
 
     res["guard_skip_channels"] = _raises(lambda: S.mesh_generate_classes(
         params, dataclasses.replace(arch, skip_channels=7), 0, B, T, mesh, engine="mega"))
