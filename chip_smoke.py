@@ -94,10 +94,12 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      `mel_kernels`, the conditioned B2 (B=512 and 64), B6, B1 (B=512 and
      100) and B7 (the skip halves, S_l=128, at B=64 and 4) against their
      plain versions, bit for bit on the tensor cores at Cc'=64 and 80;
-     the CUDA-core route with cond (fp32 within FP32_ATOL; bf16 at C=24:
-     one stack step within LOGIT_ATOL, mega and turbo free runs under the
-     near-argmax check); the conditioned mega's logits against the plain
-     forward; `mel_serving`, with the four counts set to 0 before it and
+     the CUDA-core route with cond against plain versions in its
+     in-order FMA order (fp32 within FP32_ATOL; bf16 at C=24: one stack
+     step and mega and turbo over 128 teacher-forced steps within
+     LOGIT_ATOL, and free runs under the near-argmax check); the
+     conditioned mega's logits against the plain forward over 48 steps,
+     within twice the spread of two plain orders; `mel_serving`, with the four counts set to 0 before it and
      read after: log-mel of 8 synthetic waveforms on the card, upsampled
      once per request, served through a mega pool of batch 64 (chunk
      1024, recycled lanes, a replay bit for bit), full pools of 64 and 512
@@ -106,12 +108,27 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      one-shot run, `cli generate --mel --stream-chunk` from a checkpoint
      against the in-process audio, and one NCCL rank of model-sharded
      conditioned serving;
- 11. timings at the serving and training shapes (mega and turbo at B=512
+ 11. conditioned training (configs/wavenet30_mel.json's training half):
+     `cond_train_kernels`, the conditioned training-stack pair (B3's
+     has_cond) at the recipe's shape (B=8, W=6144), bit for bit against
+     its plain versions on the tensor cores at Cc'=64 and 80 (tapcat on)
+     in skip, z, x, dh0, d cond and every weight gradient, a rerun
+     of the backward bit-identical, and the CUDA-core route (fp32, bf16 at
+     C=24); `mel_training`, with the counts set to 0 before each run and
+     read after: run_training of the recipe as written on synthetic chords
+     (20 steps; the loss, median step ms, samples/s, the loader's ms per
+     batch, the conditioned stack kernels every step), the step split
+     (batch copy, upsampler, forward, backward, Adam + EMA, idle share),
+     the speaker override (Cc'=80, 6 steps) with its split, the training
+     upsampler against a float64 product with TF32 switched on around it,
+     and held-out evaluation, fused and plain;
+ 12. timings at the serving and training shapes (mega and turbo at B=512
      and at wavenet30.json's gen batch 64), the conditioned kernels against
      the unconditioned ones (`mel_timing`) and the `kernels` JSON line,
      each row with its unit (rows B3-B5 time a whole call of several
-     launches; the `*_cond` rows at the mel config's B=64), the card's
-     name and power limit, and last the {"ok": true, ...} line.
+     launches; the `*_cond` rows at the mel config's B=64, the
+     `(has_cond)` rows at its training shape), the card's name and power
+     limit, and last the {"ok": true, ...} line.
 
 Launch counts are set to 0 right before each path is driven and read right
 after; comparison launches are not counted. Each phase logs its seconds.
@@ -135,6 +152,10 @@ T_TURBO = 128       # steps of the turbo free-run checks
 TURBO_POOL = 100    # turbo pool batch: not a multiple of the lane tile
 GEN_B = 64          # configs/wavenet30.json gen.batch_size: timed beside B
 CUDA_CORE_T = 128   # steps of the bf16 CUDA-core-route sampling check (C=24)
+# Steps of the conditioned CUDA-core route's fp32 runs at the mel widths and
+# of its C=24 free runs: their plain versions' in-order FMA chains take one
+# launch per k-step (ar_tc.fma_product), so these are cut in depth.
+CUDA_CORE_FP32_T, CUDA_CORE_FREE_T = 32, 64
 LOGIT_ATOL = 5e-2   # bf16 operands: a flipped rounding moves logits ~1e-2
 FP32_ATOL = 1e-3    # fp32 over 128 teacher-forced steps: sums in another order
 TRAIN_B, TRAIN_W = 8, 10240   # wavenet30.json train batch and window
@@ -184,7 +205,17 @@ MEL_B = 64          # wavenet30_mel.json gen.batch_size
 MEL_T = 128         # teacher-forced steps of the conditioned kernel-vs-plain checks
 MEL_SPEAKERS = 8    # n_speakers of the speaker-conditioned override (E = 16: Cc' = 80)
 MEL_REQUESTS = 8    # mel requests through the mel pool
-MEL_FWD_T = 16      # steps of the mega-vs-forward check (the two sum orders drift apart)
+MEL_FWD_T = 48      # steps of the mega-vs-forward check (held against two plain orders' spread)
+MEL_TRAIN_STEPS = 20  # steps of configs/wavenet30_mel.json's recipe in mel_training
+MEL_SPK_STEPS = 6     # steps of the speaker override (Cc' = 80) in mel_training
+MEL_TRAIN_B, MEL_TRAIN_W = 8, 6144   # wavenet30_mel.json train batch and window
+MEL_EVAL_BATCHES = 2  # held-out batches of the mel evaluation
+# The training upsampler (fp32 products) against float64 at the recipe
+# shape: values within 1e-5 of the largest (a TF32 product reads ~1e-3);
+# each weight's gradient within a tenth of the error of the same function
+# taken through TF32 products in the same call (the bias gradients, plain
+# sums over up to 73k rows, are reported).
+UPSAMPLE_RTOL, UPSAMPLE_TF32_SHARE = 1e-5, 0.1
 MEL_TP_STEPS = 128  # steps of the conditioned model-sharded run
 
 KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss",
@@ -295,24 +326,30 @@ def stack_cost(arch, b: int, wbytes: int, cc: int = 0):
     return nbytes, 2 * b * L * ((2 * C + cc) * 2 * G + G * C + G * S)
 
 
-def train_stack_cost(arch, b: int, t: int, wbytes: int, backward: bool):
+def train_stack_cost(arch, b: int, t: int, wbytes: int, backward: bool, cc: int = 0):
     """(bytes, flops) of the training stack's forward or backward at
     (b, t), as the TPU kernels define the function: each input read once,
     each output written once. The layer inputs x_all that the port's
     forward also stores (so its backward need not reconstruct x) are not
-    counted: the function does not need them."""
+    counted: the function does not need them. With cc conditioning
+    channels also cond (b, t, cc) in the compute dtype and w_cond in, and
+    in the backward d cond (fp32) and d w_cond out; the products cond
+    w_cond (forward, and the backward's recompute of pre), cond^T dpre and
+    dpre w_cond^T."""
     L, C, G, S = (len(arch.dilations), arch.residual_channels,
                   arch.gate_channels, arch.skip_channels)
-    w = L * (2 * C * 2 * G + G * C + G * S)
+    w = L * ((2 * C + cc) * 2 * G + G * C + G * S)
     bias = L * (2 * G + C + S)
     z_all = L * b * t * G * wbytes
-    if backward:   # z_all, x_final, g_skip, weights in; dh0, grads out
-        nbytes = z_all + 4 * b * t * (2 * C + S) + w * wbytes + 4 * (bias + w + bias)
+    cond = b * t * cc * wbytes
+    if backward:   # z_all, x_final, g_skip, cond, weights in; dh0, d cond, grads out
+        nbytes = (z_all + 4 * b * t * (2 * C + S) + cond + 4 * b * t * cc + w * wbytes
+                  + 4 * (bias + w + bias))
         macs = L * b * t * (2 * C * 2 * G + G * (S + C) + 2 * (2 * G * C)
-                            + 2 * C * 2 * G + G * C + G * S)
-    else:          # h0, weights in; z_all, skip, x_final out
-        nbytes = 4 * b * t * (2 * C + S) + z_all + w * wbytes + 4 * bias
-        macs = L * b * t * (2 * C * 2 * G + G * C + G * S)
+                            + 2 * C * 2 * G + G * C + G * S + 3 * cc * 2 * G)
+    else:          # h0, cond, weights in; z_all, skip, x_final out
+        nbytes = 4 * b * t * (2 * C + S) + cond + z_all + w * wbytes + 4 * bias
+        macs = L * b * t * (2 * C * 2 * G + G * C + G * S + cc * 2 * G)
     return nbytes, 2 * macs
 
 
@@ -406,8 +443,9 @@ def phase_environment():
     # The train stack's route rests on tc_smem: the library must carve the
     # same bytes (WaveNet-30's widths, the stress config's, S = 1024).
     lib = build.load("train_stack")
-    smem = {f"C{c}_G{g}_S{s}": (TS.tc_smem(c, g, s), TS.lib_tc_smem(lib, c, g, s))
-            for c, g, s in ((64, 64, 256), (64, 64, 512), (64, 64, 1024))}
+    smem = {f"C{c}_G{g}_S{s}_Cc{cc}": (TS.tc_smem(c, g, s, cc), TS.lib_tc_smem(lib, c, g, s, cc))
+            for c, g, s, cc in ((64, 64, 256, 0), (64, 64, 512, 0), (64, 64, 1024, 0),
+                                (64, 64, 256, 64), (64, 64, 256, 80))}
     # So does the post-loss's (WaveNet-30, the stress config, SMALL's S).
     plib = build.load("post_loss")
     psmem = {f"S{s_}_Q{q}": (PL.tc_smem(s_, q), PL.lib_tc_smem(plib, s_, q))
@@ -619,8 +657,9 @@ def phase_kernels(params, arch, gpu):
 def phase_cuda_core_sampling(arch, gpu):
     """bf16 mega and turbo at a width the tensor-core kernels do not take
     (WaveNet-30 with C = 24): the CUDA-core route, against the plain
-    versions in their one-fp32-sum order, teacher-forced over CUDA_CORE_T
-    steps at B = GEN_B (comparison launches: the counters are restored)."""
+    versions in the kernels' order (in-order FMA chains, ar_tc.fma_product),
+    teacher-forced over CUDA_CORE_T steps at B = GEN_B (comparison launches:
+    the counters are restored)."""
     import dataclasses
 
     import torch
@@ -1761,7 +1800,9 @@ def train_launches_per_call(arch) -> dict:
     db_skip sum, two passes per layer, one reduction) and 3 L + 1 on the
     CUDA-core one; the post-loss takes 2 and 3 on either route (the row
     pass and the partials' sum; the row pass, the weight-gradient pass and
-    the reduction)."""
+    the reduction). Conditioning adds no launch to the train stack: its
+    layer passes (tensor cores) or dx launches (CUDA cores) add to d cond,
+    an fp32 (B, T, Cc') buffer zeroed by a memset per backward call."""
     L = len(arch.dilations)
     bwd = 2 * L + 3 if stack_route(arch) == "tensor_cores" else 3 * L + 1
     fbwd = 3 if front_route(arch) == "tensor_cores" else 4
@@ -2012,16 +2053,18 @@ def union_us(spans) -> float:
     return total
 
 
-def phase_step_breakdown(cfg, corpus, gpu):
+def phase_step_breakdown(cfg, corpus, gpu, tag="training_step_breakdown"):
     """Where a training step's time goes: after a warm-up, STEP_PARTS steps
     as run_training runs them (prefetched batches) with CUDA events around
-    the batch copy, the forward, the backward and Adam + EMA, and the host
-    clock around each whole step; then one torch.profiler trace (device
-    activity only) of two steps: device time of the port's kernels
+    the batch copy, the forward, the backward and Adam + EMA (with mel
+    frames also around the upsampler's forward, inside the forward: the
+    forward's part excludes it; its backward stays in the backward's), and
+    the host clock around each whole step; then one torch.profiler trace
+    (device activity only) of two steps: device time of the port's kernels
     (namespace wn) and of every other kernel, and the largest others. The
     idle share is 1 - device busy time / step wall time, busy time being
     the union of the kernels' spans (a programmatic dependent launch's span
-    overlaps the launch before it)."""
+    overlaps the launch before it). Returns the logged record."""
     import statistics
 
     import torch
@@ -2031,12 +2074,23 @@ def phase_step_breakdown(cfg, corpus, gpu):
     from lb_wavenet_tpu_torch.data import make_batches, prefetch
 
     arch, train = cfg.arch, cfg.train
-    batches = prefetch(make_batches(corpus, train))
+    batches = prefetch(make_batches(corpus, train, with_mel=arch.use_local_cond))
     state = PT.init_state(2, arch, train, "cuda")
+    up_events = []
+    real_up = PT.upsample_cond_train
+
+    def timed_up(*a):
+        if up_events:
+            up_events[0].record()
+        out = real_up(*a)
+        if up_events:
+            up_events[1].record()
+        return out
 
     def step(events=None):
         nonlocal state
         mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        up_events[:] = events[5:] if events else []
         mark(0)
         batch = PT.batch_to_device(next(batches), "cuda")
         mark(1)
@@ -2049,25 +2103,33 @@ def phase_step_breakdown(cfg, corpus, gpu):
         state = PT._apply_updates(state, grads, train)
         mark(4)
 
+    PT.upsample_cond_train = timed_up
     try:
         for _ in range(2):
             step()
         parts = {"batch_copy": [], "forward": [], "backward": [], "adam_ema": []}
+        if arch.use_local_cond:
+            parts["upsampler_forward"] = []
         wall = []
         for _ in range(STEP_PARTS):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             step(ev)
             torch.cuda.synchronize()
             wall.append(1000.0 * (time.perf_counter() - t0))
-            for i, k in enumerate(parts):
+            for i, k in enumerate(("batch_copy", "forward", "backward", "adam_ema")):
                 parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+            if arch.use_local_cond:
+                up = ev[5].elapsed_time(ev[6])
+                parts["upsampler_forward"].append(up)
+                parts["forward"][-1] -= up
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 step()
             torch.cuda.synchronize()
     finally:
+        PT.upsample_cond_train = real_up
         batches.close()
     ms = {k: statistics.median(v) for k, v in parts.items()}
     kernels, spans = {}, []
@@ -2082,8 +2144,8 @@ def phase_step_breakdown(cfg, corpus, gpu):
     top = sorted(other.items(), key=lambda kv: -kv[1])[:10]
     port_top = sorted(((k, v) for k, v in kernels.items() if "wn::" in k),
                       key=lambda kv: -kv[1])[:12]
-    log(json.dumps({
-        "phase": "training_step_breakdown", "gpu": gpu, "steps": STEP_PARTS,
+    rec = {
+        "phase": tag, "gpu": gpu, "steps": STEP_PARTS,
         "device_ms_per_step": ms, "step_wall_ms": step_ms,
         "profile_device_ms_per_step": {"port_kernels": ours,
                                        "other_kernels": sum(other.values()),
@@ -2091,7 +2153,9 @@ def phase_step_breakdown(cfg, corpus, gpu):
         "idle_share": (1.0 - busy / step_ms) if busy else "not measured",
         "top_other_kernels_ms_per_step": [[k[:90], v] for k, v in top],
         "top_port_kernels_ms_per_step": [[k[:90], v] for k, v in port_top],
-    }))
+    }
+    log(json.dumps(rec))
+    return rec
 
 
 def phase_eval(cfg, state, held_out, work, gpu):
@@ -2321,13 +2385,15 @@ def phase_mel_kernels(params, arch, sp, gpu):
         for k, r in tp_read.items():
             exact[k] = max(r["ring"], r["skip"])
 
-        # The CUDA-core route with cond. fp32 at the mel widths holds the
-        # cond term without bf16 rounding (teacher-forced from the zero
-        # carry, within FP32_ATOL); bf16 at C = 24 one step of B1 and B7
-        # within LOGIT_ATOL, and mega and turbo as free runs whose every
+        # The CUDA-core route with cond, against plain versions that sum as
+        # its kernels do (in-order FMA chains on the card, ar_tc.fma_product).
+        # fp32 at the mel widths holds the cond term without bf16 rounding
+        # (teacher-forced from the zero carry over CUDA_CORE_FP32_T steps,
+        # within FP32_ATOL); bf16 at C = 24 one step of B1 and B7, and mega
+        # and turbo teacher-forced over CUDA_CORE_T steps, within
+        # LOGIT_ATOL, and as free runs (CUDA_CORE_FREE_T steps) whose every
         # choice must be a near-argmax of the plain scores on the kernel's
-        # own history (their teacher-forced logits drift by a few bf16
-        # rounding flips over the run, reported).
+        # own history.
         a32 = dataclasses.replace(arch, compute_dtype="float32")
         a24 = dataclasses.replace(arch, residual_channels=24)
         require(ar_tc.route(a24, dt, cc) == "cuda_cores"
@@ -2336,9 +2402,9 @@ def phase_mel_kernels(params, arch, sp, gpu):
                 "C=24 or fp32 left the CUDA-core route")
         p32, p24 = init_params(32, a32, "cuda"), init_params(24, a24, "cuda")
         fp32 = {"mega": mega_pair(a32, p32, p32["layers"],
-                                  mel_inputs(a32, g, GEN_B, (CUDA_CORE_T,))[1], t0=0),
+                                  mel_inputs(a32, g, GEN_B, (CUDA_CORE_FP32_T,))[1], t0=0),
                 "turbo": turbo_pair(a32, p32, p32["layers"],
-                                    mel_inputs(a32, g, GEN_B, (CUDA_CORE_T,))[1], t0=0),
+                                    mel_inputs(a32, g, GEN_B, (CUDA_CORE_FP32_T,))[1], t0=0),
                 "fused_stack": stack_pair(a32, p32["layers"],
                                           mel_inputs(a32, g, TURBO_POOL, ())[1])}
         drift = {"mega": mega_pair(a24, p24, p24["layers"],
@@ -2350,8 +2416,8 @@ def phase_mel_kernels(params, arch, sp, gpu):
         tp24 = tp_pair(a24, p24, skip_half(p24["layers"], a24, 0),
                        mel_inputs(a24, g, MEL_B, ())[1])
         gaps = {}
-        cond24 = mel_inputs(a24, g, GEN_B, (CUDA_CORE_T,))[1]
-        free = torch.full((CUDA_CORE_T, GEN_B), -1, device="cuda", dtype=torch.int32)
+        cond24 = mel_inputs(a24, g, GEN_B, (CUDA_CORE_FREE_T,))[1]
+        free = torch.full((CUDA_CORE_FREE_T, GEN_B), -1, device="cuda", dtype=torch.int32)
         lane = torch.stack([torch.randint(0, 2**31 - 1, (GEN_B,), device="cuda",
                                           dtype=torch.int32, generator=g),
                             torch.zeros(GEN_B, device="cuda", dtype=torch.int32)])
@@ -2369,7 +2435,10 @@ def phase_mel_kernels(params, arch, sp, gpu):
             gaps[name] = check_choices(fm(lg), cls_k, 1.0, lane, free)
 
         # The conditioned mega's teacher-forced logits against the plain
-        # forward on the same cond (from the zero state: x = [Q/2, forced]).
+        # forward on the same cond (from the zero state: x = [Q/2, forced]),
+        # held against the spread of two valid plain orders of the same run:
+        # the forward's and mega's plain version summed in the CUDA-core
+        # order (in-order FMA chains).
         b = 8
         forced = torch.randint(0, arch.quant_channels, (b, MEL_FWD_T), device="cuda",
                                dtype=torch.int32, generator=g)
@@ -2380,10 +2449,18 @@ def phase_mel_kernels(params, arch, sp, gpu):
                                   dtype=torch.int32), forced[:, :-1]], 1)
         with torch.no_grad():
             lf = forward(params, arch, x, cond=cond)
-        fwd_err = abs_err(lk, lf)
+        h0, e0 = G._fused_frontend_zero(params, arch, b)
+        _, lo = ar_mega.mega_generate_plain(
+            params, lp, arch, ar_mega.mega_zero_carry(arch, h0, e0), 0,
+            forced.t().contiguous(), 1.0, True, None, 0, tensor_cores=False,
+            cond=cond.transpose(0, 1).contiguous())
+        fwd_err, spread = abs_err(lk, lf), abs_err(lo.permute(2, 0, 1), lf)
+        fwd_tol = max(LOGIT_ATOL, 2 * spread)
     log(json.dumps({
         "phase": "mel_kernels", "gpu": gpu, "config": "configs/wavenet30_mel.json",
         "Cc": cc, "Cc_with_speakers": ecc, "T": MEL_T, "turbo_T": 64,
+        "cuda_core_T": {"fp32": CUDA_CORE_FP32_T, "bf16_C24_teacher_forced": CUDA_CORE_T,
+                        "bf16_C24_free_run": CUDA_CORE_FREE_T},
         "tensor_core_route_max_abs_err": exact, "bit_identical": max(exact.values()) == 0.0,
         "b7_readings": tp_read,
         "cuda_core_route": {"fp32_max_abs_err": fp32, "fp32_atol": FP32_ATOL,
@@ -2391,16 +2468,19 @@ def phase_mel_kernels(params, arch, sp, gpu):
                             "atol": LOGIT_ATOL, "tp_rtol": TP_RTOL,
                             "bf16_C24_free_run_max_choice_gap": gaps,
                             "gap_tol": 2 * LOGIT_ATOL,
-                            "bf16_C24_teacher_forced_logit_drift": drift},
+                            "bf16_C24_teacher_forced_max_abs_err": drift},
         "mega_vs_plain_forward": {"B": b, "T": MEL_FWD_T, "max_abs_logit_err": fwd_err,
-                                  "atol": LOGIT_ATOL},
+                                  "plain_orders_spread": spread,
+                                  "atol": fwd_tol, "atol_rule": "max(LOGIT_ATOL, 2 x spread)"},
     }))
     require(max(exact.values()) == 0.0, f"a conditioned kernel differs from plain: {exact}")
     require(max(fp32.values()) <= FP32_ATOL and max(core.values()) <= LOGIT_ATOL
             and tp24["ring"] <= LOGIT_ATOL and tp24["skip_rel"] <= TP_RTOL
-            and max(gaps.values()) <= 2 * LOGIT_ATOL,
-            f"the conditioned CUDA-core route differs: {fp32}, {core}, {tp24}, {gaps}")
-    require(fwd_err <= LOGIT_ATOL, f"conditioned mega differs from forward: {fwd_err}")
+            and max(gaps.values()) <= 2 * LOGIT_ATOL and max(drift.values()) <= LOGIT_ATOL,
+            f"the conditioned CUDA-core route differs: {fp32}, {core}, {tp24}, {gaps}, "
+            f"teacher-forced {drift}")
+    require(fwd_err <= fwd_tol,
+            f"conditioned mega differs from forward: {fwd_err} (spread {spread})")
 
     def worst(prefix):
         return max(v for k, v in exact.items() if k.startswith(prefix))
@@ -2768,6 +2848,335 @@ def phase_mel_timing(params, arch, measured, errs, launches, gpu):
     return rows
 
 
+def cond_stack_case(arch, layers, cc: int, seed: int):
+    """Numpy-seeded inputs of the conditioned training stack at the mel
+    recipe's shape (B = 8, T = R - 1 + 6144) on the card: h0, a skip
+    cotangent, cond (B, T, cc) holding bf16 values, and the layer weights
+    with w_cond of cc channels (the mel arch's, or its fold [w_cond ;
+    w_gcond] with speakers)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = arch.receptive_field - 1 + MEL_TRAIN_W
+    h0 = rng.standard_normal((MEL_TRAIN_B, t, arch.residual_channels), dtype=np.float32)
+    g = rng.standard_normal((MEL_TRAIN_B, t, arch.skip_channels), dtype=np.float32)
+    cond = rng.standard_normal((MEL_TRAIN_B, t, cc), dtype=np.float32)
+    lp = {k: v for k, v in layers.items() if k != "w_gcond"}
+    if cc != lp["w_cond"].shape[1]:
+        lp["w_cond"] = torch.cat([layers["w_cond"], layers["w_gcond"]], 1)
+    return (torch.from_numpy(h0).cuda(), torch.from_numpy(g).cuda(),
+            torch.from_numpy(cond).cuda().to(torch.bfloat16).float(), lp)
+
+
+def phase_cond_train_kernels(params, arch, sp, gpu):
+    """The conditioned training-stack pair (the TPU kernels' has_cond) at
+    the mel recipe's shape: on the tensor cores at Cc' = 64 and 80 (mel +
+    speaker), tapcat on as the recipe trains (tapcat off is a `-m cuda`
+    case at small shapes), kernel against plain version bit for bit
+    in skip, z, x, dh0, d cond and every weight gradient, a rerun of the
+    backward bit-identical, and each call's launches; then the CUDA-core
+    route, fp32 at the mel widths (relative error within FP32_ATOL) and
+    bf16 at C = G = 24 (within KERNEL_RTOL), tapcat off and on. Returns
+    the errors and times of the kernels line's has_cond rows (Cc' = 64,
+    tapcat on, as the recipe trains). Comparison launches: the counters are
+    restored."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+    from lb_wavenet_tpu_torch.utils.convert import params_from_jax
+
+    dt = compute_dtype(arch)
+    dils, L = arch.dilations, len(arch.dilations)
+    cc, ecc = arch.cond_channels, arch.cond_channels + arch.speaker_embed_dim
+    counters = (TS.train_stack_fwd, TS.train_stack_bwd)
+    saved = [(f.launches, f.cond_launches) for f in counters]
+    out, exact = {}, {}
+    for c_, layers, tapcat in ((cc, params["layers"], True), (ecc, sp["layers"], True)):
+        require(TS.route(arch.residual_channels, arch.gate_channels, arch.skip_channels, dt,
+                         c_) == "tensor_cores", f"Cc'={c_} left the tensor-core route")
+        h0, g, cond, lp = cond_stack_case(arch, layers, c_, 40 + c_)
+        n0 = [f.launches for f in counters]
+        skip, z, x = TS.train_stack_fwd(lp, h0, dils, dt, tapcat, cond=cond)
+        dh0, gr = TS.train_stack_bwd(lp, dils, dt, tapcat, z, x, g, cond=cond)
+        launched = [f.launches - n for f, n in zip(counters, n0)]
+        dh0b, grb = TS.train_stack_bwd(lp, dils, dt, tapcat, z, x, g, cond=cond)
+        torch.cuda.synchronize()
+        rerun = torch.equal(dh0, dh0b) and all(torch.equal(gr[k], grb[k]) for k in gr)
+        del dh0b, grb
+        with torch.no_grad():
+            t_fwd = time.perf_counter()
+            sp_, zp, xp = TS.stack_fwd_plain(lp, h0, dils, dt, tapcat, cond=cond)
+            torch.cuda.synchronize()
+            t_bwd = time.perf_counter()
+            dp, gp = TS.stack_bwd_plain(lp, dils, dt, tapcat, zp, xp, g, cond=cond)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        errs = {"skip": abs_err(skip, sp_), "z_all": abs_err(z, zp), "x_all": abs_err(x, xp),
+                "dh0": abs_err(dh0, dp), **{f"d {k}": abs_err(gr[k], gp[k]) for k in gp}}
+        key = f"Cc'={c_} tapcat={tapcat}"
+        exact[key] = errs
+        log(json.dumps({"phase": "cond_train_stack_vs_plain", "gpu": gpu, "route": "tensor_cores",
+                        "Cc": c_, "tapcat": tapcat, "B": MEL_TRAIN_B, "T": h0.shape[1],
+                        "max_abs_err": errs, "bit_identical": max(errs.values()) == 0.0,
+                        "backward_rerun_bit_identical": rerun, "launches_fwd_bwd": launched,
+                        "plain_s": {"forward": t_bwd - t_fwd, "backward": t_end - t_bwd}}))
+        require(max(errs.values()) == 0.0, f"conditioned train stack ({key}) differs: {errs}")
+        require(rerun, f"conditioned train stack backward ({key}) is not reproducible")
+        require(launched == [L + 1, 2 * L + 3],
+                f"conditioned train stack ({key}) launched {launched}")
+        if c_ == cc and tapcat:
+            wb = torch.finfo(dt).bits // 8
+            t = h0.shape[1]
+            out["train_stack_fwd_cond"] = {
+                "max_abs_err": max(errs[k] for k in ("skip", "z_all", "x_all")),
+                "ms": cuda_ms(lambda: TS.train_stack_fwd(lp, h0, dils, dt, True, cond=cond), 5),
+                "plain_ms": 1000.0 * (t_bwd - t_fwd),
+                "cost": train_stack_cost(arch, MEL_TRAIN_B, t, wb, False, c_),
+                "uncond_ms": cuda_ms(lambda: TS.train_stack_fwd(
+                    {k: v for k, v in lp.items() if k != "w_cond"}, h0, dils, dt, True), 5)}
+            out["train_stack_bwd_cond"] = {
+                "max_abs_err": max(v for k, v in errs.items() if k.startswith("d")),
+                "ms": cuda_ms(lambda: TS.train_stack_bwd(lp, dils, dt, True, z, x, g,
+                                                         cond=cond), 3),
+                "plain_ms": 1000.0 * (t_end - t_bwd),
+                "cost": train_stack_cost(arch, MEL_TRAIN_B, t, wb, True, c_),
+                "uncond_ms": cuda_ms(lambda: TS.train_stack_bwd(
+                    {k: v for k, v in lp.items() if k != "w_cond"}, dils, dt, True, z, x, g), 3)}
+        del skip, z, x, dh0, gr, sp_, zp, xp, dp, gp, h0, g, cond, lp
+
+    for name, variant in (("fp32", dataclasses.replace(arch, compute_dtype="float32")),
+                          ("c24_bf16", dataclasses.replace(arch, residual_channels=24,
+                                                           gate_channels=24))):
+        vdt = compute_dtype(variant)
+        require(TS.route(variant.residual_channels, variant.gate_channels,
+                         variant.skip_channels, vdt, cc) == "cuda_cores",
+                f"{name} left the CUDA-core route")
+        layers = params_from_jax(numpy_params(variant, 43), device="cuda")["layers"]
+        h0, g, cond, lp = cond_stack_case(variant, layers, cc, 44)
+        tol = FP32_ATOL if name == "fp32" else KERNEL_RTOL
+        for tapcat in (False, True):
+            n0 = [f.launches for f in counters]
+            skip, z, x = TS.train_stack_fwd(lp, h0, dils, vdt, tapcat, cond=cond)
+            dh0, gr = TS.train_stack_bwd(lp, dils, vdt, tapcat, z, x, g, cond=cond)
+            torch.cuda.synchronize()
+            launched = [f.launches - n for f, n in zip(counters, n0)]
+            with torch.no_grad():
+                sp_, zp, xp = TS.stack_fwd_plain(lp, h0, dils, vdt, tapcat, cond=cond)
+                dp, gp = TS.stack_bwd_plain(lp, dils, vdt, tapcat, zp, xp, g, cond=cond)
+            errs = {"skip": rel_err(skip, sp_), "dh0": rel_err(dh0, dp),
+                    **{f"d {k}": rel_err(gr[k], gp[k]) for k in gp}}
+            log(json.dumps({"phase": "cond_train_stack_cuda_core_route", "gpu": gpu,
+                            "arch": name, "C": variant.residual_channels, "Cc": cc,
+                            "tapcat": tapcat, "B": MEL_TRAIN_B, "T": h0.shape[1],
+                            "launches_fwd_bwd": launched, "rel_err": errs, "rtol": tol}))
+            require(launched == [L + 1, 3 * L + 1],
+                    f"conditioned train stack {name} launched {launched}")
+            require(max(errs.values()) <= tol,
+                    f"conditioned train stack {name} (tapcat={tapcat}) differs: {errs}")
+            del skip, z, x, dh0, gr, sp_, zp, xp, dp, gp
+        del h0, g, cond, lp, layers
+    for f, (n, nc) in zip(counters, saved):
+        f.launches, f.cond_launches = n, nc
+    return out
+
+
+def upsample_plain(params, arch, frames, dtype):
+    """The upsampler's function in `dtype` with plain products (the
+    training upsampler's references: float64, and fp32 under the caller's
+    TF32 switch): the projection, then per stage repeat, SAME (2f+1)-tap
+    convolution and leaky ReLU."""
+    import torch
+
+    h = frames.to(dtype) @ params["proj_w"].to(dtype) + params["proj_b"].to(dtype)
+    for f, stage in zip(arch.upsample_factors, params["stages"]):
+        h = torch.repeat_interleave(h, f, dim=1)
+        b, t, c = h.shape
+        hp = torch.nn.functional.pad(h, (0, 0, f, f))
+        win = hp.unfold(1, 2 * f + 1, 1).transpose(-1, -2).reshape(b, t, (2 * f + 1) * c)
+        h = torch.nn.functional.leaky_relu(
+            win @ stage["w"].to(dtype).reshape(-1, c) + stage["b"].to(dtype), 0.4)
+    return h
+
+
+def check_upsampler(params, arch, frames, gpu):
+    """The training upsampler at the recipe's frames against float64
+    (upsample_plain), values and every parameter's gradient, with cuBLAS's
+    TF32 switch turned on around it (the upsampler must not depend on it),
+    beside the same function through TF32 products; its forward and
+    forward + backward times."""
+    import torch
+
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.models.conditioning import upsample_cond_train
+
+    def run(fn, dtype):
+        up = PT.tree_map(lambda p: p.detach().to(dtype).requires_grad_(True),
+                         params["upsampler"])
+        out = fn(up)
+        (out * g.to(dtype)).sum().backward()
+        return out.detach(), [p.grad for p in PT.tree_leaves(up)]
+
+    g = torch.randn((frames.shape[0], frames.shape[1] * arch.hop_size, arch.cond_channels),
+                    device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got, ggot = run(lambda u: upsample_cond_train(u, arch, frames, torch.float32),
+                        torch.float32)
+        flag_kept = torch.backends.cuda.matmul.allow_tf32
+        tf, gtf = run(lambda u: upsample_plain(u, arch, frames, torch.float32), torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want, gwant = run(lambda u: upsample_plain(u, arch, frames, torch.float64), torch.float64)
+    names = ["proj_b", "proj_w"] + [f"stages[{i}].{k}" for i in range(len(arch.upsample_factors))
+                                    for k in ("b", "w")]
+    err, tf_err = rel_err(got, want), rel_err(tf, want)
+    gerr = {n: rel_err(a, b) for n, a, b in zip(names, ggot, gwant)}
+    gtf_err = {n: rel_err(a, b) for n, a, b in zip(names, gtf, gwant)}
+    held = {n: gerr[n] <= UPSAMPLE_TF32_SHARE * gtf_err[n] for n in names if n.endswith("w")}
+
+    def fwd_bwd():
+        u = PT.tree_map(lambda p: p.detach().requires_grad_(True), params["upsampler"])
+        (upsample_cond_train(u, arch, frames, torch.bfloat16).float() * g).sum().backward()
+
+    times = {"forward_ms": cuda_ms(lambda: upsample_cond_train(params["upsampler"], arch, frames,
+                                                                torch.bfloat16), 10),
+             "forward_backward_ms": cuda_ms(fwd_bwd, 5)}
+    log(json.dumps({"phase": "training_upsampler_vs_float64", "gpu": gpu,
+                    "frames": list(frames.shape), "rows": got.shape[1], "rel_err": err,
+                    "tf32_products_rel_err": tf_err, "grad_rel_err": gerr,
+                    "tf32_products_grad_rel_err": gtf_err, "weight_grads_held": held,
+                    "rtol": UPSAMPLE_RTOL, "tf32_share": UPSAMPLE_TF32_SHARE,
+                    "tf32_switch_on_around_the_call": True, "tf32_switch_restored": flag_kept,
+                    **times}))
+    require(err <= UPSAMPLE_RTOL and all(held.values()) and flag_kept,
+            f"the training upsampler is not float32: {err}, {gerr}, TF32's {gtf_err}")
+    return times
+
+
+def phase_mel_training(gpu):
+    """configs/wavenet30_mel.json's training half as written (B = 8, W =
+    6144, bf16, fused frontend, stack with tapcat, post-loss, mm_embed_grad)
+    on synthetic chords: run_training for MEL_TRAIN_STEPS steps with the
+    counts set to 0 before it and read after (the conditioned stack pair
+    every step), the loss, median step ms and samples/s; the loader's time
+    per batch; the step split (upsampler included); then the speaker
+    override (n_speakers = 8, Cc' = 80) for MEL_SPK_STEPS steps with its
+    split; the training upsampler against float64; evaluation of held-out
+    windows, fused and plain."""
+    import dataclasses
+    import io
+    import statistics
+
+    import torch
+
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.data import make_batches, synthetic_corpus
+    from lb_wavenet_tpu_torch.eval import evaluate
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+
+    work = os.path.join(BUILD, "chip_smoke_mel_train")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = Config.load(MEL_CONFIG)
+    tr = cfg.train
+    require(tr.fused_frontend and tr.fused_stack and tr.tapcat and tr.fused_post
+            and tr.mm_embed_grad and tr.mesh_data == -1 and cfg.arch.use_local_cond
+            and (tr.batch_size, tr.window_size) == (MEL_TRAIN_B, MEL_TRAIN_W),
+            "wavenet30_mel.json no longer holds the training settings this phase drives")
+    counters = train_counters()
+    stack = (TS.train_stack_fwd, TS.train_stack_bwd)
+    results = {}
+    try:
+        for name, n_spk, steps in (("mel", 0, MEL_TRAIN_STEPS),
+                                   ("mel+speaker", MEL_SPEAKERS, MEL_SPK_STEPS)):
+            arch = dataclasses.replace(cfg.arch, n_speakers=n_spk)
+            train = dataclasses.replace(tr, n_steps=steps, log_every=1, checkpoint_every=0,
+                                        checkpoint_dir=os.path.join(work, f"ckpt{n_spk}"))
+            run_cfg = dataclasses.replace(cfg, arch=arch, train=train)
+            corpus = synthetic_corpus(arch, MEL_TRAIN_W, n_files=8, file_len=160000, seed=0)
+            if n_spk:
+                corpus.speakers = [i % n_spk for i in range(len(corpus.waves))]
+            loader = make_batches(corpus, train, with_mel=True)
+            next(loader)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                next(loader)
+            loader_ms = 100.0 * (time.perf_counter() - t0)
+            for f in (*counters.values(), *stack):
+                f.launches = 0
+            for f in stack:
+                f.cond_launches = 0
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), no_plain_frontend():
+                state = PT.run_training(run_cfg, corpus=corpus, device="cuda")
+            wall = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in counters.items()}
+            cond_launches = {f.__name__: f.cond_launches for f in stack}
+            recs = [json.loads(ln) for ln in out.getvalue().splitlines()]
+            losses = [r["loss"] for r in recs]
+            step_ms = [r["step_time_ms"] for r in recs]
+            ms = statistics.median(step_ms[1:])
+            per_step = train_launches_per_call(arch)
+            t = arch.receptive_field - 1 + MEL_TRAIN_W
+            rec = {"phase": "mel_training", "gpu": gpu, "run": name,
+                   "config": "configs/wavenet30_mel.json", "n_speakers": n_spk,
+                   "Cc": arch.cond_channels + (arch.speaker_embed_dim if n_spk else 0),
+                   "B": MEL_TRAIN_B, "W": MEL_TRAIN_W, "T": t, "steps": state.step,
+                   "losses": losses, "step_ms": step_ms, "median_step_ms_after_first": ms,
+                   "samples_per_s": MEL_TRAIN_B * MEL_TRAIN_W / (ms / 1000.0), "wall_s": wall,
+                   "loader_ms_per_batch": loader_ms, "launches": launches,
+                   "cond_stack_launches": cond_launches, "launches_per_step": per_step,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            log(json.dumps(rec))
+            require(state.step == steps and len(losses) == steps, f"{name}: training stopped")
+            require(all(v == v and abs(v) < 1e3 for v in losses), f"{name}: loss {losses}")
+            require(steps < MEL_TRAIN_STEPS or losses[-1] < losses[0] - 0.1,
+                    f"{name}: the loss did not fall: {losses}")
+            for k, n in per_step.items():
+                require(launches[k] == n * steps,
+                        f"{name} {k}: {launches[k]} launches in {steps} steps, expected {n} each")
+            require(cond_launches == {"train_stack_fwd": per_step["train_stack_fwd"] * steps,
+                                      "train_stack_bwd": per_step["train_stack_bwd"] * steps},
+                    f"{name}: the conditioned stack kernels launched {cond_launches}")
+            rec["breakdown"] = phase_step_breakdown(run_cfg, corpus, gpu,
+                                                    tag=f"mel_training_step_breakdown ({name})")
+            results[name] = rec
+            if n_spk == 0:
+                cond_main = cond_launches
+                mel_state, mel_arch, mel_train = state, arch, train
+            del state, corpus
+
+        held = synthetic_corpus(mel_arch, MEL_TRAIN_W, n_files=2, file_len=40000, seed=1)
+        frames = torch.from_numpy(next(make_batches(held, mel_train, with_mel=True)).mel).cuda()
+        up_times = check_upsampler(mel_state.params, mel_arch, frames, gpu)
+        fused = evaluate(mel_state.params, mel_arch, held, MEL_TRAIN_B,
+                         max_batches=MEL_EVAL_BATCHES, fused=True, tapcat=True)
+        plain = evaluate(mel_state.params, mel_arch, held, MEL_TRAIN_B,
+                         max_batches=MEL_EVAL_BATCHES)
+        gap = abs(fused["nll"] - plain["nll"])
+        log(json.dumps({"phase": "mel_eval", "gpu": gpu, "windows": fused["n_windows"],
+                        "fused": fused, "plain": plain, "fused_vs_plain_nll": gap,
+                        "atol": EVAL_NLL_ATOL}))
+        require(0 < fused["nll"] < 10 and fused["n_windows"] == min(
+            MEL_EVAL_BATCHES * MEL_TRAIN_B, len(held.index)), f"bad mel eval metrics: {fused}")
+        require(gap <= EVAL_NLL_ATOL, f"mel eval fused and plain differ by {gap} nats")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ({"train_stack_fwd_cond": cond_main["train_stack_fwd"],
+             "train_stack_bwd_cond": cond_main["train_stack_bwd"]},
+            {"runs": results, "upsampler": up_times})
+
+
 def train_timings(params, arch):
     """{name: (ms, plain ms, (bytes, flops))} of the six training kernels
     at the training shapes (tapcat on, as wavenet30.json trains)."""
@@ -2909,7 +3318,7 @@ def sampling_timings(params, arch, b: int, plain: bool) -> dict:
     return {"mega": (mega_ms, mega_plain), "turbo": (turbo_ms, turbo_plain)}
 
 
-def phase_timing(params, arch, errs, launches, gpu, tp, mel):
+def phase_timing(params, arch, errs, launches, gpu, tp, mel, mel_train):
     import torch
 
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
@@ -3025,6 +3434,7 @@ def phase_timing(params, arch, errs, launches, gpu, tp, mel):
             row["bound_ms_S_l256"] = bound_ms(*cost_h)[0]
         kernels.append(row)
     kernels += phase_mel_timing(*mel, errs, launches, gpu)
+    kernels += cond_train_rows(*mel_train, launches, gpu)
     train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
                    "tapcat": True}
     log(json.dumps({"phase": "shapes", "gpu": gpu,
@@ -3039,6 +3449,44 @@ def phase_timing(params, arch, errs, launches, gpu, tp, mel):
                                        "S_l": s_whole, "steps": 1,
                                        "also": f"S_l={s_whole // 2}"}}))
     log(json.dumps({"kernels": kernels}))
+
+
+def cond_train_rows(arch, cond_stack, trained, launches, gpu):
+    """The kernels line's rows of the conditioned training-stack pair (the
+    has_cond variants of B3), timed in cond_train_kernels at the mel
+    recipe's shape (Cc' = 64, tapcat on), with the launches of the
+    mel_training run; and the conditioned training cell's summary."""
+    per_call = train_launches_per_call(arch)
+    t = arch.receptive_field - 1 + MEL_TRAIN_W
+    rows = []
+    for name, key, rep in (("train_stack_fwd (has_cond)", "train_stack_fwd_cond",
+                            "lb_wavenet_tpu/ops/pallas/train_stack.py:580"),
+                           ("train_stack_bwd (has_cond)", "train_stack_bwd_cond",
+                            "lb_wavenet_tpu/ops/pallas/train_stack.py:681")):
+        m = cond_stack[key]
+        bms, by = bound_ms(*m["cost"])
+        n = per_call[key.replace("_cond", "")]
+        rows.append({
+            "name": name, "route": "cuda", "source": "lb_wavenet_tpu_torch/csrc/train_stack.cu",
+            "replaces": rep, "launches": launches[key], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "unit": f"ms per call of {n} launches (B={MEL_TRAIN_B}, "
+                                        f"W={MEL_TRAIN_W}, T={t}, Cc'={arch.cond_channels})",
+            "launches_per_call": n, "kernel_route": stack_route(arch),
+            "uncond_ms_same_shape": m["uncond_ms"], "config": "configs/wavenet30_mel.json"})
+    runs = trained["runs"]
+    log(json.dumps({
+        "phase": "mel_training_cell", "gpu": gpu, "config": "configs/wavenet30_mel.json",
+        "median_step_ms": {k: v["median_step_ms_after_first"] for k, v in runs.items()},
+        "samples_per_s": {k: v["samples_per_s"] for k, v in runs.items()},
+        "loader_ms_per_batch": {k: v["loader_ms_per_batch"] for k, v in runs.items()},
+        "device_ms_per_step": {k: v["breakdown"]["device_ms_per_step"] for k, v in runs.items()},
+        "idle_share": {k: v["breakdown"]["idle_share"] for k, v in runs.items()},
+        "upsampler_ms": trained["upsampler"],
+        "stack_cond_over_uncond": {k: cond_stack[k]["ms"] / cond_stack[k]["uncond_ms"]
+                                   for k in cond_stack},
+    }))
+    return rows
 
 
 def timed(name, fn, *args):
@@ -3096,10 +3544,15 @@ def main() -> int:
         mel_launches, mel_measured = timed("mel_serving", phase_mel_serving, mel_params,
                                            mel_arch, spk_params, spk_arch, gpu)
         launches.update(mel_launches)
+        cond_stack = timed("cond_train_kernels", phase_cond_train_kernels, mel_params, mel_arch,
+                           spk_params, gpu)
+        cond_launches, mel_trained = timed("mel_training", phase_mel_training, gpu)
+        launches.update(cond_launches)
         train_launches, _ = timed("training", phase_training, arch, gpu)
         launches.update(train_launches)
         timed("timing", phase_timing, params, arch, errs, launches, gpu,
-              (tp_arch, tp_params, tp_measured), (mel_params, mel_arch, mel_measured))
+              (tp_arch, tp_params, tp_measured), (mel_params, mel_arch, mel_measured),
+              (mel_arch, cond_stack, mel_trained))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -71,6 +71,25 @@
 //     - each launch after a tsc kernel is a programmatic dependent launch:
 //       it stages its weights while the one before finishes (tsc::pdl).
 //     ptxas and the measured times: PERF.md (chip_smoke.py prints both).
+//
+// Conditioning (the TPU kernels' `has_cond`: mel and/or speaker rows, cond
+// (B, T, Cc') against w_cond (L, Cc', 2G)), on both routes, with no launch
+// of its own:
+//   * tensor cores: cond's k-steps extend the gate product, [x(t) | x(t-d)
+//     | cond] @ [w_cur ; w_prev ; w_cond] (one chain with tapcat; else
+//     cond continues the tap's chain), as the sampling kernels sum it; the
+//     cond tile is staged beside the tap pair, w_cond's rows beside the
+//     tap weights. The backward recomputes pre the same way, takes d w_cond
+//     with d w_cur | d w_prev as one (2C + Cc') x 2G product into the
+//     block's slot, and adds rnd(dpre) w_cond^T to an fp32 (B, T, Cc') d
+//     cond straight from the mma fragments (read, add, write; the layers in
+//     launch order, each element one owner per launch: no atomics);
+//   * CUDA cores: the forward layer and bwd_dpre add cond w_cond after the
+//     bias (the JAX order), d w_cond is one more weight-gradient job, and
+//     bwd_dx adds rnd(dpre) w_cond^T to d cond.
+// The extra work at Cc' = 64 and the mel recipe (B = 8, T = 9213): ~36
+// GFLOP forward, ~72 backward (d w_cond and d cond; ~36 more to recompute
+// pre), and d cond's fp32 read and write per layer.
 #include "tc_tile.cuh"
 #include "tile.cuh"
 
@@ -92,26 +111,35 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   }
 }
 
+// Conditioned (wcd non-null), cond (B, T, Cc) fp32 adds cond w_cond to pre
+// after the bias, the JAX order: ((tap sums) + b) + cond-sum.
 template <typename T, bool TAPCAT>
 __global__ void __launch_bounds__(NT)
 fwd_layer(const float* __restrict__ x, float* __restrict__ x_next, T* __restrict__ z,
           const T* __restrict__ wc, const T* __restrict__ wp, const float* __restrict__ bias,
-          const T* __restrict__ wr, const float* __restrict__ br, int n_t, int C, int G, int d) {
+          const T* __restrict__ wr, const float* __restrict__ br, int n_t, int C, int G, int d,
+          const float* __restrict__ cond, const T* __restrict__ wcd, int Cc) {
   extern __shared__ __align__(16) float sm[];
   float* xs = sm;               // [C][TT] x(t)
   float* xr = xs + C * TT;      // [C][TT] rounded x(t)
   float* xp = xr + C * TT;      // [C][TT] rounded x(t - d)
   float* pre = xp + C * TT;     // [2G][TT]
   float* zr = pre + 2 * G * TT; // [G][TT] z in the compute dtype
+  float* cs = zr + G * TT;      // [Cc][TT] rounded cond (conditioned)
   const int b = blockIdx.y, t0 = blockIdx.x * TT;
   stage<T, false>(xs, x, b, t0, n_t, C, 0);
   stage<T, true>(xp, x, b, t0, n_t, C, d);
+  if (wcd) stage<T, true>(cs, cond, b, t0, n_t, Cc, 0);
   __syncthreads();
   for (int i = threadIdx.x; i < C * TT; i += NT) xr[i] = rnd<T>(xs[i]);
   __syncthreads();
   tile_mm2<TT, TAPCAT>(xr, wc, C, xp, wp, C, 2 * G, [&](int t, int n, float s1, float s2) {
     pre[n * TT + t] = (s1 + s2) + bias[n];
   });
+  if (wcd) {  // same N: each (t, n) stays with its thread
+    tile_mm2<TT, false>(cs, wcd, Cc, cs, (const T*)nullptr, 0, 2 * G,
+                        [&](int t, int n, float s, float) { pre[n * TT + t] += s; });
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < G * TT; i += NT) {
     const int g = i / TT, t = i % TT;
@@ -186,22 +214,29 @@ __global__ void __launch_bounds__(NT)
 bwd_dpre(const float* __restrict__ x, const float* __restrict__ g_skip,
          const float* __restrict__ dx_next, float* __restrict__ dpre, const T* __restrict__ wc,
          const T* __restrict__ wp, const float* __restrict__ bias, const T* __restrict__ wsT,
-         const T* __restrict__ wrT, int n_t, int C, int G, int S, int d) {
+         const T* __restrict__ wrT, int n_t, int C, int G, int S, int d,
+         const float* __restrict__ cond, const T* __restrict__ wcd, int Cc) {
   extern __shared__ __align__(16) float sm[];
   float* xr = sm;               // [C][TT] rounded x(t)
   float* xp = xr + C * TT;      // [C][TT] rounded x(t - d)
   float* act = xp + C * TT;     // [2G][TT] pre, then tanh | sigmoid
   float* gs = act + 2 * G * TT; // [S][TT] rounded g_skip
   float* dn = gs + S * TT;      // [C][TT] rounded dx_{l+1}
+  float* cs = dn + C * TT;      // [Cc][TT] rounded cond (conditioned)
   const int b = blockIdx.y, t0 = blockIdx.x * TT;
   stage<T, true>(xr, x, b, t0, n_t, C, 0);
   stage<T, true>(xp, x, b, t0, n_t, C, d);
   stage<T, true>(gs, g_skip, b, t0, n_t, S, 0);
   stage<T, true>(dn, dx_next, b, t0, n_t, C, 0);
+  if (wcd) stage<T, true>(cs, cond, b, t0, n_t, Cc, 0);
   __syncthreads();
   tile_mm2<TT, TAPCAT>(xr, wc, C, xp, wp, C, 2 * G, [&](int t, int n, float s1, float s2) {
     act[n * TT + t] = (s1 + s2) + bias[n];
   });
+  if (wcd) {  // pre as the forward layer forms it
+    tile_mm2<TT, false>(cs, wcd, Cc, cs, (const T*)nullptr, 0, 2 * G,
+                        [&](int t, int n, float s, float) { act[n * TT + t] += s; });
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < G * TT; i += NT) {
     act[i] = tanhf(act[i]);
@@ -217,11 +252,13 @@ bwd_dpre(const float* __restrict__ x, const float* __restrict__ g_skip,
   });
 }
 
+// Conditioned (dcond non-null) it also adds the layer's rnd(dpre) w_cond^T to
+// d cond (B, T, Cc), summed over the layers in launch order.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 bwd_dx(const float* __restrict__ dpre, const float* __restrict__ dx_next,
        float* __restrict__ dx, const T* __restrict__ wcT, const T* __restrict__ wpT, int n_t,
-       int C, int G, int d) {
+       int C, int G, int d, float* __restrict__ dcond, const T* __restrict__ wcdT, int Cc) {
   extern __shared__ __align__(16) float sm[];
   float* dc = sm;               // [2G][TT] rounded dpre(t)
   float* dl = dc + 2 * G * TT;  // [2G][TT] rounded dpre(t + d)
@@ -234,6 +271,13 @@ bwd_dx(const float* __restrict__ dpre, const float* __restrict__ dx_next,
     const size_t at = ((size_t)b * n_t + t0 + t) * C + c;
     dx[at] = (dx_next[at] + s1) + s2;
   });
+  if (dcond == nullptr) return;
+  tile_mm2<TT, false>(dc, wcdT, 2 * G, dc, (const T*)nullptr, 0, Cc,
+                      [&](int t, int n, float s, float) {
+                        if (t0 + t >= n_t) return;
+                        const size_t at = ((size_t)b * n_t + t0 + t) * Cc + n;
+                        dcond[at] = dcond[at] + s;
+                      });
 }
 
 // ---- bf16 on tensor cores ---------------------------------------------------
@@ -353,14 +397,16 @@ __device__ __forceinline__ void store_rows(bf16* dst, const bf16* s, int ld, int
   }
 }
 
-// pre = [x(t) | x(t-d)] @ [w_cur ; w_prev] + b of a 16-row strip at the
-// tanh columns n0..n0+15 (p[0], p[1]) and the sigmoid columns G + n0..
-// (p[2], p[3]), bias added: one 2C-deep sum with TAPCAT, else (x(t) w_cur +
-// x(t-d) w_prev) + b.
+// pre = [x(t) | x(t-d) | cond] @ [w_cur ; w_prev ; w_cond] + b of a 16-row
+// strip at the tanh columns n0..n0+15 (p[0], p[1]) and the sigmoid columns
+// G + n0.. (p[2], p[3]), bias added: one (2C + Cc)-deep sum with TAPCAT,
+// else (x(t) w_cur + [x(t-d) | cond] [w_prev ; w_cond]) + b (Cc = 0:
+// unconditioned). cond's k-steps continue the chain, as in the sampling
+// kernels (ar_tc.cuh).
 template <bool TAPCAT>
 __device__ __forceinline__ void gate_pre(float (&p)[4][4], const bf16* xa, int lda,
                                          const bf16* wa, int ldw, const float* bias, int r0,
-                                         int n0, int C, int G) {
+                                         int n0, int C, int G, int Cc) {
   float q[4][4];
   zero(p);
   zero(q);
@@ -375,7 +421,7 @@ __device__ __forceinline__ void gate_pre(float (&p)[4][4], const bf16* xa, int l
     mma_add(d[3], a, bs[2], bs[3]);
   };
   for (int ks = 0; ks < C / 16; ++ks) step(p, ks);
-  for (int ks = C / 16; ks < 2 * C / 16; ++ks) step(TAPCAT ? p : q, ks);
+  for (int ks = C / 16; ks < (2 * C + Cc) / 16; ++ks) step(TAPCAT ? p : q, ks);
   const int cq = 2 * (threadIdx.x & 3);
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -393,11 +439,14 @@ struct FwdTc {
   const bf16 *wc, *wp, *wr;
   const float *bias, *br;
   int B, T, C, G, d;
+  const bf16* cond;  // (B, T, Cc) rounded, or null: unconditioned
+  const bf16* wcd;   // (Cc, 2G) this layer's w_cond
+  int Cc;
 };
 
-inline size_t fwd_tc_smem(int C, int G) {
-  return 2 * ((size_t)2 * C * (2 * G + PAD) + (size_t)G * (C + PAD) + TP * (2 * C + PAD) +
-              TP * (G + PAD));
+inline size_t fwd_tc_smem(int C, int G, int Cc) {
+  const size_t K = 2 * C + Cc;
+  return 2 * (K * (2 * G + PAD) + (size_t)G * (C + PAD) + TP * (K + PAD) + TP * (G + PAD));
 }
 
 // One layer: z = tanh(pre_t) sigmoid(pre_s) stored in bf16, x_{l+1} = (x +
@@ -405,14 +454,15 @@ inline size_t fwd_tc_smem(int C, int G) {
 template <bool TAPCAT>
 __global__ void __launch_bounds__(NTC) fwd_layer_tc(FwdTc a) {
   extern __shared__ __align__(16) unsigned char smraw[];
-  const int C = a.C, G = a.G, T = a.T;
-  const int ldw = 2 * G + PAD, ldr = C + PAD, lda = 2 * C + PAD, ldz = G + PAD;
-  bf16* wa = reinterpret_cast<bf16*>(smraw);  // [2C][2G] [w_cur ; w_prev]
-  bf16* wr = wa + 2 * C * ldw;                 // [G][C]
-  bf16* xa = wr + G * ldr;                     // [TP][2C] rounded x(t) | x(t-d)
+  const int C = a.C, G = a.G, T = a.T, K = 2 * C + a.Cc;
+  const int ldw = 2 * G + PAD, ldr = C + PAD, lda = K + PAD, ldz = G + PAD;
+  bf16* wa = reinterpret_cast<bf16*>(smraw);  // [K][2G] [w_cur ; w_prev (; w_cond)]
+  bf16* wr = wa + K * ldw;                     // [G][C]
+  bf16* xa = wr + G * ldr;                     // [TP][K] rounded x(t) | x(t-d) (| cond)
   bf16* zs = xa + TP * lda;                    // [TP][G] z
   stage_w(wa, ldw, a.wc, C, 2 * G, 2 * G);
   stage_w(wa + C * ldw, ldw, a.wp, C, 2 * G, 2 * G);
+  if (a.Cc) stage_w(wa + 2 * C * ldw, ldw, a.wcd, a.Cc, 2 * G, 2 * G);
   if (a.x_next) stage_w(wr, ldr, a.wr, G, C, C);
   pdl();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = 2 * (lane & 3);
@@ -422,10 +472,11 @@ __global__ void __launch_bounds__(NTC) fwd_layer_tc(FwdTc a) {
     const int b = tile / per_b, t0 = (tile % per_b) * TP;
     __syncthreads();
     stage_pair(xa, lda, a.x, b, t0, T, C, a.d);
+    if (a.Cc) stage_rows(xa + 2 * C, lda, a.cond, b, t0, T, a.Cc, 0);
     staged();
     for (int gc = half; gc < G / 16; gc += NW / RG) {
       float p[4][4];
-      gate_pre<TAPCAT>(p, xa, lda, wa, ldw, a.bias, r0, gc * 16, C, G);
+      gate_pre<TAPCAT>(p, xa, lda, wa, ldw, a.bias, r0, gc * 16, C, G, a.Cc);
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -591,12 +642,17 @@ struct BwdTc {
   const bf16 *wc, *wp, *wr, *ws;
   const float* bias;
   int B, T, C, G, S, d, nw;
+  const bf16* cond;  // (B, T, Cc) rounded, or null: unconditioned
+  const bf16* wcd;   // (Cc, 2G) this layer's w_cond
+  float* dcond;      // (B, T, Cc) d cond, added to (read, add, write)
+  int Cc;
 };
 
-inline size_t bwd_tc_smem(int C, int G, int S) {
+inline size_t bwd_tc_smem(int C, int G, int S, int Cc) {
   const int sc = S < SC ? S : SC;
-  return 2 * ((size_t)2 * C * (2 * G + PAD) + (size_t)G * (C + PAD) + (size_t)G * (sc + PAD) +
-              (size_t)TP * (2 * C + G + C + sc + 2 * G + 5 * PAD)) +
+  const size_t K = 2 * C + Cc;
+  return 2 * (K * (2 * G + PAD) + (size_t)G * (C + PAD) + (size_t)G * (sc + PAD) +
+              (size_t)TP * (K + G + C + sc + 2 * G + 5 * PAD)) +
          4 * ((size_t)TP * (C + (S > SC ? G : 0)) + RG * 2 * G + 2 * G + C);
 }
 
@@ -635,27 +691,35 @@ __device__ __forceinline__ void wgrad_item(float* out, int ldo, const bf16* A, i
 // One layer of the backward but the adjoint shift: per tile, pre again, dz =
 // gs w_skip^T + rnd(dx_{l+1}) w_res^T (two sums added), dpre (stored
 // rounded), and the layer's weight and bias gradients from the same staged
-// tiles: [x(t) | x(t-d)]^T dpre (dw_cur | dw_prev as one 2C x 2G product),
-// z^T rnd(dx_{l+1}), z^T gs, db = colsum(dpre) unrounded, db_res =
-// colsum(dx_{l+1}). Block i adds its tiles in order into its own slot
-// part[i] (its first tile stores): no atomics, a rerun is bit-identical.
+// tiles: [x(t) | x(t-d) | cond]^T dpre (dw_cur | dw_prev | dw_cond as one
+// (2C + Cc) x 2G product), z^T rnd(dx_{l+1}), z^T gs, db = colsum(dpre)
+// unrounded, db_res = colsum(dx_{l+1}). Block i adds its tiles in order
+// into its own slot part[i] (its first tile stores): no atomics, a rerun is
+// bit-identical. Conditioned, pre takes cond's k-steps (gate_pre) and the
+// tile's rnd(dpre) w_cond^T is added to d cond straight from the mma
+// fragments (read, add, write: one owner per element and launch, the
+// layers in launch order; an fp32 tile of it would not fit in shared
+// memory beside the others).
 // PASSES (for S > SC) takes gs and w_skip in passes of SC skip columns
 // (w_skip then staged per pass and tile): gs w_skip^T goes on over the
 // passes in k-step order in an fp32 tile, z^T gs is taken pass by pass. The
 // one-pass instantiation keeps that sum in registers (the passes' code costs
-// it registers it has not got at 512 threads).
-template <bool TAPCAT, bool PASSES>
+// it registers it has not got at 512 threads). COND instantiates the
+// conditioned pass apart, so that the unconditioned one keeps its
+// registers (the d cond items' live values cost it spills).
+template <bool TAPCAT, bool PASSES, bool COND>
 __global__ void __launch_bounds__(NTB) bwd_layer_tc(BwdTc a) {
   extern __shared__ __align__(16) unsigned char smraw[];
-  const int C = a.C, G = a.G, S = a.S, T = a.T;
+  const int Cc = COND ? a.Cc : 0;
+  const int C = a.C, G = a.G, S = a.S, T = a.T, K = 2 * C + Cc;
   constexpr bool one_pass = !PASSES;
   const int scp = one_pass ? S : SC;  // skip columns per pass
   const int ldw = 2 * G + PAD, ldr = C + PAD, ldk = scp + PAD;
-  const int lda = 2 * C + PAD, ldz = G + PAD, ldn = C + PAD, ldg = scp + PAD, ldp = 2 * G + PAD;
-  bf16* wa = reinterpret_cast<bf16*>(smraw);  // [2C][2G] [w_cur ; w_prev]
-  bf16* wr = wa + 2 * C * ldw;                 // [G][C]
+  const int lda = K + PAD, ldz = G + PAD, ldn = C + PAD, ldg = scp + PAD, ldp = 2 * G + PAD;
+  bf16* wa = reinterpret_cast<bf16*>(smraw);  // [K][2G] [w_cur ; w_prev (; w_cond)]
+  bf16* wr = wa + K * ldw;                     // [G][C]
   bf16* wsk = wr + G * ldr;                    // [G][scp] a pass's w_skip columns
-  bf16* xa = wsk + G * ldk;                    // [TP][2C] rounded x(t) | x(t-d)
+  bf16* xa = wsk + G * ldk;                    // [TP][K] rounded x(t) | x(t-d) (| cond)
   bf16* zs = xa + TP * lda;                    // [TP][G]
   bf16* dn = zs + TP * ldz;                    // [TP][C] rounded dx_{l+1}
   bf16* gsm = dn + TP * ldn;                   // [TP][scp] a pass's gs columns
@@ -667,13 +731,14 @@ __global__ void __launch_bounds__(NTB) bwd_layer_tc(BwdTc a) {
   float* dbr = db + 2 * G;                     // [C] the block's db_res
   stage_w(wa, ldw, a.wc, C, 2 * G, 2 * G);
   stage_w(wa + C * ldw, ldw, a.wp, C, 2 * G, 2 * G);
+  if (COND) stage_w(wa + 2 * C * ldw, ldw, a.wcd, Cc, 2 * G, 2 * G);
   stage_w(wr, ldr, a.wr, G, C, C);
   if (one_pass) stage_w(wsk, ldk, a.ws, G, S, S);
   for (int i = threadIdx.x; i < 2 * G + C; i += NTB) db[i] = 0.f;  // db and dbr
   pdl();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, cq = 2 * (lane & 3);
   const int rg = warp % RG, r0 = rg * 16, half = warp / RG;
-  const int o_db = 2 * C * 2 * G, o_dwr = o_db + 2 * G, o_dbr = o_dwr + G * C;
+  const int o_db = K * 2 * G, o_dwr = o_db + 2 * G, o_dbr = o_dwr + G * C;
   const int o_dws = o_dbr + C;
   float* part = a.part + (size_t)blockIdx.x * a.nw;
   const int per_b = (T + TP - 1) / TP;
@@ -684,6 +749,7 @@ __global__ void __launch_bounds__(NTB) bwd_layer_tc(BwdTc a) {
     stage_rows(zs, ldz, a.z, b, t0, T, G, 0);
     stage_rows(dnf, C, a.dxn, b, t0, T, C, 0);
     stage_pair(xa, lda, a.x, b, t0, T, C, a.d);
+    if (COND) stage_rows(xa + 2 * C, lda, a.cond, b, t0, T, Cc, 0);
     // The skip columns in passes; the last pass's gs stays staged for the
     // gate pass (one pass) and the weight gradients below.
     int s0 = 0, sc = scp;
@@ -738,7 +804,7 @@ __global__ void __launch_bounds__(NTB) bwd_layer_tc(BwdTc a) {
     for (int gc = half; gc < G / 16; gc += NWB / RG) {
       const int n0 = gc * 16;
       float p[4][4], dzs[2][4], dzc[2][4];
-      gate_pre<TAPCAT>(p, xa, lda, wa, ldw, a.bias, r0, n0, C, G);
+      gate_pre<TAPCAT>(p, xa, lda, wa, ldw, a.bias, r0, n0, C, G, Cc);
       if (one_pass) {
         zero(dzs);
         for (int ks = 0; ks < S / 16; ++ks) {
@@ -801,10 +867,40 @@ __global__ void __launch_bounds__(NTB) bwd_layer_tc(BwdTc a) {
       for (int i = 1; i < RG; ++i) s += dbt[i * 2 * G + n];
       db[n] += s;
     }
-    // dw_cur | dw_prev, dw_res and the last pass's dw_skip columns of the
-    // tile into the block's slot; item -> warp, and so each element's owner,
-    // is fixed.
-    const int it0 = (2 * C / 16) * (2 * G / 16), it1 = it0 + (G / 16) * (C / 16);
+    // d cond += rnd(dpre) w_cond^T of the tile (w_cond's staged rows as
+    // the output-major operand), from the fragments to global memory.
+    for (int item = warp; COND && item < RG * (Cc / 16); item += NWB) {
+      const int rc = (item % RG) * 16, n0 = (item / RG) * 16;
+      float2* q[2][2];
+      float2 o[2][2];  // the sum so far, in flight over the mma
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = t0 + rc + g + h * 8 < T ? rc + g + h * 8 : 0;
+          q[j][h] = reinterpret_cast<float2*>(a.dcond + ((size_t)b * T + t0 + r) * Cc + n0 +
+                                              j * 8 + cq);
+          o[j][h] = *q[j][h];
+        }
+      float acc[2][4];
+      zero(acc);
+      for (int ks = 0; ks < 2 * G / 16; ++ks) {
+        uint32_t av[4], bv[4];
+        lda_rm(av, dp, ldp, rc, ks * 16);
+        ldb_nk(bv, wa + 2 * C * ldw, ldw, n0, ks * 16);
+        mma2(acc, av, bv);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (t0 + rc + g + h * 8 < T)
+            *q[j][h] = make_float2(o[j][h].x + acc[j][2 * h], o[j][h].y + acc[j][2 * h + 1]);
+    }
+    // dw_cur | dw_prev (| dw_cond), dw_res and the last pass's dw_skip
+    // columns of the tile into the block's slot; item -> warp, and so each
+    // element's owner, is fixed.
+    const int it0 = (K / 16) * (2 * G / 16), it1 = it0 + (G / 16) * (C / 16);
     for (int item = warp; item < it1 + (G / 16) * (sc / 16); item += NWB) {
       const bf16 *A = zs, *Bm = gsm;
       float* out = part + o_dws + s0;
@@ -924,9 +1020,10 @@ __global__ void __launch_bounds__(NTC) reduce_tc(const float* __restrict__ parti
   grads[idx] = s;
 }
 
-// Dynamic shared memory of the largest kernel of the route at these widths.
-inline size_t max_smem(int C, int G, int S) {
-  const size_t f = fwd_tc_smem(C, G), k = skip_tc_smem(G, S), b = bwd_tc_smem(C, G, S),
+// Dynamic shared memory of the largest kernel of the route at these widths
+// (Cc conditioning channels, 0: unconditioned).
+inline size_t max_smem(int C, int G, int S, int Cc) {
+  const size_t f = fwd_tc_smem(C, G, Cc), k = skip_tc_smem(G, S), b = bwd_tc_smem(C, G, S, Cc),
                x = dx_tc_smem(C, G);
   const size_t fk = f > k ? f : k, bx = b > x ? b : x;
   return fk > bx ? fk : bx;
@@ -949,6 +1046,9 @@ struct FwdArgs {
   const int* dils;     // (L,) host memory
   int B, T, L, C, G, S, bf16, tapcat;
   int tc;              // bf16: 1 the tensor-core kernels (tsc), 0 the CUDA-core ones
+  const void* cond;    // (B, T, Cc): bf16 (tc) or fp32, or null: unconditioned
+  const void* w_cond;  // (L, Cc, 2G) compute dtype
+  int Cc;
 };
 
 struct BwdArgs {
@@ -968,6 +1068,11 @@ struct BwdArgs {
   const void* wsT;     // (L, S, G)
   const int* dils;     // (L,) host memory
   int B, T, L, C, G, S, bf16, tapcat, chunks;
+  const float* cond;   // (B, T, Cc) fp32, or null: unconditioned
+  const void* w_cond;  // (L, Cc, 2G)
+  const void* wcdT;    // (L, 2G, Cc)
+  float* dcond;        // (B, T, Cc) out: d cond
+  int Cc;
 };
 
 template <typename K>
@@ -989,7 +1094,8 @@ static cudaError_t forward(const FwdArgs& a, cudaStream_t s, int* launches) {
   const T* wr = static_cast<const T*>(a.w_res);
   T* z = static_cast<T*>(a.z_all);
   const dim3 grid((a.T + TT - 1) / TT, a.B);
-  const size_t lsm = sizeof(float) * TT * (3 * a.C + 3 * a.G);
+  const T* wcd = static_cast<const T*>(a.w_cond);
+  const size_t lsm = sizeof(float) * TT * (3 * a.C + 3 * a.G + (wcd ? a.Cc : 0));
   WN_TRY(smem(fwd_layer<T, TAPCAT>, lsm));
   WN_TRY(cudaMemcpyAsync(a.x_all, a.h0, btc * sizeof(float), cudaMemcpyDeviceToDevice, s));
   for (int l = 0; l < a.L; ++l) {
@@ -997,7 +1103,8 @@ static cudaError_t forward(const FwdArgs& a, cudaStream_t s, int* launches) {
     fwd_layer<T, TAPCAT><<<grid, NT, lsm, s>>>(
         a.x_all + l * btc, next, z + l * btg, wc + (size_t)l * a.C * 2 * a.G,
         wp + (size_t)l * a.C * 2 * a.G, a.b + l * 2 * a.G, wr + (size_t)l * a.G * a.C,
-        a.b_res + l * a.C, a.T, a.C, a.G, a.dils[l]);
+        a.b_res + l * a.C, a.T, a.C, a.G, a.dils[l], static_cast<const float*>(a.cond),
+        wcd ? wcd + (size_t)l * a.Cc * 2 * a.G : nullptr, a.Cc);
     WN_TRY(cudaGetLastError());
     ++*launches;
   }
@@ -1012,15 +1119,18 @@ static cudaError_t forward(const FwdArgs& a, cudaStream_t s, int* launches) {
 
 template <typename T, bool TAPCAT>
 static cudaError_t backward(const BwdArgs& a, cudaStream_t s, int* launches) {
-  const int C = a.C, G = a.G, S = a.S, bf = a.bf16;
+  const int C = a.C, G = a.G, S = a.S, bf = a.bf16, Cc = a.w_cond ? a.Cc : 0;
   const size_t btc = (size_t)a.B * a.T * C, btg = (size_t)a.B * a.T * G;
-  const int nw = 2 * C * 2 * G + 2 * G + G * C + C + G * S + S;
+  const int nw = (2 * C + Cc) * 2 * G + 2 * G + G * C + C + G * S + S;
   const dim3 grid((a.T + TT - 1) / TT, a.B);
-  const size_t psm = sizeof(float) * TT * (2 * C + 2 * G + S + C);
+  const size_t psm = sizeof(float) * TT * (2 * C + 2 * G + S + C + Cc);
   const size_t xsm = sizeof(float) * TT * 4 * G;
+  const T* wcd = static_cast<const T*>(a.w_cond);
+  const T* wcdT = static_cast<const T*>(a.wcdT);
   WN_TRY(smem(bwd_dpre<T, TAPCAT>, psm));
   WN_TRY(smem(bwd_dx<T>, xsm));
   WN_TRY(cudaMemsetAsync(a.dx, 0, btc * sizeof(float), s));
+  if (Cc) WN_TRY(cudaMemsetAsync(a.dcond, 0, (size_t)a.B * a.T * Cc * sizeof(float), s));
   const int chunk = (a.B * a.T + a.chunks - 1) / a.chunks;
   for (int l = a.L - 1, k = 0; l >= 0; --l, ++k) {
     const int d = a.dils[l];
@@ -1033,15 +1143,18 @@ static cudaError_t backward(const BwdArgs& a, cudaStream_t s, int* launches) {
         x, a.g_skip, dxn, a.dpre, static_cast<const T*>(a.w_cur) + wo,
         static_cast<const T*>(a.w_prev) + wo, a.b + l * 2 * G,
         static_cast<const T*>(a.wsT) + (size_t)l * S * G,
-        static_cast<const T*>(a.wrT) + (size_t)l * C * G, a.T, C, G, S, d);
+        static_cast<const T*>(a.wrT) + (size_t)l * C * G, a.T, C, G, S, d, a.cond,
+        Cc ? wcd + (size_t)l * Cc * 2 * G : nullptr, Cc);
     WN_TRY(cudaGetLastError());
     bwd_dx<T><<<grid, NT, xsm, s>>>(a.dpre, dxn, dxo, static_cast<const T*>(a.wcT) + wo,
-                                    static_cast<const T*>(a.wpT) + wo, a.T, C, G, d);
+                                    static_cast<const T*>(a.wpT) + wo, a.T, C, G, d,
+                                    Cc ? a.dcond : nullptr,
+                                    Cc ? wcdT + (size_t)l * 2 * G * Cc : nullptr, Cc);
     WN_TRY(cudaGetLastError());
-    // Gradient pack of a layer: dwc | dwp (C x 2G each) | db | dwr (G x C)
-    // | dbr | dws (G x S) | dbs.
+    // Gradient pack of a layer: dwc | dwp (C x 2G each) | dwcd (Cc x 2G,
+    // conditioned) | db | dwr (G x C) | dbr | dws (G x S) | dbs.
     WGrad w;
-    const int o_db = 2 * C * 2 * G, o_dwr = o_db + 2 * G, o_dbr = o_dwr + G * C;
+    const int o_db = (2 * C + Cc) * 2 * G, o_dwr = o_db + 2 * G, o_dbr = o_dwr + G * C;
     const int o_dws = o_dbr + C, o_dbs = o_dws + G * S;
     const WOp xo = wop(x, 0, C, a.T), xs = wop(x, 0, C, a.T, 0, d);
     const WOp po = wop(a.dpre, 0, 2 * G, a.T), zo = wop(z, bf, G, a.T);
@@ -1054,6 +1167,7 @@ static cudaError_t backward(const BwdArgs& a, cudaStream_t s, int* launches) {
     w.job[5] = outer(zo, go, G, S, o_dws);
     w.job[6] = colsum(go, S, o_dbs);
     w.n_jobs = 7;
+    if (Cc) w.job[w.n_jobs++] = outer(wop(a.cond, 0, Cc, a.T), po, Cc, 2 * G, 2 * C * 2 * G);
     w.n_pos_b = a.T;
     w.B = a.B;
     w.chunk = chunk;
@@ -1088,6 +1202,10 @@ struct BwdTcArgs {
   const void* w_skip;  // (L, G, S)
   const int* dils;     // (L,) host memory
   int B, T, L, C, G, S, tapcat, chunks, s_chunks;
+  const void* cond;    // (B, T, Cc) bf16, or null: unconditioned
+  const void* w_cond;  // (L, Cc, 2G) bf16
+  float* dcond;        // (B, T, Cc) out: d cond
+  int Cc;
 };
 
 // Blocks of a persistent launch over `tiles`: as many as fit on the card at
@@ -1127,7 +1245,8 @@ static cudaError_t forward_tc(const FwdArgs& a, cudaStream_t s, int* launches) {
   using tsc::bf16;
   const size_t btc = (size_t)a.B * a.T * a.C, btg = (size_t)a.B * a.T * a.G;
   const int tiles = a.B * ((a.T + tsc::TP - 1) / tsc::TP);
-  const size_t lsm = tsc::fwd_tc_smem(a.C, a.G), ssm = tsc::skip_tc_smem(a.G, a.S);
+  const int Cc = a.w_cond ? a.Cc : 0;
+  const size_t lsm = tsc::fwd_tc_smem(a.C, a.G, Cc), ssm = tsc::skip_tc_smem(a.G, a.S);
   WN_TRY(smem(tsc::fwd_layer_tc<TAPCAT>, lsm));
   WN_TRY(smem(tsc::fwd_skip_tc, ssm));
   const int lg = tc_grid(tsc::fwd_layer_tc<TAPCAT>, lsm, tiles);
@@ -1137,12 +1256,15 @@ static cudaError_t forward_tc(const FwdArgs& a, cudaStream_t s, int* launches) {
   const bf16* wp = static_cast<const bf16*>(a.w_prev);
   const bf16* wr = static_cast<const bf16*>(a.w_res);
   bf16* z = static_cast<bf16*>(a.z_all);
+  const bf16* wcd = static_cast<const bf16*>(a.w_cond);
   WN_TRY(cudaMemcpyAsync(a.x_all, a.h0, btc * sizeof(float), cudaMemcpyDeviceToDevice, s));
   for (int l = 0; l < a.L; ++l) {
     const size_t wo = (size_t)l * a.C * 2 * a.G;
     const tsc::FwdTc p{a.x_all + l * btc, l + 1 < a.L ? a.x_all + (l + 1) * btc : nullptr,
                        z + l * btg, wc + wo, wp + wo, wr + (size_t)l * a.G * a.C,
-                       a.b + l * 2 * a.G, a.b_res + l * a.C, a.B, a.T, a.C, a.G, a.dils[l]};
+                       a.b + l * 2 * a.G, a.b_res + l * a.C, a.B, a.T, a.C, a.G, a.dils[l],
+                       static_cast<const bf16*>(a.cond),
+                       Cc ? wcd + (size_t)l * Cc * 2 * a.G : nullptr, Cc};
     WN_TRY(launch_tc(tsc::fwd_layer_tc<TAPCAT>, lg, tsc::NTC, lsm, s, l > 0, p));
     ++*launches;
   }
@@ -1156,13 +1278,16 @@ static cudaError_t forward_tc(const FwdArgs& a, cudaStream_t s, int* launches) {
 template <bool TAPCAT>
 static cudaError_t backward_tc(const BwdTcArgs& a, cudaStream_t s, int* launches) {
   using tsc::bf16;
-  const int C = a.C, G = a.G, S = a.S;
+  const int C = a.C, G = a.G, S = a.S, Cc = a.w_cond ? a.Cc : 0;
   const size_t btc = (size_t)a.B * a.T * C, btg = (size_t)a.B * a.T * G;
-  const int nw = 2 * C * 2 * G + 2 * G + G * C + C + G * S + S;
+  const int nw = (2 * C + Cc) * 2 * G + 2 * G + G * C + C + G * S + S;
   const int n_pos = a.B * a.T, tiles = a.B * ((a.T + tsc::TP - 1) / tsc::TP);
-  const size_t bsm = tsc::bwd_tc_smem(C, G, S), xsm = tsc::dx_tc_smem(C, G);
+  const size_t bsm = tsc::bwd_tc_smem(C, G, S, Cc), xsm = tsc::dx_tc_smem(C, G);
   void (*layer)(tsc::BwdTc) =
-      S > tsc::SC ? tsc::bwd_layer_tc<TAPCAT, true> : tsc::bwd_layer_tc<TAPCAT, false>;
+      Cc ? (S > tsc::SC ? tsc::bwd_layer_tc<TAPCAT, true, true>
+                        : tsc::bwd_layer_tc<TAPCAT, false, true>)
+         : (S > tsc::SC ? tsc::bwd_layer_tc<TAPCAT, true, false>
+                        : tsc::bwd_layer_tc<TAPCAT, false, false>);
   WN_TRY(smem(layer, bsm));
   WN_TRY(smem(tsc::bwd_dx_tc, xsm));
   const int xg = tc_grid(tsc::bwd_dx_tc, xsm, tiles);
@@ -1176,12 +1301,14 @@ static cudaError_t backward_tc(const BwdTcArgs& a, cudaStream_t s, int* launches
   const bf16* ws = static_cast<const bf16*>(a.w_skip);
   bf16* gs = static_cast<bf16*>(a.gs);
   bf16* dpre = static_cast<bf16*>(a.dpre);
+  const bf16* wcd = static_cast<const bf16*>(a.w_cond);
   tsc::gskip_prep<<<a.s_chunks, tsc::NTC, 0, s>>>(a.g_skip, gs, a.part_s, n_pos, S,
                                                  (n_pos + a.s_chunks - 1) / a.s_chunks);
   WN_TRY(cudaGetLastError());
   WN_TRY(launch_reduce(a.part_s, a.dbs, 1, a.s_chunks, S, s));
   *launches += 2;
   WN_TRY(cudaMemsetAsync(a.dx, 0, btc * sizeof(float), s));
+  if (Cc) WN_TRY(cudaMemsetAsync(a.dcond, 0, (size_t)n_pos * Cc * sizeof(float), s));
   for (int l = a.L - 1, k = 0; l >= 0; --l, ++k) {
     const int d = a.dils[l];
     const float* dxn = a.dx + (k % 2) * btc;
@@ -1190,8 +1317,9 @@ static cudaError_t backward_tc(const BwdTcArgs& a, cudaStream_t s, int* launches
     const tsc::BwdTc p{a.x_all + l * btc, z_all + l * btg, gs, dxn, dpre,
                        a.partial + (size_t)l * a.chunks * nw, wc + wo, wp + wo,
                        wr + (size_t)l * G * C, ws + (size_t)l * G * S, a.b + l * 2 * G,
-                       a.B, a.T, C, G, S, d, nw};
-    // The first layer pass follows a memset: launched plainly.
+                       a.B, a.T, C, G, S, d, nw, static_cast<const bf16*>(a.cond),
+                       Cc ? wcd + (size_t)l * Cc * 2 * G : nullptr, a.dcond, Cc};
+    // The first layer pass follows memsets: launched plainly.
     WN_TRY(launch_tc(layer, a.chunks, tsc::NTB, bsm, s, k > 0, p));
     WN_TRY(launch_tc(tsc::bwd_dx_tc, xg, tsc::NTC, xsm, s, true, (const bf16*)dpre, dxn, dxo,
                      wc + wo, wp + wo, a.B, a.T, C, G, d));
@@ -1208,8 +1336,14 @@ static cudaError_t backward_tc(const BwdTcArgs& a, cudaStream_t s, int* launches
 }  // namespace wn
 
 // Each returns a CUDA error code and adds the kernels it launched to *launches.
+// cond and w_cond come together, with Cc > 0 (and d cond for a backward).
+static bool cond_ok(const void* cond, const void* w_cond, int Cc) {
+  return (cond != nullptr) == (w_cond != nullptr) && (cond ? Cc > 0 : Cc == 0);
+}
+
 extern "C" int wn_train_stack_fwd(const wn::FwdArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!cond_ok(a->cond, a->w_cond, a->Cc)) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (a->bf16 && a->tc)
     e = a->tapcat ? wn::forward_tc<true>(*a, s, launches)
@@ -1225,6 +1359,8 @@ extern "C" int wn_train_stack_fwd(const wn::FwdArgs* a, void* stream, int* launc
 
 extern "C" int wn_train_stack_bwd(const wn::BwdArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!cond_ok(a->cond, a->w_cond, a->Cc) || (a->cond && (!a->wcdT || !a->dcond)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (a->bf16)
     e = a->tapcat ? wn::backward<__nv_bfloat16, true>(*a, s, launches)
@@ -1236,13 +1372,16 @@ extern "C" int wn_train_stack_bwd(const wn::BwdArgs* a, void* stream, int* launc
 }
 
 // Bytes of dynamic shared memory of the tensor-core route's largest kernel
-// at these widths (train_stack.py `tc_smem` must agree).
-extern "C" long long wn_train_stack_tc_smem(int C, int G, int S) {
-  return (long long)wn::tsc::max_smem(C, G, S);
+// at these widths, Cc conditioning channels (train_stack.py `tc_smem` must
+// agree).
+extern "C" long long wn_train_stack_tc_smem(int C, int G, int S, int Cc) {
+  return (long long)wn::tsc::max_smem(C, G, S, Cc);
 }
 
 extern "C" int wn_train_stack_bwd_tc(const wn::BwdTcArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!cond_ok(a->cond, a->w_cond, a->Cc) || (a->cond && !a->dcond))
+    return (int)cudaErrorInvalidValue;
   return (int)(a->tapcat ? wn::backward_tc<true>(*a, s, launches)
                          : wn::backward_tc<false>(*a, s, launches));
 }

@@ -7,9 +7,14 @@ corpus; each epoch is a seeded permutation of all (file, window) pairs; a
 host takes rows `host_id::host_count` of every batch. For the same seed and
 step the batches equal the JAX package's row for row.
 
-Not ported yet (ROADMAP.md A): mel frames (`with_mel`, A queue item 4b), the
-packed out-of-core corpus (`Corpus.from_pack`, `load_corpus` of a file) and
-the native C++ ingest/assembly tier (A queue item 8).
+A mel-conditioned arch's batches carry each window's log-mel frames
+(`with_mel`): the float waveform over the window's model-input span, zero
+outside the file, through the port's `ops/mel.py` in one batched call per
+batch (on the CPU, in the prefetch thread).
+
+Not ported yet (ROADMAP.md A): the packed out-of-core corpus
+(`Corpus.from_pack`, `load_corpus` of a file) and the native C++
+ingest/assembly tier (A queue item 8).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from .config import ArchConfig, TrainConfig
 from .ops import geometry
+from .ops.mel import log_mel_spectrogram
 from .ops.mulaw import mu_law_encode
 
 
@@ -180,6 +186,37 @@ class Corpus:
         return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
                 np.stack([r[2] for r in rows]))
 
+    def _window_segment(self, fi: int, wi: int) -> np.ndarray:
+        """Float waveform over the window's model-input span (R - 1 + W
+        samples from t0 - R), zero where the span leaves the file."""
+        t0, _ = geometry.window_bounds(len(self.encoded[fi]), self.window_size, wi)
+        in_start = t0 - self.r_field
+        in_len = self.r_field - 1 + self.window_size
+        wav = self.waves[fi]
+        lo, hi = max(in_start, 0), min(in_start + in_len, len(wav))
+        seg = np.zeros(in_len, dtype=np.float32)
+        seg[lo - in_start: hi - in_start] = wav[lo:hi]
+        return seg
+
+    def mel_for_windows(self, pairs: Sequence[tuple], n_frames: int) -> np.ndarray:
+        """(B, n_frames, n_mels) log-mel frames of a batch of windows, one
+        batched call: frame k of row j covers samples from in_start_j + k *
+        hop, so the upsampled conditioning lines up with `inputs`. Frames
+        past the spectrogram's are zero."""
+        arch = self.arch
+        segs = torch.from_numpy(np.stack([self._window_segment(fi, wi) for fi, wi in pairs]))
+        frames = log_mel_spectrogram(segs, n_mels=arch.n_mels, hop=arch.hop_size,
+                                     sample_rate=arch.sample_rate).numpy()
+        out = np.zeros((len(pairs), n_frames, arch.n_mels), dtype=np.float32)
+        n = min(n_frames, frames.shape[1])
+        out[:, :n] = frames[:, :n]
+        return out
+
+
+def mel_frames(corpus: Corpus) -> int:
+    """Mel frames per window of the corpus: ceil((R - 1 + W) / hop)."""
+    return -(-(corpus.r_field - 1 + corpus.window_size) // corpus.arch.hop_size)
+
 
 class LaneSchedule:
     """Lane-continuous ("virtual batch") window order: one seeded
@@ -226,10 +263,10 @@ def make_batches(
     (per ROW: global position g = step * B + k draws perm_{g // n}[g % n],
     so a batch across an epoch seam takes its tail from the next epoch);
     with train.lane_continuous each lane walks files instead. `start_step`
-    resumes exactly (the dataset cursor is the step count)."""
-    if with_mel:
-        raise NotImplementedError(
-            "mel frames wait for the conditioning slice (ROADMAP.md A queue item 4b)")
+    resumes exactly (the dataset cursor is the step count). `with_mel` adds
+    each window's log-mel frames (Corpus.mel_for_windows)."""
+    if with_mel and not corpus.arch.use_local_cond:
+        raise ValueError("with_mel needs a mel-conditioned arch (arch.n_mels > 0)")
     if train.batch_size % host_count:
         raise ValueError("global batch size must divide evenly across hosts")
     n = len(corpus.index)
@@ -255,10 +292,11 @@ def make_batches(
                      for k in range(train.batch_size)]
             pairs = [corpus.index[r] for r in picks[host_id::host_count]]
         inputs, targets, mask = corpus.examples_batch(pairs)
+        mel = corpus.mel_for_windows(pairs, mel_frames(corpus)) if with_mel else None
         speaker = None
         if corpus.speakers is not None:
             speaker = np.asarray([corpus.speakers[p[0]] for p in pairs], dtype=np.int32)
-        yield Batch(inputs, targets, mask, None, speaker)
+        yield Batch(inputs, targets, mask, mel, speaker)
         step += 1
 
 

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .config import ArchConfig, TrainConfig
-from .data import Batch, Corpus, load_corpus
+from .data import Batch, Corpus, load_corpus, mel_frames
 from .generate import resolve_device
 from .models.wavenet import forward, params_to
 
@@ -31,16 +31,17 @@ def eval_step(params, batch: dict, arch: ArchConfig, window_size: int,
               fused: bool = False, tapcat: bool = False):
     """Masked sums of one batch: (nll_sum, correct_sum, mask_sum), 0-dim
     fp32 tensors. `fused` runs the forward through the training-stack
-    kernel (train.forward_fused); logits[:, -W + j] predicts targets[:, j]."""
-    with torch.inference_mode():
-        if fused:
-            from .train import forward_fused
+    kernel (train.forward_fused); logits[:, -W + j] predicts targets[:, j].
+    Mel frames are upsampled as in training (train.batch_cond)."""
+    from .train import batch_cond, forward_fused
 
-            logits = forward_fused(params, arch, batch["inputs"],
-                                   cond_frames=batch.get("mel"),
+    with torch.inference_mode():
+        cond = batch_cond(params, arch, batch)
+        if fused:
+            logits = forward_fused(params, arch, batch["inputs"], cond=cond,
                                    speaker_ids=batch.get("speaker"), tapcat=tapcat)
         else:
-            logits = forward(params, arch, batch["inputs"], cond_frames=batch.get("mel"),
+            logits = forward(params, arch, batch["inputs"], cond=cond,
                              speaker_ids=batch.get("speaker"))
         w_logits = logits[:, -window_size:, :]
         targets = batch["targets"].long()
@@ -54,12 +55,11 @@ def eval_batches(corpus: Corpus, batch_size: int, host_id: int = 0, host_count: 
                  max_batches: int = 0) -> Iterator[Batch]:
     """Deterministic eval batches: corpus windows in index order. The last
     batch is padded with window (0, 0) rows whose mask is zero; a host takes
-    rows host_id::host_count of each batch (one host here)."""
+    rows host_id::host_count of each batch (one host here). A mel arch's
+    batches carry each window's log-mel frames, as training's do."""
     if batch_size % host_count:
         raise ValueError("eval batch size must divide evenly across hosts")
-    if corpus.arch.use_local_cond:
-        raise NotImplementedError(
-            "mel frames wait for the conditioning slice (ROADMAP.md A queue item 4b)")
+    with_mel = corpus.arch.use_local_cond
     n = len(corpus.index)
     n_batches = -(-n // batch_size)
     if max_batches:
@@ -69,10 +69,11 @@ def eval_batches(corpus: Corpus, batch_size: int, host_id: int = 0, host_count: 
         pairs = [corpus.index[r] if r < n else (0, 0) for r in rows][host_id::host_count]
         pad = np.asarray([r < n for r in rows], np.float32)[host_id::host_count]
         inputs, targets, mask = corpus.examples_batch(pairs)
+        mel = corpus.mel_for_windows(pairs, mel_frames(corpus)) if with_mel else None
         speaker = None
         if corpus.speakers is not None:
             speaker = np.asarray([corpus.speakers[p[0]] for p in pairs], np.int32)
-        yield Batch(inputs, targets, mask * pad[:, None], None, speaker)
+        yield Batch(inputs, targets, mask * pad[:, None], mel, speaker)
 
 
 def evaluate(params, arch: ArchConfig, corpus: Corpus, batch_size: int,

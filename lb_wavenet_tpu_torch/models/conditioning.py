@@ -16,11 +16,20 @@ for another input length, and then a streamed upsampling (a window of
 frames at a time) would not equal the one-shot one bit for bit. Here an
 output sample's arithmetic does not depend on the input's length.
 
+Training and evaluation take `upsample_cond_train` instead: the same
+function with one float32 product per contraction (the projection, and
+each stage as its (2f+1)-tap window unfolded over time against the
+((2f+1) Cc, Cc) kernel), differentiable by autograd. The JAX package
+computes the upsampler with XLA's convolution outside any Pallas kernel;
+a library product is the port's counterpart. Its products run in true
+float32 whatever the global TF32 switches say (`_fp32_mm`).
+
 Parameters keep the JAX layout: proj_w (n_mels, Cc), proj_b (Cc,) and a
 list of stages {"w": (2f+1, Cc, Cc) as (tap, in, out), "b": (Cc,)}.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Union
 
@@ -75,6 +84,64 @@ def upsample_cond(params: dict, arch: ArchConfig, frames: torch.Tensor,
         out = None
         for k in range(w.shape[0]):
             out = _contract(hp[:, k: k + t], w[k], out)
+        h = torch.nn.functional.leaky_relu(out + stage["b"], 0.4)
+    return h.to(dtype)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Float32 matrix products in full float32 inside the block (cuBLAS
+    would otherwise take TF32 where the caller enabled it)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _Fp32Matmul(torch.autograd.Function):
+    """a (N, K) @ b (K, M) in true float32, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _no_tf32():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with _no_tf32():
+            ga = g @ b.t() if ctx.needs_input_grad[0] else None
+            gb = a.t() @ g if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _fp32_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, M) as one float32 product."""
+    out = _Fp32Matmul.apply(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(x.shape[:-1] + (w.shape[1],))
+
+
+def upsample_cond_train(params: dict, arch: ArchConfig, frames: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """upsample_cond for training and evaluation: (B, F, n_mels) ->
+    (B, F * hop, Cc) in `dtype`, computed in float32 with one library
+    product per contraction (its own summation order, so not bit for bit
+    the fixed-order upsample_cond), differentiable in every parameter."""
+    h = _fp32_mm(frames.to(torch.float32), params["proj_w"].to(torch.float32))
+    h = h + params["proj_b"]
+    for f, stage in zip(arch.upsample_factors, params["stages"]):
+        b, n, cc = h.shape
+        # Nearest-neighbour repeat as a broadcast copy: repeat_interleave
+        # would read its output length back from the card.
+        h = h[:, :, None, :].expand(b, n, f, cc).reshape(b, n * f, cc)   # (B, T, Cc)
+        t = n * f
+        k = 2 * f + 1
+        hp = torch.nn.functional.pad(h, (0, 0, f, f))           # SAME: f zeros each side
+        win = hp.unfold(1, k, 1).transpose(-1, -2).reshape(b, t, k * cc)  # (tap, in)
+        out = _fp32_mm(win, stage["w"].to(torch.float32).reshape(k * cc, cc))
         h = torch.nn.functional.leaky_relu(out + stage["b"], 0.4)
     return h.to(dtype)
 

@@ -162,9 +162,10 @@ def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
     CUDA carry in bf16 at widths the kernel takes, ar_tc.default_order)
     each product is summed as the bf16 kernel sums it on the tensor cores
     (ar_tc.tc_product), the cond k-steps continuing the gate's chain before
-    the bias, so the two agree bit for bit; otherwise in one fp32 product,
-    as the fp32 kernel's in-order sums (and kernel B7's) come out, cond's
-    after the bias (the JAX order)."""
+    the bias, so the two agree bit for bit; otherwise in the CUDA-core
+    route's order (ar_tc.core_product: on the card the kernel's in-order
+    FMA chains, on the CPU one fp32 product), cond's after the bias (the
+    JAX order)."""
     dt = compute_dtype(arch)
     dils = arch.dilations
     c = arch.residual_channels
@@ -175,8 +176,10 @@ def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
     if tensor_cores is None:
         tensor_cores = ar_tc.default_order(arch, dt, carry["h_s"].device, cc)
 
+    product = ar_tc.plain_product(tensor_cores, ar_tc.route(arch, dt, cc) == "cuda_cores")
+
     def mm(w, a):  # (M, K) @ (K, B), weights pre-rounded
-        return ar_tc.tc_product(w, rnd(a, dt)) if tensor_cores else w @ rnd(a, dt)
+        return product(w, rnd(a, dt))
 
     wcat = rnd(torch.cat([lp["w_cur"], lp["w_prev"]], 1).transpose(1, 2), dt)
     if cc:

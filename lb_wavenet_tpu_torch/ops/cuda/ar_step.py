@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import _mm, compute_dtype, input_step, post_network, rnd
+from ...models.wavenet import compute_dtype, input_step, post_network, rnd
 from . import ar_tc, build
 
 
@@ -53,22 +53,26 @@ def fused_stack_plain(lp: dict, arch: ArchConfig, h0, bufs, t: int, mm=None,
     """PyTorch version of the kernel, on any device: (bufs, skip (B, S)).
     `mm(x, w)` takes each product. By default, on a CUDA tensor on the
     tensor-core route, each product is summed as the kernel sums it
-    (ar_tc.tc_mm), so the two agree bit for bit; otherwise (the CPU, fp32,
-    other widths) with bf16 operands and one fp32 sum. turbo's plain
+    (ar_tc.tc_mm), so the two agree bit for bit; otherwise (fp32, other
+    widths) in the CUDA-core route's order (ar_tc.core_mm: the kernel's
+    in-order FMA chains on the card, one fp32 sum on the CPU). turbo's plain
     version passes its own, with `tensor_cores` saying which it is. With
     `cond_t` (B, Cc') and lp["w_cond"] (L, Cc', 2G): on the tensor-core
     route cond's k-steps continue the tap's sum, (h @ w_cur + [tap | cond]
     @ [w_prev ; w_cond]) + b; otherwise the JAX order, ((h @ w_cur + tap @
     w_prev) + b) + cond @ w_cond."""
     dt = compute_dtype(arch)
-    if tensor_cores is None:
+    if mm is None:
         n_layers, c, two_g = lp["w_cur"].shape
         cc = 0 if cond_t is None else cond_t.shape[-1]
-        tensor_cores = mm is None and ar_tc.stack_default_order(
-            c, two_g // 2, lp["w_skip"].shape[-1], n_layers, dt, h0.device, cc)
-    if mm is None:
+        route = ar_tc.stack_route(c, two_g // 2, lp["w_skip"].shape[-1], n_layers, dt, cc)
+        if tensor_cores is None:
+            tensor_cores = ar_tc.stack_default_order(
+                c, two_g // 2, lp["w_skip"].shape[-1], n_layers, dt, h0.device, cc)
+        product = ar_tc.plain_mm(tensor_cores, route == "cuda_cores")
+
         def mm(x, w):
-            return ar_tc.tc_mm(rnd(x, dt), rnd(w, dt)) if tensor_cores else _mm(x, w, dt)
+            return product(rnd(x, dt), rnd(w, dt))
     g = lp["w_cur"].shape[-1] // 2
     h = h0
     skip = torch.zeros(h0.shape[0], lp["w_skip"].shape[-1], device=h0.device)

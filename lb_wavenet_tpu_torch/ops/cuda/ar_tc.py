@@ -31,6 +31,11 @@ tap | cond]. mega and B7 sum that one chain, then add b; turbo and B1 sum
 h's k-steps and [tap | cond]'s apart, then add, then add b. The plain
 versions on the card sum the same way; on the CPU they keep the JAX order,
 ((h @ w_cur + tap @ w_prev) + b) + cond @ w_cond, one fp32 sum per product.
+
+The CUDA-core route (fp32, and bf16 at widths the tensor-core kernels do
+not take) sums each product as one fp32 FMA chain per output, k in order
+(common.cuh `block_mm`); on the card its plain versions sum the same way
+(`fma_product`), on the CPU in one fp32 product (`core_product`).
 """
 from __future__ import annotations
 
@@ -238,6 +243,73 @@ def tc_product(w_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def tc_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batch-major x (N, K) @ w (K, M) as tc_product sums it: (N, M)."""
     return tc_product(w.t(), x.t()).t()
+
+
+def fma_product(w_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w_t (M, K) @ x (K, N), fp32 values, summed as the CUDA-core kernels
+    sum every product (common.cuh `block_mm`): per output one fp32 FMA
+    chain from zero, k in order. Each step is one float64 addcmul stored
+    to fp32: the product of two fp32 values is exact in float64, so the
+    only rounding besides the FMA's own is float64's, before the store's.
+    That second rounding cannot change the result when the operands hold
+    bf16 values (the exact sum then fits in float64, or the smaller term
+    lies below the fp32 result's rounding threshold); with fp32 operands it
+    can, when the float64 sum falls exactly on an fp32 midpoint
+    (`fma_double_roundings` counts it)."""
+    acc = torch.zeros((w_t.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    cols = w_t.t().double()[:, :, None].unbind(0)       # K views (M, 1)
+    rows = x.double()[:, None, :].unbind(0)             # K views (1, N)
+    for wk, xk in zip(cols, rows):
+        torch.addcmul(acc, wk, xk, out=acc)
+    return acc
+
+
+def fma_double_roundings(w_t: torch.Tensor, x: torch.Tensor) -> tuple:
+    """(FMAs whose fp32 result fma_product's double rounding changed,
+    FMAs) of w_t @ x: each step's exact sum (TwoSum of the float64 sum)
+    rounded once to fp32, against the float64 sum rounded to fp32."""
+    w64, x64 = w_t.double(), x.double()
+    acc = torch.zeros((w_t.shape[0], x.shape[1]), dtype=torch.float64, device=x.device)
+    wrong = 0
+    for k in range(w_t.shape[1]):
+        p = w64[:, k: k + 1] * x64[k: k + 1]                       # exact
+        s = acc + p
+        bb = s - acc
+        err = (acc - (s - bb)) + (p - bb)                          # s + err = acc + p
+        # An fp32 midpoint (normal range): the 29 bits float64 keeps below
+        # fp32's mantissa read 1000...0. Off it, float(s) is already right.
+        mid = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+        toward = torch.where(err > 0, torch.full_like(s, torch.inf), torch.full_like(s, -torch.inf))
+        nudged = torch.where(mid & (err != 0), torch.nextafter(s, toward), s)
+        exact, fast = nudged.float(), s.float()
+        wrong += int((exact != fast).sum())
+        acc = exact.double()
+    return wrong, w_t.shape[0] * w_t.shape[1] * x.shape[1]
+
+
+def plain_product(tensor_cores: bool, cuda_core_route: bool):
+    """The (M, K) @ (K, N) product of a plain version: the tensor-core
+    model where it reproduces the tensor-core kernels; for widths on the
+    CUDA-core route that route's order (core_product); else (a plain
+    version asked for another order than its kernel's) one fp32 product."""
+    return tc_product if tensor_cores else core_product if cuda_core_route else torch.matmul
+
+
+def plain_mm(tensor_cores: bool, cuda_core_route: bool):
+    """plain_product for batch-major (N, K) @ (K, M)."""
+    return tc_mm if tensor_cores else core_mm if cuda_core_route else torch.matmul
+
+
+def core_product(w_t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w_t (M, K) @ x (K, N) in the order of the CUDA-core route: on a CUDA
+    tensor the kernels' in-order FMA chains (fma_product), on the CPU one
+    fp32 product (the order the CPU tests hold against JAX)."""
+    return fma_product(w_t, x) if x.device.type == "cuda" else w_t @ x
+
+
+def core_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batch-major x (N, K) @ w (K, M) as core_product sums it: (N, M)."""
+    return core_product(w.t(), x.t()).t() if x.device.type == "cuda" else x @ w
 
 
 # ---------------------------------------------------------------------------

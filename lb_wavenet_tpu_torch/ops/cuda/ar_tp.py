@@ -61,17 +61,20 @@ def tp_fused_stack_plain(fm: dict, arch: ArchConfig, h0, bufs, t: int,
     default on a CUDA tensor on the tensor-core route,
     ar_tc.stack_default_order) both products are summed as the kernel sums
     them (ar_tc.tc_product), cond_t's k-steps continuing the gate's chain
-    before the bias, so the two agree bit for bit; otherwise in one fp32
-    product, cond's after the bias (the JAX order)."""
+    before the bias, so the two agree bit for bit; otherwise in the
+    CUDA-core route's order (ar_tc.core_product: the kernel's in-order FMA
+    chains on the card, one fp32 product on the CPU), cond's after the bias
+    (the JAX order)."""
     dt = compute_dtype(arch)
     n_layers, c, g, s_l = _widths(fm)
     cc = 0 if cond_t is None else cond_t.shape[0]
     if tensor_cores is None:
         tensor_cores = ar_tc.stack_default_order(c, g, s_l, n_layers, dt, h0.device, cc)
+    product = ar_tc.plain_product(
+        tensor_cores, ar_tc.stack_route(c, g, s_l, n_layers, dt, cc) == "cuda_cores")
 
     def mm(w, x):   # (M, K) @ (K, B), both rounded to the compute dtype
-        w, x = rnd(w, dt), rnd(x, dt)
-        return ar_tc.tc_product(w, x) if tensor_cores else w @ x
+        return product(rnd(w, dt), rnd(x, dt))
 
     h = h0.to(torch.float32)
     skip = torch.zeros((s_l, h0.shape[1]), device=h0.device)

@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import _mm, compute_dtype, rnd
+from ...models.wavenet import compute_dtype, rnd
 from . import ar_tc, build
 from .ar_mega import _gumbel_bits, _inv_temp, _perlane_bits, gumbel_from_bits
 from .ar_step import fused_stack_plain
@@ -74,16 +74,18 @@ def turbo_generate_plain(params, lp, arch: ArchConfig, state: dict, t0: int,
     int32. Returns (classes (T, B) int32, logits (T, B, Q) or None). With
     tensor_cores (the default on a CUDA state in bf16 at widths the kernel
     takes, ar_tc.default_order) each product is summed as the bf16 kernel
-    sums it (ar_tc.tc_mm), so the two agree bit for bit; otherwise in one
-    fp32 product, as the fp32 kernel's in-order sums come out. cond (T, B,
+    sums it (ar_tc.tc_mm), so the two agree bit for bit; otherwise in the
+    CUDA-core route's order (ar_tc.core_mm: on the card the kernel's
+    in-order FMA chains, on the CPU one fp32 product). cond (T, B,
     Cc') or None: the layers' cond term (ar_step.fused_stack_plain)."""
     dt = compute_dtype(arch)
+    cc = 0 if cond is None else cond.shape[-1]
     if tensor_cores is None:
-        tensor_cores = ar_tc.default_order(arch, dt, state["h"].device,
-                                           0 if cond is None else cond.shape[-1])
+        tensor_cores = ar_tc.default_order(arch, dt, state["h"].device, cc)
+    product = ar_tc.plain_mm(tensor_cores, ar_tc.route(arch, dt, cc) == "cuda_cores")
 
     def mm(x, w):
-        return ar_tc.tc_mm(rnd(x, dt), rnd(w, dt)) if tensor_cores else _mm(x, w, dt)
+        return product(rnd(x, dt), rnd(w, dt))
 
     k_taps = arch.input_kernel
     w_in, b_in = params["input_conv"]["w"], params["input_conv"]["b"]

@@ -41,6 +41,14 @@ def mel_filterbank(n_mels: int, n_fft: int, sample_rate: int, fmin: float = 0.0,
     return fb
 
 
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Indices of numpy's "reflect" padding of a length-n signal by `pad`
+    each side, for any pad (a pad past the signal's end reflects again:
+    the signal's mirror sequence with period 2 (n - 1))."""
+    i = torch.arange(-pad, n + pad, device=device).abs() % max(2 * (n - 1), 1)
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
 def log_mel_spectrogram(wav: torch.Tensor, n_mels: int = 80, n_fft: int = 1024,
                         hop: int = 256, sample_rate: int = 16000) -> torch.Tensor:
     """Waveform (B, T) -> log-mel frames (B, ceil(T / hop), n_mels), float32,
@@ -49,7 +57,7 @@ def log_mel_spectrogram(wav: torch.Tensor, n_mels: int = 80, n_fft: int = 1024,
     if wav.ndim == 1:
         wav = wav[None]
     pad = n_fft // 2
-    x = torch.nn.functional.pad(wav[:, None], (pad, pad), mode="reflect")[:, 0]
+    x = wav[:, _reflect_index(wav.shape[1], pad, wav.device)]
     n_frames = -(-wav.shape[1] // hop)
     frames = x.unfold(1, n_fft, hop)[:, :n_frames]          # (B, n_frames, n_fft)
     window = torch.from_numpy(np.hanning(n_fft).astype(np.float32)).to(wav.device)

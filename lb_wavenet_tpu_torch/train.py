@@ -17,11 +17,17 @@ The state is a NamedTuple of tensor dicts; a step returns a new state and
 leaves the old one intact. Entry points run on the card unless the caller
 passes device="cpu" (then the kernels' plain versions run).
 
+Mel and speaker conditioning train as in the JAX package: a batch's mel
+frames go through the upsampler (`upsample_cond_train`, one float32
+product per contraction), speakers through the embedding table broadcast
+over time, and the fused stack takes both as one cond row [mel | speaker]
+against [w_cond ; w_gcond] (`forward_fused`); autograd carries d cond on
+to the upsampler's stages, w_cond, w_gcond and the speaker table.
+
 `run_training` evaluates on a held-out corpus every train.eval_every steps
 (eval.py). Not ported yet, and raising NotImplementedError (ROADMAP.md A):
 model and sequence parallelism (mesh_model > 1, mesh_data > 1,
-seq_parallel; A queue item 7b), TensorBoard (A queue item 8) and mel/speaker
-conditioning (A queue item 4b).
+seq_parallel; A queue item 7b) and TensorBoard (A queue item 8).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 from .config import ArchConfig, Config, TrainConfig
 from .data import Batch, Corpus, load_corpus, make_batches, prefetch
 from .generate import resolve_device
+from .models.conditioning import upsample_cond_train
 from .models.wavenet import (
     compute_dtype, forward, init_params, input_frontend, masked_loss_sums,
     post_network,
@@ -154,26 +161,58 @@ def init_state(rng, arch: ArchConfig, train: TrainConfig, device="cpu") -> Train
 
 def forward_fused(params: dict, arch: ArchConfig, x_classes, cond_frames=None,
                   speaker_ids=None, tapcat: bool = False, return_skip: bool = False,
-                  fused_frontend: bool = False):
+                  fused_frontend: bool = False, cond=None):
     """forward() with the dilated stack run by the training-stack kernel
     pair (ops/cuda/train_stack.py): same logits to float rounding.
-    `fused_frontend` also runs the frontend through its kernel pair."""
+    `fused_frontend` also runs the frontend through its kernel pair.
+
+    Conditioning as JAX's forward_fused builds it: frame-rate `cond_frames`
+    (B, F, n_mels), upsampled here (upsample_cond_train, output in the
+    compute dtype), or pre-upsampled `cond` (B, >= T, Cc), not both; cut to
+    T and carried in float32. `speaker_ids` (B,) add speaker_embed[id]
+    broadcast over T after the mel channels, against [w_cond ; w_gcond]
+    (w_gcond alone without mel): one cond row and one w_cond for the
+    conditioned stack kernels."""
     from .ops.cuda.train_stack import make_fused_stack
 
-    if cond_frames is not None or speaker_ids is not None:
-        raise NotImplementedError(
-            "conditioned training waits for the mel/speaker slice "
-            "(ROADMAP.md A queue item 4b)")
+    if cond is not None and cond_frames is not None:
+        raise ValueError("pass cond_frames OR pre-upsampled cond, not both")
     dt = compute_dtype(arch)
+    b, t = x_classes.shape
+    lp = dict(params["layers"])
+    if cond_frames is not None:
+        cond = upsample_cond_train(params["upsampler"], arch, cond_frames, dt)
+    if cond is not None:
+        cond = cond[:, :t].to(torch.float32)
+    if speaker_ids is not None:
+        table = params["speaker_embed"]
+        ids = torch.as_tensor(speaker_ids).to(table.device).long()
+        gts = table[ids][:, None, :].expand(b, t, table.shape[-1]).to(torch.float32)
+        if cond is not None:
+            cond = torch.cat([cond, gts], -1)
+            lp["w_cond"] = torch.cat([lp["w_cond"], lp["w_gcond"]], 1)
+        else:
+            cond, lp["w_cond"] = gts, lp["w_gcond"]
     h0 = input_frontend(params, arch, x_classes, dt, fused_frontend)
-    skip = make_fused_stack(arch, tapcat=tapcat)(params["layers"], h0)
+    stack = make_fused_stack(arch, has_cond=cond is not None, tapcat=tapcat)
+    skip = stack(lp, h0, cond) if cond is not None else stack(lp, h0)
     return skip if return_skip else post_network(params, skip, dt)
+
+
+def batch_cond(params, arch: ArchConfig, batch: dict):
+    """The batch's mel frames upsampled for the teacher-forced forward
+    (upsample_cond_train, in the compute dtype, cut to the inputs' length),
+    or None."""
+    if batch.get("mel") is None:
+        return None
+    cond = upsample_cond_train(params["upsampler"], arch, batch["mel"], compute_dtype(arch))
+    return cond[:, : batch["inputs"].shape[1]]
 
 
 def _batch_logits(params, arch: ArchConfig, batch: dict, remat: bool,
                   fused_stack: bool, tapcat: bool, return_skip: bool = False,
                   fused_frontend: bool = False):
-    kw = dict(cond_frames=batch.get("mel"), speaker_ids=batch.get("speaker"),
+    kw = dict(cond=batch_cond(params, arch, batch), speaker_ids=batch.get("speaker"),
               return_skip=return_skip, fused_frontend=fused_frontend)
     if fused_stack:
         return forward_fused(params, arch, batch["inputs"], tapcat=tapcat, **kw)
@@ -202,7 +241,10 @@ def loss_sums_fn(params, arch: ArchConfig, window_size: int, batch: dict,
 
 
 def _grad(out: torch.Tensor, params: dict) -> dict:
-    grads = iter(torch.autograd.grad(out, tree_leaves(params)))
+    """d out / d params as a tree; a leaf the loss does not reach (the
+    speaker table of a batch without speaker ids) gets zeros, as JAX's."""
+    grads = iter(torch.autograd.grad(out, tree_leaves(params), allow_unused=True,
+                                     materialize_grads=True))
     return tree_map(lambda _: next(grads), params)
 
 
@@ -271,10 +313,6 @@ def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
         raise NotImplementedError(
             "the TensorBoard stream is not ported (ROADMAP.md A queue item 8); "
             "metrics go to JSONL")
-    if arch.use_local_cond or arch.use_global_cond:
-        raise NotImplementedError(
-            "conditioned training waits for the mel/speaker slice "
-            "(ROADMAP.md A queue item 4b)")
 
 
 def _eval_record(state: TrainState, arch: ArchConfig, train: TrainConfig,
@@ -316,7 +354,8 @@ def run_training(
     state = init_state(train.seed, arch, train, dev)
     manager = ckpt_lib.make_manager(train.checkpoint_dir)
     state, start_step = ckpt_lib.restore_if_available(manager, state)
-    batches = prefetch(make_batches(corpus, train, start_step=start_step))
+    batches = prefetch(make_batches(corpus, train, start_step=start_step,
+                                    with_mel=arch.use_local_cond))
     metrics = MetricsLogger(train.metrics_path)
     total = n_steps if n_steps is not None else train.n_steps
     samples_per_step = train.batch_size * train.window_size

@@ -454,9 +454,13 @@ def test_cli_serve_mel_and_speaker_requests(pair, tmp_path, capsys):
 
 
 # ---------------------------------------------------------------------------
-# What stays raising, and the import guard.
+# The entry points conditioned training reaches, and the import guard.
 
 def test_conditioned_training_raises_naming_its_roadmap_item(pair):
+    """The four entry points that raised "A queue item 4b" before
+    conditioned training was ported now run: mel batches of the loader and
+    of evaluation, the conditioned stack, and the fused forward with
+    speakers (against the plain forward)."""
     from lb_wavenet_tpu_torch import data as PD
     from lb_wavenet_tpu_torch import eval as PE
     from lb_wavenet_tpu_torch.config import TrainConfig
@@ -465,15 +469,21 @@ def test_conditioned_training_raises_naming_its_roadmap_item(pair):
 
     _, pp, parch = pair
     corpus = PD.synthetic_corpus(parch, 16, n_files=1, file_len=200)
-    with pytest.raises(NotImplementedError, match="A queue item 4b"):
-        next(PD.make_batches(corpus, TrainConfig(batch_size=2, window_size=16), with_mel=True))
-    with pytest.raises(NotImplementedError, match="A queue item 4b"):
-        next(PE.eval_batches(corpus, 2))
-    with pytest.raises(NotImplementedError, match="A queue item 4b"):
-        TS.make_fused_stack(parch, has_cond=True)
-    with pytest.raises(NotImplementedError, match="A queue item 4b"):
-        forward_fused(pp, parch, torch.zeros((1, 8), dtype=torch.int32),
-                      speaker_ids=torch.zeros(1, dtype=torch.long))
+    n_frames = -(-(parch.receptive_field - 1 + 16) // parch.hop_size)
+    batch = next(PD.make_batches(corpus, TrainConfig(batch_size=2, window_size=16),
+                                 with_mel=True))
+    assert batch.mel.shape == (2, n_frames, parch.n_mels) and np.isfinite(batch.mel).all()
+    assert next(PE.eval_batches(corpus, 2)).mel.shape == (2, n_frames, parch.n_mels)
+    lp = {k: pp["layers"][k] for k in (*TS.LAYER_KEYS, "w_cond")}
+    h0 = torch.zeros((1, 8, parch.residual_channels))
+    cond = torch.ones((1, 8, parch.cond_channels))
+    assert TS.make_fused_stack(parch, has_cond=True)(lp, h0, cond).shape == (
+        1, 8, parch.skip_channels)
+    x = torch.zeros((1, 8), dtype=torch.int32)
+    spk = torch.zeros(1, dtype=torch.long)
+    np.testing.assert_allclose(forward_fused(pp, parch, x, speaker_ids=spk).detach().numpy(),
+                               pforward(pp, parch, x, speaker_ids=spk).detach().numpy(),
+                               rtol=0, atol=ATOL)
 
 
 def test_import_guard_covers_the_new_modules():

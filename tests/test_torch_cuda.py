@@ -165,6 +165,118 @@ def test_train_stack_kernels_match_plain(cuda, dtype, tapcat, rtol, width):
         close(lp[k].grad, gp[k])
 
 
+@pytest.mark.parametrize("dtype,width,cc", [("float32", "small", 8), ("bfloat16", "small", 16),
+                                             ("bfloat16", "c24", 16), ("bfloat16", "small", 32),
+                                             ("bfloat16", "stress", 80)])
+@pytest.mark.parametrize("tapcat", [False, True])
+def test_conditioned_train_stack_kernels_match_plain(cuda, dtype, width, cc, tapcat):
+    """The conditioned pair (cond (B, T, Cc') against w_cond) through the
+    autograd Function against the plain versions, a ragged last time tile:
+    on the tensor-core route (bf16 SMALL at Cc' = 16, 32; the stress
+    config's widths at Cc' = 80, S = 512 in two passes) bit for bit in
+    skip, dh0, d cond and every weight gradient; on the CUDA-core route
+    (fp32; bf16 at C = G = 24) within 1e-5 / 1e-2 of each leaf's largest
+    magnitude. Launch counts are each route's, no extra launch for cond."""
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    arch = dataclasses.replace(SMALL, compute_dtype=dtype, **STACK_WIDTHS[width])
+    dt = compute_dtype(arch)
+    c, s, two_g = arch.residual_channels, arch.skip_channels, 2 * arch.gate_channels
+    p = init_params(4, arch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    layers = dict(p["layers"], w_cond=torch.randn((len(arch.dilations), cc, two_g),
+                                                  device=cuda, generator=g) / cc ** 0.5)
+    h0 = torch.randn((3, 70, c), device=cuda, generator=g)
+    cond0 = torch.randn((3, 70, cc), device=cuda, generator=g)
+    gs = torch.randn((3, 70, s), device=cuda, generator=g)
+    lp = {k: v.clone().requires_grad_(True) for k, v in layers.items()}
+    h, cond = h0.clone().requires_grad_(True), cond0.clone().requires_grad_(True)
+    n = [TS.train_stack_fwd.cond_launches, TS.train_stack_bwd.cond_launches]
+    skip = TS.make_fused_stack(arch, has_cond=True, tapcat=tapcat)(lp, h, cond)
+    (skip * gs).sum().backward()
+    torch.cuda.synchronize()
+    L = len(arch.dilations)
+    tc = TS.route(c, arch.gate_channels, s, dt, cc) == "tensor_cores"
+    assert tc == (dtype == "bfloat16" and width != "c24")
+    assert TS.train_stack_fwd.cond_launches == n[0] + L + 1
+    assert TS.train_stack_bwd.cond_launches == n[1] + (2 * L + 3 if tc else 3 * L + 1)
+    sp, zp, xp = TS.stack_fwd_plain(layers, h0, arch.dilations, dt, tapcat, cond=cond0)
+    dp, gp = TS.stack_bwd_plain(layers, arch.dilations, dt, tapcat, zp, xp, gs, cond=cond0)
+    rtol = 0.0 if tc else (1e-5 if dtype == "float32" else 1e-2)
+
+    def close(a, b):
+        torch.testing.assert_close(a, b, rtol=0, atol=rtol * float(b.abs().max()))
+
+    close(skip.detach(), sp)
+    close(h.grad, dp)
+    close(cond.grad, gp.pop("cond"))
+    for k in gp:
+        close(lp[k].grad, gp[k])
+
+
+@pytest.mark.parametrize("tapcat", [False, True])
+def test_conditioned_train_stack_backward_is_bit_reproducible(cuda, tapcat):
+    """Two conditioned backward calls on the tensor cores give the same
+    bits: d cond is added from the fragments by one owner per element and
+    launch, the layers in launch order."""
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    arch = dataclasses.replace(SMALL, compute_dtype="bfloat16")
+    p = init_params(7, arch, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lp = dict(p["layers"], w_cond=torch.randn((len(arch.dilations), 16, 32), device=cuda,
+                                              generator=g) / 4)
+    h0 = torch.randn((4, 300, 16), device=cuda, generator=g)
+    cond = torch.randn((4, 300, 16), device=cuda, generator=g)
+    gs = torch.randn((4, 300, 32), device=cuda, generator=g)
+    dils, dt = arch.dilations, torch.bfloat16
+    assert TS.route(16, 16, 32, dt, 16) == "tensor_cores"
+    _, z, x = TS.train_stack_fwd(lp, h0, dils, dt, tapcat, cond=cond)
+    runs = [TS.train_stack_bwd(lp, dils, dt, tapcat, z, x, gs, cond=cond) for _ in range(2)]
+    torch.cuda.synchronize()
+    (d1, g1), (d2, g2) = runs
+    assert torch.equal(d1, d2) and set(g1) >= {"cond", "w_cond"}
+    for k in g1:
+        assert torch.equal(g1[k], g2[k]), k
+
+
+@pytest.mark.parametrize("c,g,s,cc", [(16, 16, 32, 16), (64, 64, 256, 64), (64, 64, 256, 80),
+                                      (64, 64, 512, 80)])
+def test_conditioned_train_stack_library_carves_tc_smem(cuda, c, g, s, cc):
+    """The library's shared-memory count with cond's tiles equals
+    train_stack.tc_smem(C, G, S, Cc')."""
+    from lb_wavenet_tpu_torch.ops.cuda import build
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    assert TS.lib_tc_smem(build.load("train_stack"), c, g, s, cc) == TS.tc_smem(c, g, s, cc)
+
+
+def test_training_upsampler_is_true_fp32_on_the_card(cuda):
+    """upsample_cond_train on the card against a float64 product, with the
+    TF32 switch on around it: values within 1e-5 of the largest."""
+    from lb_wavenet_tpu_torch.models.conditioning import (
+        init_upsampler_params, upsample_cond_train)
+
+    arch = ArchConfig(n_mels=80, cond_channels=64, upsample_factors=(4, 8, 8))
+    up = init_upsampler_params(0, arch, cuda)
+    frames = torch.randn((2, 12, 80), device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = upsample_cond_train(up, arch, frames, torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    h = frames.double() @ up["proj_w"].double() + up["proj_b"].double()
+    for f, st in zip(arch.upsample_factors, up["stages"]):   # the same function in float64
+        h = torch.repeat_interleave(h, f, dim=1)
+        b, t, c = h.shape
+        win = torch.nn.functional.pad(h, (0, 0, f, f)).unfold(1, 2 * f + 1, 1)
+        h = torch.nn.functional.leaky_relu(
+            win.transpose(-1, -2).reshape(b, t, -1) @ st["w"].double().reshape(-1, c)
+            + st["b"].double(), 0.4)
+    assert float((got.double() - h).abs().max()) <= 1e-5 * float(h.abs().max())
+
+
 @pytest.mark.parametrize("c,g,s", [(16, 16, 32), (24, 24, 32), (64, 64, 256), (64, 64, 512),
                                    (64, 64, 1024), (128, 64, 256), (256, 256, 256)])
 def test_train_stack_library_carves_tc_smem(cuda, c, g, s):

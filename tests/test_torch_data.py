@@ -108,8 +108,10 @@ def test_unported_inputs_raise_and_prefetch_forwards_errors(tmp_path):
     pack.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="A queue item 8"):
         PD.load_corpus(str(pack), PMICRO, 32)
+    # Mel frames are ported (tests/test_torch_train_cond.py holds them
+    # against JAX's); an arch without mel has none to give.
     pc = PD.synthetic_corpus(PMICRO, 16, n_files=1, file_len=100)
-    with pytest.raises(NotImplementedError, match="A queue item 4"):
+    with pytest.raises(ValueError, match="n_mels"):
         next(PD.make_batches(pc, PTrain(batch_size=2, window_size=16), with_mel=True))
 
     def bad():

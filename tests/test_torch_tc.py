@@ -194,3 +194,58 @@ def test_bf16_sampling_at_tensor_core_widths_matches_jax(engine, order):
             pl = pl.transpose(0, 1)
     assert pl.shape == (b, t, 256)
     np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=0, atol=2e-2)
+
+
+def _fma32(acc: float, w: float, x: float) -> float:
+    """fmaf: acc + w * x computed exactly, rounded once to the nearest fp32
+    (ties to even)."""
+    from fractions import Fraction
+
+    exact = Fraction(acc) + Fraction(w) * Fraction(x)
+    f = np.float32(float(exact))
+    lo, hi = (np.nextafter(f, np.float32(-np.inf)), f) if Fraction(float(f)) > exact \
+        else (f, np.nextafter(f, np.float32(np.inf)))
+    dlo, dhi = exact - Fraction(float(lo)), Fraction(float(hi)) - exact
+    if dlo != dhi:
+        return float(lo if dlo < dhi else hi)
+    return float(lo if int(np.float32(lo).view(np.int32)) % 2 == 0 else hi)
+
+
+def test_fma_product_is_the_in_order_fma_chain():
+    """ar_tc.fma_product (the CUDA-core route's order on the card) equals
+    an exact per-output chain of correctly rounded fp32 FMAs, k in order
+    from zero, on fp32 and on bf16-valued operands; core_product keeps
+    one fp32 product on the CPU."""
+    rng = np.random.default_rng(3)
+    w = torch.tensor(rng.standard_normal((3, 40)) * 4.0 ** rng.integers(-3, 4, (3, 40)),
+                     dtype=torch.float32)
+    x = torch.tensor(rng.standard_normal((40, 5)), dtype=torch.float32)
+    for a, b in ((w, x), (w.bfloat16().float(), x.bfloat16().float())):
+        got = ar_tc.fma_product(a, b)
+        for i in range(a.shape[0]):
+            for j in range(b.shape[1]):
+                acc = 0.0
+                for k in range(a.shape[1]):
+                    acc = _fma32(acc, float(a[i, k]), float(b[k, j]))
+                assert float(got[i, j]) == acc, (i, j)
+    assert torch.equal(ar_tc.core_product(w, x), w @ x)
+    assert torch.equal(ar_tc.core_mm(x.t(), w.t()), x.t() @ w.t())
+
+
+def test_fma_double_roundings_are_counted():
+    """fma_product's float64 step can round twice only on an fp32 midpoint:
+    a constructed tie is caught (acc = 1 + 2^-23 plus a product just under
+    half an ulp: float64 lands on the midpoint and ties to even, fmaf does
+    not), and over 1,048,576 FMAs of random fp32 and of bf16-valued
+    operands none occurs (bf16 operands cannot: the exact sum fits in
+    float64 or the smaller term lies below the fp32 rounding threshold)."""
+    w = torch.tensor([[1.0 + 2.0 ** -23, 1.0 + 2.0 ** -23]], dtype=torch.float32)
+    x = torch.tensor([[1.0], [2.0 ** -24 * (1.0 - 2.0 ** -23)]], dtype=torch.float32)
+    assert ar_tc.fma_double_roundings(w, x) == (1, 2)
+    assert float(ar_tc.fma_product(w, x)) == 1.0 + 2.0 ** -22 != _fma32(
+        1.0 + 2.0 ** -23, float(w[0, 1]), float(x[1, 0]))
+    rng = np.random.default_rng(0)
+    a = torch.tensor(rng.standard_normal((64, 1024)), dtype=torch.float32)
+    b = torch.tensor(rng.standard_normal((1024, 16)), dtype=torch.float32)
+    assert ar_tc.fma_double_roundings(a, b) == (0, 1048576)
+    assert ar_tc.fma_double_roundings(a.bfloat16().float(), b.bfloat16().float()) == (0, 1048576)

@@ -271,11 +271,15 @@ def test_unported_training_settings_raise(tmp_path, override, item):
 
 
 def test_conditioning_and_missing_card_raise(tmp_path, monkeypatch):
+    """A speaker-conditioned arch trains on the CPU now (conditioned
+    training is ported; its parity is tests/test_torch_train_cond.py's);
+    the default device without a card still raises."""
     cfg = _run_cfg(tmp_path, 2)
     corpus = synthetic_corpus(PMICRO, 64, n_files=1, file_len=500)
+    corpus.speakers = [1]
     cond = dataclasses.replace(cfg, arch=dataclasses.replace(PMICRO, n_speakers=2))
-    with pytest.raises(NotImplementedError, match="A queue item 4"):
-        PT.run_training(cond, corpus=corpus, device="cpu")
+    state = PT.run_training(cond, corpus=corpus, device="cpu")
+    assert state.step == 2 and state.params["speaker_embed"].shape == (2, 16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PT.run_training(cfg, corpus=corpus)
