@@ -122,13 +122,32 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      the speaker override (Cc'=80, 6 steps) with its split, the training
      upsampler against a float64 product with TF32 switched on around it,
      and held-out evaluation, fused and plain;
- 12. timings at the serving and training shapes (mega and turbo at B=512
+ 12. training across ranks: `mask_kernels`, the masked kernel pairs (the
+     TPU kernels' has_mask / input_mask: the sequence-parallel halo mask)
+     at one shard of the mel recipe (B=8, T_ext = 3070 halo + 4607, Cc'=64,
+     tapcat on): the frontend pair on both routes (h0 bit for bit on the
+     tensor cores, gradients within KERNEL_RTOL), the stack pair bit for
+     bit on the tensor cores in skip, z, x, dh0, d cond and every gradient,
+     its CUDA-core route (fp32, bf16 at C=24) within tolerance, masked rows
+     0, an all-ones mask bit for bit the unmasked kernels, and the masked
+     pairs' times against the unmasked ones; `parallel_training`, two gloo
+     ranks sharing the card, spawned once: config 5 (configs/
+     multihost_mel.json) data-parallel, the mel recipe sequence-parallel
+     (the masked kernels every step, no plain stack or frontend op) and the
+     stress config skip-split over 2 model ranks, each step against the
+     one-rank step within STEP_RTOL, the divergence guard, a model-sharded
+     checkpoint and resume, then `torchrun --nproc-per-node 2 -m
+     lb_wavenet_tpu_torch.cli train --set train.seq_parallel=true` and
+     `cli eval` from its checkpoint;
+ 13. timings at the serving and training shapes (mega and turbo at B=512
      and at wavenet30.json's gen batch 64), the conditioned kernels against
      the unconditioned ones (`mel_timing`) and the `kernels` JSON line,
      each row with its unit (rows B3-B5 time a whole call of several
      launches; the `*_cond` rows at the mel config's B=64, the
-     `(has_cond)` rows at its training shape), the card's name and power
-     limit, and last the {"ok": true, ...} line.
+     `(has_cond)` rows at its training shape, the `(has_mask)` and
+     `(input_mask)` rows at a sequence-parallel shard with the launches of
+     parallel_training's sequence-parallel steps), the card's name and
+     power limit, and last the {"ok": true, ...} line.
 
 Launch counts are set to 0 right before each path is driven and read right
 after; comparison launches are not counted. Each phase logs its seconds.
@@ -217,6 +236,12 @@ MEL_EVAL_BATCHES = 2  # held-out batches of the mel evaluation
 # sums over up to 73k rows, are reported).
 UPSAMPLE_RTOL, UPSAMPLE_TF32_SHARE = 1e-5, 0.1
 MEL_TP_STEPS = 128  # steps of the conditioned model-sharded run
+# Training across ranks: two gloo ranks sharing the card (NCCL refuses two
+# ranks on one device). BASELINE config 5 (data-parallel), the mel recipe
+# time-sharded over SP_N ranks, the stress config's skip split over 2.
+DP_CONFIG = os.path.join(ROOT, "configs", "multihost_mel.json")
+SP_N = 2
+PAR_STEPS = 3       # steps of each layout
 
 KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss",
                   "ar_tp")
@@ -1856,28 +1881,35 @@ def train_counters():
 
 
 @contextlib.contextmanager
-def no_plain_frontend():
+def no_plain_frontend(stack: bool = False):
     """Fail if the training step runs the frontend as plain PyTorch: the
-    unfused input_frontend or the kernel pair's plain versions."""
+    unfused input_frontend or the kernel pair's plain versions; with
+    `stack`, also the training stack's plain versions."""
     from lb_wavenet_tpu_torch import train as PT
     from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
 
     real = PT.input_frontend
 
-    def fused_only(params, arch, x, dt, fused_frontend=False):
+    def fused_only(params, arch, x, dt, fused_frontend=False, **kw):
         require(fused_frontend, "the training step ran the unfused frontend")
-        return real(params, arch, x, dt, fused_frontend)
+        return real(params, arch, x, dt, fused_frontend, **kw)
 
-    def refuse(*_):
-        raise SmokeFailure("the training step ran the frontend's plain version")
+    def refuse(*_, **__):
+        raise SmokeFailure("the training step ran a kernel pair's plain version")
 
-    saved = (F.frontend_fwd_plain, F.frontend_bwd_plain)
-    PT.input_frontend, F.frontend_fwd_plain, F.frontend_bwd_plain = fused_only, refuse, refuse
+    swaps = [(F, "frontend_fwd_plain"), (F, "frontend_bwd_plain")] + (
+        [(TS, "stack_fwd_plain"), (TS, "stack_bwd_plain")] if stack else [])
+    saved = [getattr(m, n) for m, n in swaps]
+    PT.input_frontend = fused_only
+    for m, n in swaps:
+        setattr(m, n, refuse)
     try:
         yield
     finally:
         PT.input_frontend = real
-        F.frontend_fwd_plain, F.frontend_bwd_plain = saved
+        for (m, n), f in zip(swaps, saved):
+            setattr(m, n, f)
 
 
 def phase_training(arch, gpu):
@@ -3318,7 +3350,7 @@ def sampling_timings(params, arch, b: int, plain: bool) -> dict:
     return {"mega": (mega_ms, mega_plain), "turbo": (turbo_ms, turbo_plain)}
 
 
-def phase_timing(params, arch, errs, launches, gpu, tp, mel, mel_train):
+def phase_timing(params, arch, errs, launches, gpu, tp, mel, mel_train, extra_rows=()):
     import torch
 
     from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
@@ -3435,6 +3467,7 @@ def phase_timing(params, arch, errs, launches, gpu, tp, mel, mel_train):
         kernels.append(row)
     kernels += phase_mel_timing(*mel, errs, launches, gpu)
     kernels += cond_train_rows(*mel_train, launches, gpu)
+    kernels += list(extra_rows)
     train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
                    "tapcat": True}
     log(json.dumps({"phase": "shapes", "gpu": gpu,
@@ -3487,6 +3520,754 @@ def cond_train_rows(arch, cond_stack, trained, launches, gpu):
                                    for k in cond_stack},
     }))
     return rows
+
+
+def sp_shape(arch):
+    """(halo, T_l, T_ext) of one sequence-parallel shard of the mel recipe's
+    window (T = R - 1 + W) over SP_N ranks."""
+    halo = arch.receptive_field - 1
+    t_l = -(-(halo + MEL_TRAIN_W) // SP_N)
+    return halo, t_l, halo + t_l
+
+
+def mask_case(arch, layers, t: int, cc: int, seed: int):
+    """Numpy-seeded inputs of the masked training stack at (MEL_TRAIN_B, t)
+    on the card: the halo mask (the first R - 1 rows 0, as rank 0's shard
+    holds it), h0 masked as the masked frontend gives it, a skip cotangent,
+    cond (B, t, cc) holding bf16 values, and the layer weights without
+    w_gcond."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b, halo = MEL_TRAIN_B, arch.receptive_field - 1
+    mask = torch.ones((b, t), device="cuda")
+    mask[:, :halo] = 0.0
+    h0 = torch.from_numpy(rng.standard_normal((b, t, arch.residual_channels),
+                                              dtype=np.float32)).cuda() * mask[..., None]
+    g = torch.from_numpy(rng.standard_normal((b, t, arch.skip_channels), dtype=np.float32)).cuda()
+    cond = torch.from_numpy(rng.standard_normal((b, t, cc), dtype=np.float32)).cuda()
+    lp = {k: v for k, v in layers.items() if k != "w_gcond"}
+    return mask, h0, g, cond.to(torch.bfloat16).float(), lp
+
+
+def phase_mask_kernels(params, arch, gpu):
+    """The masked kernel pairs (the TPU kernels' has_mask / input_mask, rows
+    5m, 6m, 9m, 10m) at one sequence-parallel shard of the mel recipe (B =
+    8, T_ext = R - 1 + T_l, the halo mask's first R - 1 rows 0, Cc' = 64,
+    tapcat on). The frontend pair on both routes: h0 bit for bit on the
+    tensor cores (within KERNEL_RTOL elsewhere) with its masked rows 0, the
+    gradients within KERNEL_RTOL, as the unmasked pair's; the stack pair on
+    the tensor cores bit for bit in skip, z, x, dh0, d cond and every
+    gradient, x's masked rows 0; an all-ones mask bit for bit the unmasked
+    kernels on every route; the stack's CUDA-core route (fp32; bf16 at C =
+    24), tapcat off and on, within FP32_ATOL / KERNEL_RTOL. Then the masked
+    pairs' times against the unmasked pairs at the same shape, and the
+    unconditioned unmasked stack at WaveNet-30's T = 13310. Comparison
+    launches: the counters are restored."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+    from lb_wavenet_tpu_torch.utils.convert import params_from_jax
+
+    dt, wb = compute_dtype(arch), 2
+    dils, L = arch.dilations, len(arch.dilations)
+    halo, t_l, t = sp_shape(arch)
+    b, cc = MEL_TRAIN_B, arch.cond_channels
+    counters = (F.frontend_fwd, F.frontend_bwd, TS.train_stack_fwd, TS.train_stack_bwd)
+    saved = [(f.launches, f.mask_launches) for f in counters]
+    out = {}
+
+    rng = np.random.default_rng(51)
+    x = torch.from_numpy(rng.integers(0, arch.quant_channels, (b, t)).astype(np.int32)).cuda()
+    dh = torch.from_numpy(rng.standard_normal((b, t, arch.residual_channels),
+                                              dtype=np.float32)).cuda()
+    mask = torch.ones((b, t), device="cuda")
+    mask[:, :halo] = 0.0
+    ones = torch.ones_like(mask)
+    emb, w, bias = params["embed"], params["input_conv"]["w"], params["input_conv"]["b"]
+    for fdt in (dt, torch.float32):
+        route = front_route(arch, fdt)
+        tc = route == "tensor_cores"
+        n0 = [f.mask_launches for f in counters[:2]]
+        h = F.frontend_fwd(emb, w, bias, x, fdt, mask=mask)
+        grads = F.frontend_bwd(emb, w, x, fdt, dh, mask=mask)
+        torch.cuda.synchronize()
+        launched = [f.mask_launches - n for f, n in zip(counters[:2], n0)]
+        t0 = time.perf_counter()
+        hp = F.frontend_fwd_plain(emb, w, bias, x, fdt, mask=mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gp = F.frontend_bwd_plain(emb, w, x, fdt, dh, mask=mask)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        errs = {"h0": rel_err(h, hp), **{f"d_{k}": rel_err(u, v) for k, u, v in
+                                          zip(("embed", "w", "b"), grads, gp)}}
+        ones_exact = torch.equal(F.frontend_fwd(emb, w, bias, x, fdt, mask=ones),
+                                 F.frontend_fwd(emb, w, bias, x, fdt)) and all(
+            torch.equal(u, v) for u, v in zip(F.frontend_bwd(emb, w, x, fdt, dh, mask=ones),
+                                              F.frontend_bwd(emb, w, x, fdt, dh)))
+        rows_zero = bool((h[mask == 0] == 0).all())
+        log(json.dumps({"phase": "masked_frontend_vs_plain", "gpu": gpu, "dtype": str(fdt),
+                        "route": route, "B": b, "T": t, "masked_rows": halo, "rel_err": errs,
+                        "rtol": KERNEL_RTOL, "h0_bit_exact": torch.equal(h, hp),
+                        "masked_rows_zero": rows_zero, "all_ones_equals_unmasked": ones_exact,
+                        "launches_fwd_bwd": launched}))
+        require(max(errs.values()) <= KERNEL_RTOL, f"masked frontend ({route}) differs: {errs}")
+        require(not tc or torch.equal(h, hp), "masked frontend h0 differs from plain")
+        require(rows_zero and ones_exact, f"masked frontend ({route}): rows {rows_zero}, "
+                                          f"all-ones {ones_exact}")
+        require(launched == [2, 3 if tc else 4], f"masked frontend launched {launched}")
+        if fdt == dt:
+            out["frontend_fwd_mask"] = {
+                "max_abs_err": abs_err(h, hp), "plain_ms": 1000.0 * (t1 - t0),
+                "ms": cuda_ms(lambda: F.frontend_fwd(emb, w, bias, x, fdt, mask=mask), 20),
+                "unmasked_ms": cuda_ms(lambda: F.frontend_fwd(emb, w, bias, x, fdt), 20),
+                "cost": frontend_cost(arch, b, t, False)}
+            out["frontend_bwd_mask"] = {
+                "max_abs_err": max(abs_err(u, v) for u, v in zip(grads, gp)),
+                "plain_ms": 1000.0 * (t2 - t1),
+                "ms": cuda_ms(lambda: F.frontend_bwd(emb, w, x, fdt, dh, mask=mask), 20),
+                "unmasked_ms": cuda_ms(lambda: F.frontend_bwd(emb, w, x, fdt, dh), 20),
+                "cost": frontend_cost(arch, b, t, True)}
+        del h, grads, hp, gp
+    del x, dh
+
+    require(TS.route(arch.residual_channels, arch.gate_channels, arch.skip_channels, dt,
+                     cc) == "tensor_cores", "the masked stack left the tensor-core route")
+    mask, h0, g, cond, lp = mask_case(arch, params["layers"], t, cc, 52)
+    n0 = [f.mask_launches for f in counters[2:]]
+    skip, z, xa = TS.train_stack_fwd(lp, h0, dils, dt, True, cond=cond, mask=mask)
+    dh0, gr = TS.train_stack_bwd(lp, dils, dt, True, z, xa, g, cond=cond, mask=mask)
+    torch.cuda.synchronize()
+    launched = [f.mask_launches - n for f, n in zip(counters[2:], n0)]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        sp_, zp, xp = TS.stack_fwd_plain(lp, h0, dils, dt, True, cond=cond, mask=mask)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dp, gp = TS.stack_bwd_plain(lp, dils, dt, True, zp, xp, g, cond=cond, mask=mask)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    errs = {"skip": abs_err(skip, sp_), "z_all": abs_err(z, zp), "x_all": abs_err(xa, xp),
+            "dh0": abs_err(dh0, dp), **{f"d {k}": abs_err(gr[k], gp[k]) for k in gp}}
+    rows_zero = bool((xa[:, mask == 0] == 0).all())
+    del sp_, zp, xp, dp, gp
+    a = TS.train_stack_fwd(lp, h0, dils, dt, True, cond=cond, mask=torch.ones_like(mask))
+    u = TS.train_stack_fwd(lp, h0, dils, dt, True, cond=cond)
+    ones_exact = all(torch.equal(p, q) for p, q in zip(a, u))
+    da, ga = TS.train_stack_bwd(lp, dils, dt, True, *a[1:], g, cond=cond,
+                                mask=torch.ones_like(mask))
+    du, gu = TS.train_stack_bwd(lp, dils, dt, True, *u[1:], g, cond=cond)
+    ones_exact = ones_exact and torch.equal(da, du) and all(torch.equal(ga[k], gu[k]) for k in gu)
+    del a, u, da, ga, du, gu
+    log(json.dumps({"phase": "masked_train_stack_vs_plain", "gpu": gpu, "route": "tensor_cores",
+                    "Cc": cc, "tapcat": True, "B": b, "T": t, "masked_rows": halo,
+                    "max_abs_err": errs, "bit_identical": max(errs.values()) == 0.0,
+                    "x_masked_rows_zero": rows_zero, "all_ones_equals_unmasked": ones_exact,
+                    "launches_fwd_bwd": launched,
+                    "plain_s": {"forward": t1 - t0, "backward": t2 - t1}}))
+    require(max(errs.values()) == 0.0, f"masked train stack differs: {errs}")
+    require(rows_zero and ones_exact, f"masked train stack: rows {rows_zero}, all-ones "
+                                      f"{ones_exact}")
+    require(launched == [L + 1, 2 * L + 3], f"masked train stack launched {launched}")
+    out["train_stack_fwd_mask"] = {
+        "max_abs_err": max(errs[k] for k in ("skip", "z_all", "x_all")),
+        "plain_ms": 1000.0 * (t1 - t0),
+        "ms": cuda_ms(lambda: TS.train_stack_fwd(lp, h0, dils, dt, True, cond=cond,
+                                                 mask=mask), 5),
+        "unmasked_ms": cuda_ms(lambda: TS.train_stack_fwd(lp, h0, dils, dt, True, cond=cond),
+                               5),
+        "cost": train_stack_cost(arch, b, t, wb, False, cc)}
+    out["train_stack_bwd_mask"] = {
+        "max_abs_err": max(v for k, v in errs.items() if k.startswith("d")),
+        "plain_ms": 1000.0 * (t2 - t1),
+        "ms": cuda_ms(lambda: TS.train_stack_bwd(lp, dils, dt, True, z, xa, g, cond=cond,
+                                                 mask=mask), 3),
+        "unmasked_ms": cuda_ms(lambda: TS.train_stack_bwd(lp, dils, dt, True, z, xa, g,
+                                                          cond=cond), 3),
+        "cost": train_stack_cost(arch, b, t, wb, True, cc)}
+    del skip, z, xa, dh0, gr, h0, g, cond
+    # The unconditioned, unmasked pair at WaveNet-30's training shape (the
+    # mel arch's layer widths are WaveNet-30's).
+    plain_lp = {k: v for k, v in lp.items() if k != "w_cond"}
+    t30 = arch.receptive_field - 1 + TRAIN_W
+    rng = np.random.default_rng(53)
+    h30 = torch.from_numpy(rng.standard_normal((TRAIN_B, t30, arch.residual_channels),
+                                               dtype=np.float32)).cuda()
+    g30 = torch.from_numpy(rng.standard_normal((TRAIN_B, t30, arch.skip_channels),
+                                               dtype=np.float32)).cuda()
+    _, z30, x30 = TS.train_stack_fwd(plain_lp, h30, dils, dt, True)
+    out["uncond_bwd_ms_T13310"] = cuda_ms(
+        lambda: TS.train_stack_bwd(plain_lp, dils, dt, True, z30, x30, g30), 5)
+    del z30, x30, h30, g30
+
+    for name, variant in (("fp32", dataclasses.replace(arch, compute_dtype="float32")),
+                          ("c24_bf16", dataclasses.replace(arch, residual_channels=24,
+                                                           gate_channels=24))):
+        vdt = compute_dtype(variant)
+        require(TS.route(variant.residual_channels, variant.gate_channels,
+                         variant.skip_channels, vdt, cc) == "cuda_cores",
+                f"{name} left the CUDA-core route")
+        layers = params_from_jax(numpy_params(variant, 54), device="cuda")["layers"]
+        mask, h0, g, cond, lp = mask_case(variant, layers, t, cc, 55)
+        tol = FP32_ATOL if name == "fp32" else KERNEL_RTOL
+        for tapcat in (False, True):
+            n0 = [f.mask_launches for f in counters[2:]]
+            skip, z, xa = TS.train_stack_fwd(lp, h0, dils, vdt, tapcat, cond=cond, mask=mask)
+            dh0, gr = TS.train_stack_bwd(lp, dils, vdt, tapcat, z, xa, g, cond=cond, mask=mask)
+            torch.cuda.synchronize()
+            launched = [f.mask_launches - n for f, n in zip(counters[2:], n0)]
+            with torch.no_grad():
+                sp_, zp, xp = TS.stack_fwd_plain(lp, h0, dils, vdt, tapcat, cond=cond,
+                                                 mask=mask)
+                dp, gp = TS.stack_bwd_plain(lp, dils, vdt, tapcat, zp, xp, g, cond=cond,
+                                            mask=mask)
+            errs = {"skip": rel_err(skip, sp_), "dh0": rel_err(dh0, dp),
+                    **{f"d {k}": rel_err(gr[k], gp[k]) for k in gp}}
+            rows_zero = bool((xa[:, mask == 0] == 0).all())
+            a = TS.train_stack_fwd(lp, h0, dils, vdt, tapcat, cond=cond,
+                                   mask=torch.ones_like(mask))
+            u = TS.train_stack_fwd(lp, h0, dils, vdt, tapcat, cond=cond)
+            da, _ = TS.train_stack_bwd(lp, dils, vdt, tapcat, *a[1:], g, cond=cond,
+                                       mask=torch.ones_like(mask))
+            du, _ = TS.train_stack_bwd(lp, dils, vdt, tapcat, *u[1:], g, cond=cond)
+            ones_exact = all(torch.equal(p, q) for p, q in zip(a, u)) and torch.equal(da, du)
+            log(json.dumps({"phase": "masked_train_stack_cuda_core_route", "gpu": gpu,
+                            "arch": name, "C": variant.residual_channels, "Cc": cc,
+                            "tapcat": tapcat, "B": b, "T": t, "launches_fwd_bwd": launched,
+                            "rel_err": errs, "rtol": tol, "x_masked_rows_zero": rows_zero,
+                            "all_ones_equals_unmasked": ones_exact}))
+            require(launched == [L + 1, 3 * L + 1], f"masked stack {name} launched {launched}")
+            require(max(errs.values()) <= tol and rows_zero and ones_exact,
+                    f"masked train stack {name} (tapcat={tapcat}) differs: {errs}, rows "
+                    f"{rows_zero}, all-ones {ones_exact}")
+            del skip, z, xa, dh0, gr, sp_, zp, xp, dp, gp, a, u, da, du
+        del mask, h0, g, cond, lp, layers
+    for f, (n, nm) in zip(counters, saved):
+        f.launches, f.mask_launches = n, nm
+    log(json.dumps({"phase": "mask_timing", "gpu": gpu, "B": b, "T": t, "Cc": cc,
+                    "tapcat": True, "masked_ms": {k: v["ms"] for k, v in out.items()
+                                                   if isinstance(v, dict)},
+                    "unmasked_ms_same_shape": {k: v["unmasked_ms"] for k, v in out.items()
+                                               if isinstance(v, dict)},
+                    "masked_over_unmasked": {k: v["ms"] / v["unmasked_ms"]
+                                             for k, v in out.items() if isinstance(v, dict)},
+                    "uncond_unmasked_train_stack_bwd_ms_B8_T13310":
+                        out["uncond_bwd_ms_T13310"]}))
+    return out
+
+
+def mask_rows(arch, masked, launches):
+    """The kernels line's rows of the masked variants (rows 5m, 6m, 9m,
+    10m), timed in mask_kernels at one shard's shape, with the launches of
+    parallel_training's sequence-parallel steps (both ranks); each bound is
+    its unmasked function's plus the mask's bytes read."""
+    halo, t_l, t = sp_shape(arch)
+    per_call = train_launches_per_call(arch)
+    rows = []
+    for name, key, base, rep in (
+            ("frontend_fwd (input_mask)", "frontend_fwd_mask", "frontend_fwd",
+             "lb_wavenet_tpu/ops/pallas/frontend.py:71"),
+            ("frontend_bwd (input_mask)", "frontend_bwd_mask", "frontend_bwd",
+             "lb_wavenet_tpu/ops/pallas/frontend.py:120"),
+            ("train_stack_fwd (has_mask)", "train_stack_fwd_mask", "train_stack_fwd",
+             "lb_wavenet_tpu/ops/pallas/train_stack.py:580"),
+            ("train_stack_bwd (has_mask)", "train_stack_bwd_mask", "train_stack_bwd",
+             "lb_wavenet_tpu/ops/pallas/train_stack.py:681")):
+        m = masked[key]
+        nbytes, flops = m["cost"]
+        bms, by = bound_ms(nbytes + 4 * MEL_TRAIN_B * t, flops)
+        src = "frontend" if base.startswith("frontend") else "train_stack"
+        rows.append({
+            "name": name, "route": "cuda", "source": f"lb_wavenet_tpu_torch/csrc/{src}.cu",
+            "replaces": rep, "launches": launches[key], "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "unit": f"ms per call of {per_call[base]} launches (one sequence-parallel shard: "
+                    f"B={MEL_TRAIN_B}, T_ext={t} = {halo} halo + {t_l}"
+                    + (f", Cc'={arch.cond_channels}" if src == "train_stack" else "") + ")",
+            "launches_per_call": per_call[base],
+            "kernel_route": front_route(arch) if src == "frontend" else stack_route(arch),
+            "unmasked_ms_same_shape": m["unmasked_ms"], "config": "configs/wavenet30_mel.json"})
+    return rows
+
+
+@contextlib.contextmanager
+def mask_counters_zeroed():
+    """Set every training counter (all and masked launches) to 0 around a
+    driven path and yield the masked counts' reader."""
+    from lb_wavenet_tpu_torch.ops.cuda import frontend as F
+    from lb_wavenet_tpu_torch.ops.cuda import train_stack as TS
+
+    fs = {"frontend_fwd_mask": F.frontend_fwd, "frontend_bwd_mask": F.frontend_bwd,
+          "train_stack_fwd_mask": TS.train_stack_fwd, "train_stack_bwd_mask": TS.train_stack_bwd}
+    for f in (*train_counters().values(), *fs.values()):
+        f.launches = 0
+    for f in fs.values():
+        f.mask_launches = 0
+    yield lambda: {k: f.mask_launches for k, f in fs.items()}
+
+
+def par_corpus(arch, window: int, seed: int = 0):
+    """The synthetic corpus every process of parallel_training builds
+    alike."""
+    from lb_wavenet_tpu_torch.data import synthetic_corpus
+
+    return synthetic_corpus(arch, window, n_files=8, file_len=160000, seed=seed)
+
+
+def par_layouts():
+    """{name: Config} of the three layouts parallel_training drives: config
+    5 as written (data-parallel), the mel recipe time-sharded, the stress
+    config's training section skip-split over 2 model ranks."""
+    import dataclasses
+
+    from lb_wavenet_tpu_torch.config import Config
+
+    sp = Config.load(MEL_CONFIG)
+    tp = Config.load(TP_CONFIG)
+    return {"dp": Config.load(DP_CONFIG),
+            "sp": dataclasses.replace(sp, train=dataclasses.replace(sp.train,
+                                                                    seq_parallel=True)),
+            "tp": dataclasses.replace(tp, train=dataclasses.replace(tp.train, mesh_model=2))}
+
+
+def par_batches(cfg, host_id=0, host_count=1):
+    """The first PAR_STEPS host batches of a layout's loader."""
+    from lb_wavenet_tpu_torch.data import make_batches
+
+    corpus = par_corpus(cfg.arch, cfg.train.window_size)
+    it = make_batches(corpus, cfg.train, host_id=host_id, host_count=host_count,
+                      with_mel=cfg.arch.use_local_cond)
+    return [next(it) for _ in range(PAR_STEPS)]
+
+
+def host_rows(hb, mesh):
+    """This data rank's rows data_rank::data of a global host batch."""
+    import dataclasses
+
+    return dataclasses.replace(hb, **{
+        f.name: getattr(hb, f.name)[mesh.data_rank::mesh.data]
+        for f in dataclasses.fields(hb) if getattr(hb, f.name) is not None})
+
+
+def train_rank(rank, world, store, work):
+    """One of two ranks sharing the card (spawned by parallel_training)
+    over gloo: (a) data-parallel steps of config 5 on this rank's rows, (b)
+    sequence-parallel steps of the mel recipe on this rank's time shard
+    (the masked kernels, no plain stack or frontend op), (c) skip-split
+    steps of the stress config on this rank's skip half, (d) the
+    divergence guard and a model-sharded run_training that checkpoints and
+    resumes. Results saved under `work`."""
+    import dataclasses
+    import io
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.parallel import halo as H
+    from lb_wavenet_tpu_torch.parallel.mesh import all_reduce_, all_reduce_flat_, make_mesh
+    from lb_wavenet_tpu_torch.utils import checkpoint, multihost
+    from lb_wavenet_tpu_torch.utils.convert import params_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = multihost.init_distributed(device="cuda", init_method=f"file://{store}",
+                                         rank=rank, world_size=world, local_world_size=world)
+    layouts = par_layouts()
+    out = {"backend": backend}
+
+    def timed_ms(fn, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1000.0 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def drive(mesh, step, state, batches, to_device):
+        """PAR_STEPS steps: the first one's loss and Adam mu (whole width),
+        the later steps' median ms."""
+        rec, times = {}, []
+        for i, hb in enumerate(batches):
+            batch = to_device(hb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            times.append(1000.0 * (time.perf_counter() - t0))
+            if i == 0:
+                whole = PT.gather_state(state, mesh)
+                rec["loss"] = loss
+                if rank == 0:
+                    rec["mu"] = params_to_numpy(whole.opt_state["mu"])
+                del whole
+            rec.setdefault("losses", []).append(loss)
+        rec["step_ms"] = times
+        rec["median_step_ms_after_first"] = statistics.median(times[1:])
+        return state, rec
+
+    try:
+        # (a) data-parallel: config 5 as written, this rank's rows.
+        cfg = layouts["dp"]
+        mesh = make_mesh(cfg.train.mesh_data, cfg.train.mesh_model)
+        out["device"], out["dp_mesh"] = str(mesh.device), mesh.describe()
+        state = PT.init_state(cfg.train.seed, cfg.arch, cfg.train, mesh.device)
+        # The steps take this rank's rows of the global batch, as its own
+        # loader gives them (held below): the log-mel of a batched call is
+        # not bitwise the same at another batch size, and the input conv's
+        # and the embedding's gradients, sums over 590k positions with
+        # cancellation, carry such differences far.
+        whole = par_batches(cfg)
+        batches = [host_rows(hb, mesh) for hb in whole]
+        own = par_batches(cfg, mesh.data_rank, mesh.data)
+        out["dp_loader"] = {
+            "inputs_targets_mask_equal": all(
+                np.array_equal(getattr(a, k), getattr(b, k)) for a, b in zip(own, batches)
+                for k in ("inputs", "targets", "mask")),
+            "mel_max_abs_diff": max(float(np.abs(a.mel - b.mel).max())
+                                    for a, b in zip(own, batches))}
+        del whole, own
+        with mask_counters_zeroed():
+            state, out["dp"] = drive(mesh, PT.make_dp_train_step(mesh, cfg.arch, cfg.train),
+                                     state, batches, lambda hb: PT.batch_to_device(hb, mesh.device))
+            out["dp"]["launches"] = {k: f.launches for k, f in train_counters().items()}
+        n = sum(x.numel() for x in PT.tree_leaves(state.params)) + 2
+        buf = torch.zeros(n, device=mesh.device)
+        out["dp"]["all_reduce_ms"] = timed_ms(
+            lambda: all_reduce_flat_([buf], mesh.data_group, mesh.data), 5)
+        out["dp"]["all_reduce_floats"] = n
+        out["dp"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del state, batches, buf
+
+        # (b) sequence-parallel: the mel recipe, time sharded over the data
+        # axis; the masked kernels every step, no plain stack or frontend op.
+        cfg = layouts["sp"]
+        mesh = make_mesh(-1, 1)
+        state = PT.init_state(cfg.train.seed, cfg.arch, cfg.train, mesh.device)
+        params0 = state.params
+        batches = par_batches(cfg)
+        to_dev = lambda hb: PT.seq_batch_to_device(hb, mesh, cfg.train.window_size,  # noqa: E731
+                                                   mesh.device)
+        with mask_counters_zeroed() as read, no_plain_frontend(stack=True):
+            state, out["sp"] = drive(mesh, PT.make_sp_train_step(mesh, cfg.arch, cfg.train),
+                                     state, batches, to_dev)
+            out["sp"]["mask_launches"] = read()
+            out["sp"]["launches"] = {k: f.launches for k, f in train_counters().items()}
+        b0 = to_dev(batches[0])
+        with torch.no_grad():
+            logits = H.sequence_parallel_logits(
+                params0, cfg.arch, b0["inputs"], mesh, cond_frames=b0["mel"], fused_stack=True,
+                tapcat=True, fused_frontend=True)
+        torch.save(logits.cpu(), os.path.join(work, f"sp_logits{rank}.pt"))
+        out["sp"]["shard"] = {"T": b0["inputs"].shape[1], "T_l": logits.shape[1],
+                              "halo": cfg.arch.receptive_field - 1}
+        del state, params0, batches, b0, logits
+
+        # (c) skip-split model-parallel: the stress config, model axis 2.
+        cfg = layouts["tp"]
+        mesh = make_mesh(cfg.train.mesh_data, cfg.train.mesh_model)
+        out["tp_mesh"] = mesh.describe()
+        whole = PT.init_state(cfg.train.seed, cfg.arch, cfg.train, mesh.device)
+        state = PT.shard_state(whole, mesh)
+        out["tp_w_skip_local"] = list(state.params["layers"]["w_skip"].shape)
+        batches = par_batches(cfg)
+        with mask_counters_zeroed():
+            state, out["tp"] = drive(mesh, PT.make_tp_train_step(mesh, cfg.arch, cfg.train),
+                                     state, batches, lambda hb: PT.batch_to_device(hb, mesh.device))
+            out["tp"]["launches"] = {k: f.launches for k, f in train_counters().items()}
+        hidden = torch.zeros((cfg.train.batch_size, cfg.train.window_size,
+                              cfg.arch.skip_channels), device=mesh.device)
+        out["tp"]["hidden_all_reduce_ms"] = timed_ms(lambda: all_reduce_(hidden,
+                                                                          mesh.model_group), 5)
+
+        # (d) the guard on every rank, then run_training (model-sharded)
+        # that checkpoints (rank 0 writes whole tensors) and resumes.
+        multihost.assert_replicated_params(state.params, PAR_STEPS, mesh)
+        out["guard_passed"] = True
+        out["checksum"] = multihost.params_checksum(state.params, mesh)
+        del state, whole, batches, hidden
+        ckpt = os.path.join(work, "ckpt_tp")
+        run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, checkpoint_dir=ckpt, checkpoint_every=1, log_every=1))
+        corpus = par_corpus(cfg.arch, cfg.train.window_size)
+        with contextlib.redirect_stdout(io.StringIO()):
+            PT.run_training(run_cfg, corpus=corpus, n_steps=2)
+            final = PT.run_training(run_cfg, corpus=corpus, n_steps=3)
+        out["run"] = {"step": final.step, "ckpt_steps": checkpoint.steps(ckpt),
+                      "w_skip_local": list(final.params["layers"]["w_skip"].shape)}
+        if rank == 0:
+            whole = checkpoint.restore_params(ckpt)
+            out["run"]["ckpt_shapes"] = {"layers.w_skip": list(whole["layers"]["w_skip"].shape),
+                                         "layers.b_skip": list(whole["layers"]["b_skip"].shape),
+                                         "post.w1": list(whole["post"]["w1"].shape)}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        multihost.shutdown()
+
+
+def par_reference(name, cfg):
+    """The one-rank step of a layout at its initial state on the first
+    global batch, on the card, in the accumulable form every multi-rank
+    step takes (the numerator's gradients, divided by the mask sum after
+    the backward: the data-parallel step on one rank), its loss and Adam
+    mu. Each reference computes every row as its layout does, since the
+    bf16 stack carries a one-ulp change of an input through 30 layers into
+    gradient leaves built from cancelling sums:
+      * "dp": grad_accum = 2, whose micros (rows i::2) are the ranks' rows
+        at the ranks' shape (the training upsampler, a library product,
+        gives other bits for a row at another batch size: read below);
+      * "sp": the windowed (unsharded) fused step;
+      * "tp": the unsharded step with the post network and CE in plain
+        PyTorch, as the model-parallel step runs them.
+    Also the recipe's own one-shot step (train_step, fused post-loss) as a
+    reading, and its time on the card alone (a second call); for "dp" the upsampler's rows 0::2 at B = 64 against B = 32;
+    for "sp" the unsharded forward's logits of the time-padded batch."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.parallel.halo import upsample_for_sp
+    from lb_wavenet_tpu_torch.parallel.mesh import local_mesh
+    from lb_wavenet_tpu_torch.utils.convert import params_to_numpy
+
+    train = dataclasses.replace(cfg.train, seq_parallel=False, mesh_model=1)
+    state = PT.init_state(train.seed, cfg.arch, train, "cuda")
+    hb = par_batches(cfg)[0]
+    batch = PT.batch_to_device(hb, "cuda")
+    same_rows = dict(dp=dict(grad_accum=SP_N), sp={}, tp=dict(fused_post=False))[name]
+    new, loss = PT.make_dp_train_step(local_mesh("cuda"), cfg.arch, dataclasses.replace(
+        train, **same_rows))(state, batch)
+    ref = {"loss": float(loss), "mu": params_to_numpy(new.opt_state["mu"]),
+           "as_ranks": same_rows}
+    new, loss = PT.train_step(state, batch, cfg.arch, train)
+    ref["recipe_mu"] = params_to_numpy(new.opt_state["mu"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, loss = PT.train_step(state, batch, cfg.arch, train)   # warm: timed
+    float(loss)
+    torch.cuda.synchronize()
+    ref["recipe_step_ms"] = 1000.0 * (time.perf_counter() - t0)
+    if name == "dp":
+        from lb_wavenet_tpu_torch.models.conditioning import upsample_cond_train
+        from lb_wavenet_tpu_torch.models.wavenet import compute_dtype
+
+        with torch.no_grad():
+            up = lambda m: upsample_cond_train(state.params["upsampler"], cfg.arch, m,  # noqa: E731
+                                               compute_dtype(cfg.arch))
+            ref["upsampler_rows_B64_vs_B32"] = abs_err(up(batch["mel"])[0::2],
+                                                       up(batch["mel"][0::2]))
+    if name == "sp":
+        mesh = local_mesh("cuda")
+        b = PT.seq_batch_to_device(hb, dataclasses.replace(mesh, data=SP_N), train.window_size,
+                                   "cuda")
+        with torch.no_grad():
+            cond = upsample_for_sp(state.params, cfg.arch, b["mel"], b["inputs"].shape[1])
+            ref["logits"] = PT.forward_fused(state.params, cfg.arch, b["inputs"], cond=cond,
+                                             tapcat=True, fused_frontend=True).cpu()
+    del state, new
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_parallel_training(gpu):
+    """Training across ranks on the one card: two processes over gloo
+    (NCCL refuses two ranks on one device; every collective goes through
+    host memory), spawned once (`train_rank`). (a) config 5 data-parallel,
+    (b) the mel recipe sequence-parallel, (c) the stress config skip-split,
+    each PAR_STEPS steps: the first step's loss and every Adam first moment
+    (1 - b1) g against the one-rank step at the same state and batch
+    within STEP_RTOL; the sequence-parallel steps launch the masked kernels
+    every step and no plain stack or frontend op, and its scored logits
+    rows are compared with the unsharded forward's; (d) the guard passes on
+    both ranks and a model-sharded run_training checkpoints whole tensors
+    and resumes. Then `torchrun --nproc-per-node 2 -m
+    lb_wavenet_tpu_torch.cli train --set train.seq_parallel=true` for 2
+    steps and `cli eval` from its checkpoint directory. Returns the masked
+    kernels' launches (both ranks) and the layouts' readings."""
+    import numpy as np
+    import torch
+
+    from lb_wavenet_tpu_torch.data import write_wav
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+
+    layouts = par_layouts()
+    work = os.path.join(BUILD, "chip_smoke_par")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        t0 = time.perf_counter()
+        refs = {name: par_reference(name, cfg) for name, cfg in layouts.items()}
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(train_rank, args=(2, os.path.join(work, "store"), work),
+                                    nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        sp_logits = [torch.load(os.path.join(work, f"sp_logits{r}.pt")) for r in range(2)]
+
+        readings, problems = {}, []
+        for name in ("dp", "sp", "tp"):
+            got, ref = ranks[0][name], refs[name]
+            errs = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
+            errs.update(leaf_errs_np(got["mu"], ref["mu"]))
+            worst = max(errs, key=errs.get)
+            recipe_errs = leaf_errs_np(got["mu"], ref["recipe_mu"])
+            recipe_worst = max(recipe_errs, key=recipe_errs.get)
+            readings[name] = {"loss": got["loss"], "loss_1rank": ref["loss"],
+                              "losses": got["losses"], "max_rel_err": errs[worst],
+                              "max_rel_err_leaf": worst, "rel_err": errs,
+                              "reference_as_ranks": ref["as_ranks"],
+                              "vs_recipe_one_shot_step": {
+                                  recipe_worst: recipe_errs[recipe_worst]},
+                              "ranks_agree": ranks[1][name]["losses"] == got["losses"],
+                              "step_ms_per_rank": [r[name]["step_ms"] for r in ranks],
+                              "median_step_ms_after_first_per_rank": [
+                                  r[name]["median_step_ms_after_first"] for r in ranks],
+                              "one_rank_recipe_step_ms": ref["recipe_step_ms"]}
+            if errs[worst] > STEP_RTOL:
+                problems.append(f"{name}: the two-rank step differs from the one-rank step "
+                                f"({worst}: {errs[worst]})")
+            if not readings[name]["ranks_agree"]:
+                problems.append(f"{name}: the ranks' losses differ")
+        whole_rows = refs["sp"]["logits"]
+        shards = torch.cat(sp_logits, 1)
+        logit_err = rel_err(shards, whole_rows)
+        readings["sp"]["logits_rows_bit_identical"] = torch.equal(shards, whole_rows)
+        readings["sp"]["logits_rows_rel_err"] = logit_err
+        if logit_err > KERNEL_RTOL:
+            problems.append(f"sp: the shards' logits differ by {logit_err}")
+        launches = {k: sum(r["sp"]["mask_launches"][k] for r in ranks)
+                    for k in ranks[0]["sp"]["mask_launches"]}
+        per = train_launches_per_call(layouts["sp"].arch)
+        for r in ranks:
+            for k, v in r["sp"]["mask_launches"].items():
+                if v != per[k.replace("_mask", "")] * PAR_STEPS:
+                    problems.append(f"sp: {k} launched {v} times in {PAR_STEPS} steps on a rank")
+        if not (all(r["guard_passed"] for r in ranks)
+                and ranks[0]["checksum"] == ranks[1]["checksum"]):
+            problems.append("the guard's checksums differ")
+        run = ranks[0]["run"]
+        s = layouts["tp"].arch.skip_channels
+        if not (run["step"] == 3 and run["ckpt_steps"][-1] == 3
+                and run["ckpt_shapes"]["post.w1"] == [s, s]
+                and run["ckpt_shapes"]["layers.w_skip"][-1] == s
+                and run["w_skip_local"][-1] == s // 2):
+            problems.append(f"model-sharded checkpoint / resume: {run}")
+        if not all(r["dp_loader"]["inputs_targets_mask_equal"]
+                   and r["dp_loader"]["mel_max_abs_diff"] < 1e-3 for r in ranks):
+            problems.append(f"dp: a rank's loader rows differ: {[r['dp_loader'] for r in ranks]}")
+        if not ([r["backend"] for r in ranks] == ["gloo", "gloo"]
+                and [r["device"] for r in ranks] == ["cuda:0", "cuda:0"]):
+            problems.append("the two ranks did not share cuda:0 over gloo")
+
+        # The CLI: sequence-parallel training under torchrun, then eval.
+        arch = layouts["sp"].arch
+        wavs = os.path.join(work, "wavs")
+        os.makedirs(wavs)
+        rng = np.random.default_rng(9)
+        for i in range(3):
+            t = np.arange(3 * arch.sample_rate) / arch.sample_rate
+            write_wav(os.path.join(wavs, f"w{i}.wav"),
+                      (0.4 * np.sin(2 * np.pi * (150 + 60 * i) * t)
+                       + 0.03 * rng.standard_normal(t.size)).astype(np.float32),
+                      arch.sample_rate)
+        ckpt = os.path.join(work, "ckpt_cli")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m", "lb_wavenet_tpu_torch.cli", "train",
+               "--config", MEL_CONFIG, "--set", "train.seq_parallel=true",
+               "--set", f"train.data_dir={wavs}", "--set", f"train.checkpoint_dir={ckpt}",
+               "--set", "train.n_steps=2", "--set", "train.log_every=1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT, timeout=600)
+        cli_s = time.perf_counter() - t0
+        summary, losses, metrics = None, [], None
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode:
+            problems.append(f"torchrun cli train failed:\n{proc.stderr[-4000:]}")
+        else:
+            summary = json.loads(lines[-1])
+            losses = [json.loads(ln)["loss"] for ln in lines[:-1] if '"loss"' in ln]
+        if summary != {"trained_to_step": 2, "seq_parallel": True,
+                       "mesh": {"data": 2, "model": 1, "backend": "gloo"}} or not (
+                len(losses) == 2 and all(np.isfinite(losses))):
+            problems.append(f"torchrun cli train: {summary}, losses {losses}")
+        ev = subprocess.run([sys.executable, "-m", "lb_wavenet_tpu_torch.cli", "eval",
+                             "--config", MEL_CONFIG, "--data-dir", wavs,
+                             "--set", f"gen.checkpoint_dir={ckpt}",
+                             "--set", "train.eval_batches=1"],
+                            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        if ev.returncode:
+            problems.append(f"cli eval failed:\n{ev.stderr[-4000:]}")
+        else:
+            metrics = json.loads(ev.stdout.strip().splitlines()[-1])
+            if not 0 < metrics["nll"] < 10:
+                problems.append(f"cli eval metrics: {metrics}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(json.dumps({
+        "phase": "parallel_training", "gpu": gpu, "ranks": 2,
+        "backends": [r["backend"] for r in ranks], "devices": [r["device"] for r in ranks],
+        "note": "two ranks sharing one card, every collective staged through host memory "
+                "over gloo: a correctness path, not a multi-card figure",
+        "dp": {"config": "configs/multihost_mel.json", "mesh": ranks[0]["dp_mesh"],
+               "global_B": layouts["dp"].train.batch_size,
+               "loader_per_rank": [r["dp_loader"] for r in ranks],
+               "upsampler_rows_B64_vs_B32_max_abs": refs["dp"]["upsampler_rows_B64_vs_B32"],
+               "W": layouts["dp"].train.window_size, **readings["dp"],
+               "all_reduce_ms_per_rank": [r["dp"]["all_reduce_ms"] for r in ranks],
+               "all_reduce_floats": ranks[0]["dp"]["all_reduce_floats"],
+               "launches_rank0": ranks[0]["dp"]["launches"],
+               "peak_mem_gb_per_rank": [r["dp"]["peak_mem_gb"] for r in ranks]},
+        "sp": {"config": "configs/wavenet30_mel.json + train.seq_parallel=true",
+               "shard": ranks[0]["sp"]["shard"], **readings["sp"],
+               "mask_launches_per_rank": [r["sp"]["mask_launches"] for r in ranks],
+               "launches_rank0": ranks[0]["sp"]["launches"]},
+        "tp": {"config": "configs/stress_gen.json (train, mesh_model=2)",
+               "mesh": ranks[0]["tp_mesh"], "w_skip_local": ranks[0]["tp_w_skip_local"],
+               **readings["tp"],
+               "hidden_all_reduce_ms_per_rank": [r["tp"]["hidden_all_reduce_ms"]
+                                                 for r in ranks],
+               "launches_rank0": ranks[0]["tp"]["launches"]},
+        "guard_checksums": [r["checksum"] for r in ranks], "checkpoint": ranks[0]["run"],
+        "rtol": STEP_RTOL, "one_rank_refs_s": ref_s, "spawn_s": spawn_s,
+        "torchrun_cli_train": {"s": cli_s, "summary": summary, "losses": losses},
+        "cli_eval": metrics, "problems": problems,
+    }))
+    require(not problems, "; ".join(problems))
+    return launches, readings
+
+
+def leaf_errs_np(got, want, prefix=""):
+    """{path: max |got - want| / max |want|} over two nested dicts / lists of
+    numpy arrays."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        out = {}
+        for k in sorted(want):
+            out.update(leaf_errs_np(got[k], want[k], f"{prefix}{k}."))
+        return out
+    if isinstance(want, (list, tuple)):
+        out = {}
+        for i, v in enumerate(want):
+            out.update(leaf_errs_np(got[i], v, f"{prefix}{i}."))
+        return out
+    scale = float(np.abs(want).max()) or 1.0
+    return {prefix[:-1]: float(np.abs(np.asarray(got) - want).max()) / scale}
 
 
 def timed(name, fn, *args):
@@ -3548,11 +4329,13 @@ def main() -> int:
                            spk_params, gpu)
         cond_launches, mel_trained = timed("mel_training", phase_mel_training, gpu)
         launches.update(cond_launches)
+        masked = timed("mask_kernels", phase_mask_kernels, mel_params, mel_arch, gpu)
+        mask_launches, _ = timed("parallel_training", phase_parallel_training, gpu)
         train_launches, _ = timed("training", phase_training, arch, gpu)
         launches.update(train_launches)
         timed("timing", phase_timing, params, arch, errs, launches, gpu,
               (tp_arch, tp_params, tp_measured), (mel_params, mel_arch, mel_measured),
-              (mel_arch, cond_stack, mel_trained))
+              (mel_arch, cond_stack, mel_trained), mask_rows(mel_arch, masked, mask_launches))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

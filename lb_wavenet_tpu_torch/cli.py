@@ -32,6 +32,19 @@ takes the rest of the ranks); `generate --fleet` shards the batch over every
 rank with the model replicated. Rank 0 writes the outputs and prints the
 summary, which states the mesh and its backend.
 
+Training runs across ranks the same way (train.py): data-parallel over the
+data axis, sequence-parallel with `--set train.seq_parallel=true` (the data
+axis shards time), skip-split model-parallel with `--mesh-model N`:
+
+    torchrun --standalone --nproc-per-node 2 -m lb_wavenet_tpu_torch.cli train \
+        --config configs/multihost_mel.json --set train.data_dir=/data/wavs
+    torchrun --standalone --nproc-per-node 2 -m lb_wavenet_tpu_torch.cli train \
+        --config configs/wavenet30_mel.json --set train.seq_parallel=true ...
+
+Rank (0, 0) logs the metrics, writes the checkpoints and prints the summary
+line, which states the mesh and its backend (gloo when the ranks share a
+card or run on the CPU, NCCL when each has its own).
+
 `--set section.key=value` overrides any config field (values parsed as JSON,
 falling back to string). `--device` defaults to `cuda`; pass `--device cpu`
 to run the plain PyTorch paths. `train` writes its checkpoints to
@@ -161,11 +174,39 @@ def _distributed(args) -> bool:
 
 def cmd_train(args) -> int:
     """Teacher-forced training from train.data_dir (JSONL metrics on
-    stdout, checkpoints in train.checkpoint_dir)."""
-    from .train import run_training
+    stdout, checkpoints in train.checkpoint_dir); across the ranks of
+    torchrun when there are several (--mesh-data, --mesh-model, and
+    train.seq_parallel as the config says)."""
+    import dataclasses
 
-    state = run_training(_load_config(args), device=args.device)
-    print(json.dumps({"trained_to_step": int(state.step)}), flush=True)
+    import torch.distributed as dist
+
+    from .train import run_training
+    from .utils.multihost import init_distributed, shutdown
+
+    cfg = _load_config(args)
+    overrides = {k: v for k, v in (("mesh_data", args.mesh_data),
+                                   ("mesh_model", args.mesh_model)) if v is not None}
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **overrides))
+    started = False
+    if (int(os.environ.get("WORLD_SIZE", "1")) > 1 or cfg.train.mesh_model > 1
+            or cfg.train.mesh_data > 1):
+        started = not dist.is_initialized()
+        init_distributed(device=args.device)
+    try:
+        state = run_training(cfg, device=args.device)
+        summary = {"trained_to_step": int(state.step)}
+        if dist.is_initialized():
+            if dist.get_rank() != 0:   # rank 0 is (data 0, model 0)
+                return 0
+            model = cfg.train.mesh_model
+            summary["mesh"] = {"data": dist.get_world_size() // model, "model": model,
+                               "backend": dist.get_backend()}
+            summary["seq_parallel"] = cfg.train.seq_parallel
+        print(json.dumps(summary), flush=True)
+    finally:
+        if started:
+            shutdown()
     return 0
 
 
@@ -524,6 +565,12 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     p_train = sub.add_parser("train", help="teacher-forced training")
     _add_common(p_train)
+    p_train.add_argument("--mesh-data", default=None, type=int, metavar="N",
+                         help="ranks of the data axis (train.mesh_data; -1: the world "
+                         "size over --mesh-model); run under torchrun")
+    p_train.add_argument("--mesh-model", default=None, type=int, metavar="N",
+                         help="split the skip width over an N-rank model axis "
+                         "(train.mesh_model); run under torchrun")
     p_eval = sub.add_parser("eval", help="held-out teacher-forced metrics")
     _add_common(p_eval)
     p_eval.add_argument("--data-dir", default="",

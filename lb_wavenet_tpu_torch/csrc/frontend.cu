@@ -60,9 +60,10 @@
 //     The last two are programmatic dependent launches. Slots: one per
 //     block, (K+1) Q C + C floats each (132 x 196,864 bytes = 26.0 MB
 //     written and read back at WaveNet-30; it fits in L2).
-//     The sequence-parallel input mask (not ported yet) has its place here:
-//     a masked position gets class -1 in the staged classes (it drops out of
-//     every scatter and group) and a zero dh row.
+//     The sequence-parallel input mask (below) has its place here: a
+//     masked position gets class -1 in the staged classes (it drops out of
+//     every scatter and group), and its dh row is multiplied by m in the
+//     landing tile before anything reads it.
 //   * fp32, and shapes whose tables do not fit (e.g. K = 3 at C = 64): the
 //     first-version kernels (4 launches): `front_de` (one thread per
 //     (position, c)) writes d_e and the unrounded gathered embedding e;
@@ -71,6 +72,20 @@
 //     d_e into a (Q, C) partial by class; `wgrad_kernel` (tile.cuh) forms
 //     d_w[k] = sum_s e[s - (K-1-k)]^T dh[s] and d_b over the same chunks;
 //     `reduce_partials` adds every chunk's partial in chunk order.
+//
+// The sequence-parallel halo mask (the TPU kernels' `input_mask`: m (B, T)
+// fp32, 0/1, parallel/halo.py), on every route with no launch of its own.
+// The TPU kernels multiply the embedded rows by m and then h0's rows by m
+// after the bias. Here a masked position's class reads as invalid: its
+// embedding row is 0 in the forward, and in the backward it scatters
+// nothing into d_embed or the G tables (d_w); h0 = (bias + taps) * m; the
+// backward takes dh * m (the mask's own cotangent is 0, as in JAX): in the
+// landing tile of the one-pass route, in `front_de`'s staged rows and its
+// copy `dhm` that the d_w and d_b sums of the first-version route read.
+// Each kernel is instantiated with and without the mask (MASK, chosen on
+// the host from the pointer): read at run time, the checks cost the
+// unmasked kernels 3-13% of their card time (tools/kernel_ab.py on an H100).
+// An all-ones mask gives the unmasked kernels' bits.
 #include "ar_tc.cuh"
 #include "tc_tile.cuh"
 #include "tile.cuh"
@@ -95,9 +110,17 @@ struct FrontArgs {
   float* table;        // (K, Q, C) fp32: the forward's tap table; the G totals (ftc)
   int B, T, Q, C, K, bf16, tc;
   int blocks;          // the gather's grid; the tensor-core pass's blocks (its slots)
+  const float* mask;   // (B, T) halo mask, or null: unmasked
+  float* dhm;          // (B, T, C) scratch: dh * m (first-version backward, masked)
 };
 
 __device__ __forceinline__ bool valid_class(int v, int Q) { return v >= 0 && v < Q; }
+
+// Whether flat position pos (b T + t) is masked.
+template <bool MASK>
+__device__ __forceinline__ bool masked(const FrontArgs& a, size_t pos) {
+  return MASK && __ldg(a.mask + pos) == 0.f;
+}
 
 __device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
@@ -165,8 +188,9 @@ template <> struct Vec<1> {
   __device__ __forceinline__ void store_streaming(float* p) const { __stcs(p, v[0]); }
 };
 
-// h0[b, t, c..c+V) = bias + ((tap_0 + tap_1) + ...), tap_k = P[k][x[b, t-(K-1)+k]].
-template <int V>
+// h0[b, t, c..c+V) = bias + ((tap_0 + tap_1) + ...), tap_k = P[k][x[b, t-(K-1)+k]]
+// (times m[b, t], MASK).
+template <int V, bool MASK>
 __global__ void __launch_bounds__(NT) gather_add(FrontArgs a) {
   const int C = a.C, Q = a.Q, K = a.K, T = a.T, per_row = C / V;
   const size_t items = (size_t)a.B * T * per_row;
@@ -179,7 +203,7 @@ __global__ void __launch_bounds__(NT) gather_add(FrontArgs a) {
     Vec<V> acc, tap;
     for (int k = 0; k < K; ++k) {
       const int p = t - (K - 1) + k;
-      const int cls = p >= 0 ? __ldg(xr + p) : -1;
+      const int cls = p >= 0 && !masked<MASK>(a, row - t + p) ? __ldg(xr + p) : -1;
       if (valid_class(cls, Q)) {
         tap.load(a.table + ((size_t)k * Q + cls) * C + c);
       } else {
@@ -191,20 +215,27 @@ __global__ void __launch_bounds__(NT) gather_add(FrontArgs a) {
     }
 #pragma unroll
     for (int j = 0; j < V; ++j) acc.v[j] = __ldg(a.bias + c + j) + acc.v[j];
+    if (MASK) {
+      const float m = __ldg(a.mask + row);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc.v[j] *= m;
+    }
     acc.store_streaming(a.h + row * C + c);
   }
 }
 
 // ---- backward, first version (fp32, and shapes whose tables do not fit) ----
 
-template <typename T>
+template <typename T, bool MASK>
 __global__ void __launch_bounds__(NT) front_de(FrontArgs a) {
   extern __shared__ __align__(16) float D[];  // [FT + K - 1][C] dh rows t0 .. t0+FT+K-2
   const int C = a.C, K = a.K, rows = FT + K - 1;
   const int b = blockIdx.y, t0 = blockIdx.x * FT;
   for (int i = threadIdx.x; i < rows * C; i += NT) {
     const int r = i / C, t = t0 + r;
-    D[i] = t < a.T ? a.dh[((size_t)b * a.T + t) * C + i % C] : 0.f;
+    const size_t row = (size_t)b * a.T + t;
+    const float v = t < a.T ? a.dh[row * C + i % C] : 0.f;
+    D[i] = MASK && t < a.T ? v * a.mask[row] : v;
   }
   __syncthreads();
   const T* wT = static_cast<const T*>(a.wT);
@@ -225,13 +256,15 @@ __global__ void __launch_bounds__(NT) front_de(FrontArgs a) {
     }
     const size_t at = ((size_t)b * a.T + s) * C + c;
     a.de[at] = acc;
-    const int cls = a.x[(size_t)b * a.T + s];
+    const int cls = masked<MASK>(a, (size_t)b * a.T + s) ? -1 : a.x[(size_t)b * a.T + s];
     a.e[at] = valid_class(cls, a.Q) ? a.emb[(size_t)cls * C + c] : 0.f;
+    if (MASK) a.dhm[at] = D[r * C + c];
   }
 }
 
 // Block = one chunk of SCATTER positions; thread c owns column c of the
 // chunk's (Q, C) partial and adds d_e in position order.
+template <bool MASK>
 __global__ void front_scatter(FrontArgs a) {
   extern __shared__ __align__(16) float P[];  // [Q][C]
   const int C = a.C, Q = a.Q, c = threadIdx.x;
@@ -241,7 +274,7 @@ __global__ void front_scatter(FrontArgs a) {
   const int p0 = blockIdx.x * SCATTER, p1 = min(n_pos, p0 + SCATTER);
   if (c < C) {
     for (int p = p0; p < p1; ++p) {
-      const int cls = a.x[p];
+      const int cls = masked<MASK>(a, p) ? -1 : a.x[p];
       if (valid_class(cls, Q)) P[cls * C + c] += a.de[(size_t)p * C + c];
     }
   }
@@ -359,8 +392,9 @@ __device__ __forceinline__ void groups_wait(int K) {
 // dh rows come by one bulk copy per tile (the tile's rows plus the K-1
 // after it, within the batch row) on an mbarrier; the classes by cp.async.
 // A table entry takes the block's tiles in order, each tile's positions
-// summed in order: the order is fixed, with no atomics. KS = C / 16.
-template <int KS>
+// summed in order: the order is fixed, with no atomics. KS = C / 16; MASK:
+// the halo mask (masked classes -1, dh rows times m in the landing tile).
+template <int KS, bool MASK>
 __global__ void __launch_bounds__(NTP, 1) bwd_pass(FrontArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int C = KS * 16, ld = C + PAD, HALF = NTP / 2, HW = HALF / 32, NB = 4;
@@ -440,17 +474,31 @@ __global__ void __launch_bounds__(NTP, 1) bwd_pass(FrontArgs a) {
     int* xd = xs0 + (m & 1) * cv.xrow;
     for (int i = lt; i < rows; i += HALF)
       if (!valid_class(xd[i], Q)) xd[i] = -1;
+    if (MASK) {   // each class by the thread that checked it
+      const int tile = blockIdx.x + m * gridDim.x, b = tile / per_row, t0 = tile % per_row * TP;
+      for (int i = lt; i < rows; i += HALF) {
+        const int p = t0 - (K - 1) + i;
+        if (p >= 0 && p < T && a.mask[(size_t)b * T + p] == 0.f) xd[i] = -1;
+      }
+    }
   };
   // First half. split(m): wait for tile m's rows and split them into hi =
-  // rnd(v) and lo = rnd(v - hi) (zeros past T).
+  // rnd(v) and lo = rnd(v - hi) (zeros past T); masked, v = dh * m, also
+  // written back to the landing tile for d_b and the G scatters.
   auto split = [&](int m) {
-    const int tile = blockIdx.x + m * gridDim.x, valid = min(rows, T - tile % per_row * TP);
+    const int tile = blockIdx.x + m * gridDim.x, t0 = tile % per_row * TP;
+    const int valid = min(rows, T - t0);
     tc::mbar_wait(full + (m & 1), (m >> 1) & 1);
-    const float* src = L0 + (m & 1) * cv.land;
+    float* src = L0 + (m & 1) * cv.land;
     for (int i = threadIdx.x; i < rows * (C / 4); i += HALF) {
       const int r = i / (C / 4), c4 = i % (C / 4) * 4;
-      const float4 v = r < valid ? *reinterpret_cast<const float4*>(src + r * C + c4)
-                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 v = r < valid ? *reinterpret_cast<const float4*>(src + r * C + c4)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (MASK && r < valid) {
+        const float mk = a.mask[(size_t)(tile / per_row) * T + t0 + r];
+        v = make_float4(v.x * mk, v.y * mk, v.z * mk, v.w * mk);
+        *reinterpret_cast<float4*>(src + r * C + c4) = v;
+      }
       const __nv_bfloat162 h0 = __floats2bfloat162_rn(v.x, v.y), h1 = __floats2bfloat162_rn(v.z, v.w);
       const float2 f0 = __bfloat1622float2(h0), f1 = __bfloat1622float2(h1);
       const __nv_bfloat162 l0 = __floats2bfloat162_rn(v.x - f0.x, v.y - f0.y);
@@ -458,6 +506,8 @@ __global__ void __launch_bounds__(NTP, 1) bwd_pass(FrontArgs a) {
       *reinterpret_cast<uint2*>(hi + r * ld + c4) = make_uint2(bf2_bits(h0), bf2_bits(h1));
       *reinterpret_cast<uint2*>(lo + r * ld + c4) = make_uint2(bf2_bits(l0), bf2_bits(l1));
     }
+    // The landing tile's next bulk copy (async proxy) follows these writes.
+    if (MASK) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   };
   if (mine > 0) {
     if (aux) {
@@ -663,35 +713,36 @@ static cudaError_t forward(const FrontArgs& a, cudaStream_t s, int* launches) {
     table_fma<T><<<blocks((size_t)K * Q * C), NT, 0, s>>>(a);
   }
   WN_TRY(cudaGetLastError());
-  auto* gather = C % 4 == 0 ? gather_add<4> : gather_add<1>;
+  auto* gather = C % 4 == 0 ? (a.mask ? gather_add<4, true> : gather_add<4, false>)
+                            : (a.mask ? gather_add<1, true> : gather_add<1, false>);
   WN_TRY(cudaFuncSetAttribute(gather, cudaFuncAttributePreferredSharedMemoryCarveout, 0));
   WN_TRY(launch_dependent(gather, dim3(a.blocks), NT, 0, s, a));
   *launches += 2;
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, bool MASK>
 static cudaError_t backward(const FrontArgs& a, cudaStream_t s, int* launches) {
   const int C = a.C, Q = a.Q, K = a.K;
   const size_t rows_bytes = sizeof(float) * (FT + K - 1) * C;
-  WN_TRY(cudaFuncSetAttribute(front_de<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  WN_TRY(cudaFuncSetAttribute(front_de<T, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)rows_bytes));
-  front_de<T><<<dim3((a.T + FT - 1) / FT, a.B), NT, rows_bytes, s>>>(a);
+  front_de<T, MASK><<<dim3((a.T + FT - 1) / FT, a.B), NT, rows_bytes, s>>>(a);
   WN_TRY(cudaGetLastError());
 
   const int n_pos = a.B * a.T;
   const int chunks = (n_pos + SCATTER - 1) / SCATTER;
   const size_t part_bytes = sizeof(float) * Q * C;
-  WN_TRY(cudaFuncSetAttribute(front_scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  WN_TRY(cudaFuncSetAttribute(front_scatter<MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)part_bytes));
-  front_scatter<<<chunks, (C + 31) / 32 * 32, part_bytes, s>>>(a);
+  front_scatter<MASK><<<chunks, (C + 31) / 32 * 32, part_bytes, s>>>(a);
   WN_TRY(cudaGetLastError());
 
   // d_w[k] = sum_s e[s - (K-1-k)]^T dh[s] and d_b = sum_s dh[s], unrounded,
   // over the scatter's chunks, into the same partial rows after d_embed.
   const int nw = Q * C + K * C * C + C;
   WGrad w;
-  const WOp dho = wop(a.dh, 0, C, a.T);
+  const WOp dho = wop(MASK ? a.dhm : a.dh, 0, C, a.T);
   for (int k = 0; k < K; ++k)
     w.job[k] = outer(wop(a.e, 0, C, a.T, 0, K - 1 - k), dho, C, C, Q * C + k * C * C);
   w.job[K] = colsum(dho, C, Q * C + K * C * C);
@@ -714,8 +765,10 @@ static cudaError_t backward_tc(const FrontArgs& a, cudaStream_t s, int* launches
   if (a.C % 16 || a.C > 64 || a.K * (a.C / 16) > ftc::MAX_PAIRS || a.K + 1 > ftc::NWP / 2)
     return cudaErrorInvalidValue;
   const size_t smem = ftc::Carve(a.Q, a.C, a.K).bytes();
-  auto* pass = a.C == 16 ? ftc::bwd_pass<1> : a.C == 32 ? ftc::bwd_pass<2>
-             : a.C == 48 ? ftc::bwd_pass<3> : ftc::bwd_pass<4>;
+  auto* pass = a.mask ? (a.C == 16 ? ftc::bwd_pass<1, true> : a.C == 32 ? ftc::bwd_pass<2, true>
+                         : a.C == 48 ? ftc::bwd_pass<3, true> : ftc::bwd_pass<4, true>)
+                      : (a.C == 16 ? ftc::bwd_pass<1, false> : a.C == 32 ? ftc::bwd_pass<2, false>
+                         : a.C == 48 ? ftc::bwd_pass<3, false> : ftc::bwd_pass<4, false>);
   WN_TRY(cudaFuncSetAttribute(pass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   pass<<<a.blocks, ftc::NTP, smem, s>>>(a);
   WN_TRY(cudaGetLastError());
@@ -748,7 +801,11 @@ extern "C" int wn_front_fwd(const wn::FrontArgs* a, void* stream, int* launches)
 
 extern "C" int wn_front_bwd(const wn::FrontArgs* a, void* stream, int* launches) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->mask && !a->tc && !a->dhm) return (int)cudaErrorInvalidValue;
   if (a->tc) return (int)wn::backward_tc(*a, s, launches);
-  return (int)(a->bf16 ? wn::backward<__nv_bfloat16>(*a, s, launches)
-                       : wn::backward<float>(*a, s, launches));
+  if (a->mask)
+    return (int)(a->bf16 ? wn::backward<__nv_bfloat16, true>(*a, s, launches)
+                         : wn::backward<float, true>(*a, s, launches));
+  return (int)(a->bf16 ? wn::backward<__nv_bfloat16, false>(*a, s, launches)
+                       : wn::backward<float, false>(*a, s, launches));
 }

@@ -90,6 +90,19 @@
 // The extra work at Cc' = 64 and the mel recipe (B = 8, T = 9213): ~36
 // GFLOP forward, ~72 backward (d w_cond and d cond; ~36 more to recompute
 // pre), and d cond's fp32 read and write per layer.
+//
+// The sequence-parallel halo mask (the TPU kernels' `has_mask`: m (B, T)
+// fp32, 0/1, parallel/halo.py), on both routes, as a nullable pointer (no
+// launch and no instantiation of its own): the forward writes x_{l+1} =
+// ((x + z w_res) + b_res) * m, so masked rows of the residual stream stay
+// exactly 0 and x_all holds masked layer inputs (h0 arrives masked from the
+// masked frontend, the TPU kernels' contract). The backward masks dx_{l+1}
+// where the layer pass above WRITES it (bwd_dx, bwd_dx_tc for l > 0): every
+// reader of dx_{l+1} (dz, d w_res, d b_res, dx_l) then takes dx_{l+1} * m,
+// the TPU kernel's "dx_next * mask" on read, while dh0 leaves unmasked as
+// there. The TPU kernel's re-mask of the reconstructed x_cur is the identity
+// on x_all's masked rows. Multiplying by 1.0 is exact, so an all-ones mask
+// gives the unmasked kernels' bits.
 #include "tc_tile.cuh"
 #include "tile.cuh"
 
@@ -118,7 +131,8 @@ __global__ void __launch_bounds__(NT)
 fwd_layer(const float* __restrict__ x, float* __restrict__ x_next, T* __restrict__ z,
           const T* __restrict__ wc, const T* __restrict__ wp, const float* __restrict__ bias,
           const T* __restrict__ wr, const float* __restrict__ br, int n_t, int C, int G, int d,
-          const float* __restrict__ cond, const T* __restrict__ wcd, int Cc) {
+          const float* __restrict__ cond, const T* __restrict__ wcd, int Cc,
+          const float* __restrict__ mask) {
   extern __shared__ __align__(16) float sm[];
   float* xs = sm;               // [C][TT] x(t)
   float* xr = xs + C * TT;      // [C][TT] rounded x(t)
@@ -150,7 +164,10 @@ fwd_layer(const float* __restrict__ x, float* __restrict__ x_next, T* __restrict
   __syncthreads();
   if (x_next == nullptr) return;  // the last layer's output feeds nothing
   tile_mm2<TT, false>(zr, wr, G, zr, (const T*)nullptr, 0, C, [&](int t, int c, float s, float) {
-    if (t0 + t < n_t) x_next[((size_t)b * n_t + t0 + t) * C + c] = (xs[c * TT + t] + s) + br[c];
+    if (t0 + t >= n_t) return;
+    const size_t row = (size_t)b * n_t + t0 + t;
+    const float v = (xs[c * TT + t] + s) + br[c];
+    x_next[row * C + c] = mask ? v * mask[row] : v;
   });
 }
 
@@ -253,12 +270,14 @@ bwd_dpre(const float* __restrict__ x, const float* __restrict__ g_skip,
 }
 
 // Conditioned (dcond non-null) it also adds the layer's rnd(dpre) w_cond^T to
-// d cond (B, T, Cc), summed over the layers in launch order.
+// d cond (B, T, Cc), summed over the layers in launch order. Masked (mask
+// non-null: every layer but the first) dx_l is written times m.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 bwd_dx(const float* __restrict__ dpre, const float* __restrict__ dx_next,
        float* __restrict__ dx, const T* __restrict__ wcT, const T* __restrict__ wpT, int n_t,
-       int C, int G, int d, float* __restrict__ dcond, const T* __restrict__ wcdT, int Cc) {
+       int C, int G, int d, float* __restrict__ dcond, const T* __restrict__ wcdT, int Cc,
+       const float* __restrict__ mask) {
   extern __shared__ __align__(16) float sm[];
   float* dc = sm;               // [2G][TT] rounded dpre(t)
   float* dl = dc + 2 * G * TT;  // [2G][TT] rounded dpre(t + d)
@@ -268,8 +287,9 @@ bwd_dx(const float* __restrict__ dpre, const float* __restrict__ dx_next,
   __syncthreads();
   tile_mm2<TT, false>(dc, wcT, 2 * G, dl, wpT, 2 * G, C, [&](int t, int c, float s1, float s2) {
     if (t0 + t >= n_t) return;
-    const size_t at = ((size_t)b * n_t + t0 + t) * C + c;
-    dx[at] = (dx_next[at] + s1) + s2;
+    const size_t row = (size_t)b * n_t + t0 + t, at = row * C + c;
+    const float v = (dx_next[at] + s1) + s2;
+    dx[at] = mask ? v * mask[row] : v;
   });
   if (dcond == nullptr) return;
   tile_mm2<TT, false>(dc, wcdT, 2 * G, dc, (const T*)nullptr, 0, Cc,
@@ -442,6 +462,7 @@ struct FwdTc {
   const bf16* cond;  // (B, T, Cc) rounded, or null: unconditioned
   const bf16* wcd;   // (Cc, 2G) this layer's w_cond
   int Cc;
+  const float* mask; // (B, T) halo mask, or null: unmasked
 };
 
 inline size_t fwd_tc_smem(int C, int G, int Cc) {
@@ -450,7 +471,7 @@ inline size_t fwd_tc_smem(int C, int G, int Cc) {
 }
 
 // One layer: z = tanh(pre_t) sigmoid(pre_s) stored in bf16, x_{l+1} = (x +
-// z w_res) + b_res.
+// z w_res) + b_res (times m[b, t], masked).
 template <bool TAPCAT>
 __global__ void __launch_bounds__(NTC) fwd_layer_tc(FwdTc a) {
   extern __shared__ __align__(16) unsigned char smraw[];
@@ -513,9 +534,14 @@ __global__ void __launch_bounds__(NTC) fwd_layer_tc(FwdTc a) {
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + g + h * 8, n = cc * 16 + j * 8 + cq;
           if (t0 + r >= T) continue;
-          *reinterpret_cast<float2*>(a.x_next + ((size_t)b * T + t0 + r) * C + n) =
-              make_float2((xv[j][h].x + acc[j][2 * h]) + a.br[n],
-                          (xv[j][h].y + acc[j][2 * h + 1]) + a.br[n + 1]);
+          const size_t row = (size_t)b * T + t0 + r;
+          float2 v = make_float2((xv[j][h].x + acc[j][2 * h]) + a.br[n],
+                                 (xv[j][h].y + acc[j][2 * h + 1]) + a.br[n + 1]);
+          if (a.mask) {
+            const float m = a.mask[row];
+            v = make_float2(v.x * m, v.y * m);
+          }
+          *reinterpret_cast<float2*>(a.x_next + row * C + n) = v;
         }
     }
   }
@@ -922,12 +948,13 @@ inline size_t dx_tc_smem(int C, int G) {
   return 2 * ((size_t)2 * C * (2 * G + PAD) + (size_t)2 * TP * (2 * G + PAD));
 }
 
-// dx_l = (dx_{l+1} + rnd(dpre)(t) w_cur^T) + rnd(dpre)(t + d) w_prev^T.
+// dx_l = (dx_{l+1} + rnd(dpre)(t) w_cur^T) + rnd(dpre)(t + d) w_prev^T, times
+// m[b, t] where mask is non-null (every layer but the first, masked).
 __global__ void __launch_bounds__(NTC) bwd_dx_tc(const bf16* __restrict__ dpre,
                                                  const float* __restrict__ dxn,
                                                  float* __restrict__ dx, const bf16* wc,
                                                  const bf16* wp, int B, int T, int C, int G,
-                                                 int d) {
+                                                 int d, const float* __restrict__ mask) {
   extern __shared__ __align__(16) unsigned char smraw[];
   const int ldp = 2 * G + PAD;
   bf16* wcs = reinterpret_cast<bf16*>(smraw);  // [C][2G] w_cur
@@ -974,9 +1001,14 @@ __global__ void __launch_bounds__(NTC) bwd_dx_tc(const bf16* __restrict__ dpre,
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + g + h * 8, n = n0 + j * 8 + cq;
           if (t0 + r >= T) continue;
-          *reinterpret_cast<float2*>(dx + ((size_t)b * T + t0 + r) * C + n) =
-              make_float2((v[j][h].x + s1[j][2 * h]) + s2[j][2 * h],
-                          (v[j][h].y + s1[j][2 * h + 1]) + s2[j][2 * h + 1]);
+          const size_t row = (size_t)b * T + t0 + r;
+          float2 o = make_float2((v[j][h].x + s1[j][2 * h]) + s2[j][2 * h],
+                                 (v[j][h].y + s1[j][2 * h + 1]) + s2[j][2 * h + 1]);
+          if (mask) {
+            const float m = mask[row];
+            o = make_float2(o.x * m, o.y * m);
+          }
+          *reinterpret_cast<float2*>(dx + row * C + n) = o;
         }
     }
   }
@@ -1049,6 +1081,7 @@ struct FwdArgs {
   const void* cond;    // (B, T, Cc): bf16 (tc) or fp32, or null: unconditioned
   const void* w_cond;  // (L, Cc, 2G) compute dtype
   int Cc;
+  const float* mask;   // (B, T) halo mask, or null: unmasked
 };
 
 struct BwdArgs {
@@ -1073,6 +1106,7 @@ struct BwdArgs {
   const void* wcdT;    // (L, 2G, Cc)
   float* dcond;        // (B, T, Cc) out: d cond
   int Cc;
+  const float* mask;   // (B, T) halo mask, or null: unmasked
 };
 
 template <typename K>
@@ -1104,7 +1138,7 @@ static cudaError_t forward(const FwdArgs& a, cudaStream_t s, int* launches) {
         a.x_all + l * btc, next, z + l * btg, wc + (size_t)l * a.C * 2 * a.G,
         wp + (size_t)l * a.C * 2 * a.G, a.b + l * 2 * a.G, wr + (size_t)l * a.G * a.C,
         a.b_res + l * a.C, a.T, a.C, a.G, a.dils[l], static_cast<const float*>(a.cond),
-        wcd ? wcd + (size_t)l * a.Cc * 2 * a.G : nullptr, a.Cc);
+        wcd ? wcd + (size_t)l * a.Cc * 2 * a.G : nullptr, a.Cc, a.mask);
     WN_TRY(cudaGetLastError());
     ++*launches;
   }
@@ -1149,7 +1183,8 @@ static cudaError_t backward(const BwdArgs& a, cudaStream_t s, int* launches) {
     bwd_dx<T><<<grid, NT, xsm, s>>>(a.dpre, dxn, dxo, static_cast<const T*>(a.wcT) + wo,
                                     static_cast<const T*>(a.wpT) + wo, a.T, C, G, d,
                                     Cc ? a.dcond : nullptr,
-                                    Cc ? wcdT + (size_t)l * 2 * G * Cc : nullptr, Cc);
+                                    Cc ? wcdT + (size_t)l * 2 * G * Cc : nullptr, Cc,
+                                    l > 0 ? a.mask : nullptr);
     WN_TRY(cudaGetLastError());
     // Gradient pack of a layer: dwc | dwp (C x 2G each) | dwcd (Cc x 2G,
     // conditioned) | db | dwr (G x C) | dbr | dws (G x S) | dbs.
@@ -1206,6 +1241,7 @@ struct BwdTcArgs {
   const void* w_cond;  // (L, Cc, 2G) bf16
   float* dcond;        // (B, T, Cc) out: d cond
   int Cc;
+  const float* mask;   // (B, T) halo mask, or null: unmasked
 };
 
 // Blocks of a persistent launch over `tiles`: as many as fit on the card at
@@ -1264,7 +1300,7 @@ static cudaError_t forward_tc(const FwdArgs& a, cudaStream_t s, int* launches) {
                        z + l * btg, wc + wo, wp + wo, wr + (size_t)l * a.G * a.C,
                        a.b + l * 2 * a.G, a.b_res + l * a.C, a.B, a.T, a.C, a.G, a.dils[l],
                        static_cast<const bf16*>(a.cond),
-                       Cc ? wcd + (size_t)l * Cc * 2 * a.G : nullptr, Cc};
+                       Cc ? wcd + (size_t)l * Cc * 2 * a.G : nullptr, Cc, a.mask};
     WN_TRY(launch_tc(tsc::fwd_layer_tc<TAPCAT>, lg, tsc::NTC, lsm, s, l > 0, p));
     ++*launches;
   }
@@ -1322,7 +1358,7 @@ static cudaError_t backward_tc(const BwdTcArgs& a, cudaStream_t s, int* launches
     // The first layer pass follows memsets: launched plainly.
     WN_TRY(launch_tc(layer, a.chunks, tsc::NTB, bsm, s, k > 0, p));
     WN_TRY(launch_tc(tsc::bwd_dx_tc, xg, tsc::NTC, xsm, s, true, (const bf16*)dpre, dxn, dxo,
-                     wc + wo, wp + wo, a.B, a.T, C, G, d));
+                     wc + wo, wp + wo, a.B, a.T, C, G, d, l > 0 ? a.mask : nullptr));
     *launches += 2;
   }
   const size_t n = (size_t)a.L * nw;

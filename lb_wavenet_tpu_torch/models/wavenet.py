@@ -23,8 +23,13 @@ gather's own backward (an index add), the same gradient as the JAX
 package's `mm_embed_grad` (a matmul formulation written for the TPU), so
 that training option is accepted and changes nothing here.
 
-Not ported yet (ROADMAP.md A): the sequence-parallel input mask (A queue
-item 7b).
+The sequence-parallel input mask (`input_mask` (B, T), 0/1,
+parallel/halo.py) makes masked positions contribute exactly as the zero
+padding before the sequence: the frontend zeroes the masked embedding rows
+and then its masked output rows (after the bias, which would otherwise
+leak), and `forward` re-masks the residual stream after every layer. The
+mask is structural and gets no gradient (JAX's stop_gradient): it is
+detached here.
 """
 from __future__ import annotations
 
@@ -164,21 +169,28 @@ def gated_layer(x, x_prev, layer_params: Params, i: int, dt, cond=None, gcond=No
 
 
 def input_frontend(params: Params, arch: ArchConfig, x_classes, dt,
-                   fused_frontend: bool = False):
+                   fused_frontend: bool = False, input_mask=None):
     """Embed classes and apply the width-K causal input conv:
     (B, T) -> (B, T, C). `fused_frontend` runs it (and its gradient) through
-    the frontend kernel pair (ops/cuda/frontend.py)."""
+    the frontend kernel pair (ops/cuda/frontend.py). `input_mask` (B, T)
+    zeroes the masked embedding rows, then the masked output rows."""
+    if input_mask is not None:
+        input_mask = input_mask.detach().to(torch.float32)
     if fused_frontend:
         from ..ops.cuda.frontend import fused_frontend as _ff
 
         return _ff(params["embed"], params["input_conv"], x_classes,
-                   compute_dtype=arch.compute_dtype)
+                   input_mask=input_mask, compute_dtype=arch.compute_dtype)
     e = params["embed"][x_classes.long()]
+    if input_mask is not None:
+        e = e * input_mask[..., None]
     w = params["input_conv"]["w"]  # (K, C, C), tap k applies to t-(K-1-k)
     k_taps = w.shape[0]
     h = params["input_conv"]["b"].to(torch.float32)
     for k in range(k_taps):
         h = h + _mm(shift_right(e, k_taps - 1 - k), w[k], dt)
+    if input_mask is not None:
+        h = h * input_mask[..., None]
     return h
 
 
@@ -216,6 +228,7 @@ def forward(
     remat: bool = False,
     fused_frontend: bool = False,
     cond: Optional[torch.Tensor] = None,
+    input_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Teacher-forced forward: classes (B, T) -> logits (B, T, Q), or the
     skip sum (B, T, S) with return_skip.
@@ -229,7 +242,9 @@ def forward(
 
     Conditioning comes as frame-rate `cond_frames` (B, F, n_mels),
     upsampled here, or as pre-upsampled sample-rate `cond` (B, T, Cc), not
-    both; `speaker_ids` (B,) index the speaker table.
+    both; `speaker_ids` (B,) index the speaker table. `input_mask` (B, T) is
+    the sequence-parallel halo mask: the masked frontend, and the residual
+    stream re-masked after every layer (masked rows stay exactly 0).
     """
     if cond is not None and cond_frames is not None:
         raise ValueError("pass cond_frames OR pre-upsampled cond, not both")
@@ -244,10 +259,15 @@ def forward(
     if speaker_ids is not None:
         table = params["speaker_embed"]
         gcond = table[torch.as_tensor(speaker_ids).to(table.device).long()][:, None, :]
-    h = input_frontend(params, arch, x_classes, dt, fused_frontend)
+    if input_mask is not None:
+        input_mask = input_mask.detach().to(torch.float32)
+    h = input_frontend(params, arch, x_classes, dt, fused_frontend, input_mask=input_mask)
 
     def one_layer(h, i, d):
-        return gated_unit(h, shift_right(h, d), lp, i, dt, cond=cond, gcond=gcond)
+        h_new, z = gated_unit(h, shift_right(h, d), lp, i, dt, cond=cond, gcond=gcond)
+        if input_mask is not None:
+            h_new = h_new * input_mask[..., None]
+        return h_new, z
 
     zs = []
     for i, d in enumerate(arch.dilations):

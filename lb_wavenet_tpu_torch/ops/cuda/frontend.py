@@ -22,7 +22,14 @@ float32 dot does not round its operands):
     an fp32 sum (unrounded like the TPU kernel's VMEM tile sum).
   * d_e pieces: dh (fp32, unrounded) @ dt(w[k])^T, each piece rounded to dt
     before the fp32 tap-sum; d_embed = the scatter-add of d_e by class.
-The sequence-parallel input mask is not ported yet.
+
+The sequence-parallel halo mask (the TPU kernels' `input_mask`, m (B, T)
+0/1 fp32, parallel/halo.py): JAX multiplies the embedded rows by m and h0's
+rows by m after the bias, and the mask gets no gradient. Here a masked
+position's class counts as invalid (a zero embedding row: e * m for a 0/1
+mask), h0 = (b + taps) * m, and the backward takes dh * m, so masked
+positions scatter nothing into d_embed and add nothing to d_w. Same
+launches, kernel and plain version alike (`masked_classes`).
 
 Two routes of the backward, chosen before the launch from (dtype, Q, C, K)
 (`route`): bf16 with C a multiple of 16 up to 64 whose tables fit in a
@@ -112,21 +119,31 @@ def _embed_rows(embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[..., None], e, 0.0)
 
 
-def frontend_fwd_plain(embed, w, b, x, dt, tensor_cores: Optional[bool] = None):
+def masked_classes(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """x with the classes of masked positions (mask 0) replaced by -1, an
+    invalid class, whose embedding row is zero."""
+    return x if mask is None else torch.where(mask != 0, x, torch.full_like(x, -1))
+
+
+def frontend_fwd_plain(embed, w, b, x, dt, tensor_cores: Optional[bool] = None, mask=None):
     """PyTorch version of the forward kernels: h0 (B, T, C) fp32. The tap
     table P[k] = rnd(embed) @ rnd(w[k]) (with tensor_cores, default
     `default_order`, summed as tc_mm sums it), then h0 = b + ((P[0][x_0] +
-    P[1][x_1]) + ...) with zero taps before t = 0 and for invalid classes."""
+    P[1][x_1]) + ...) with zero taps before t = 0 and for invalid classes;
+    with the halo `mask` (B, T), masked positions' classes are invalid and
+    h0's rows are multiplied by it."""
     if tensor_cores is None:
         tensor_cores = default_order(embed.device, *_widths(embed, w), dt)
     mm = tc_mm if tensor_cores else torch.matmul
     k_taps = w.shape[0]
+    x = masked_classes(x, mask)
     er = rnd(embed.to(torch.float32), dt)
     acc = None
     for k in range(k_taps):
         part = shift_right(_embed_rows(mm(er, rnd(w[k], dt)), x), k_taps - 1 - k)
         acc = part if acc is None else acc + part
-    return b.to(torch.float32) + acc
+    h = b.to(torch.float32) + acc
+    return h if mask is None else h * mask[..., None]
 
 
 def _split_bf16(v: torch.Tensor):
@@ -135,17 +152,21 @@ def _split_bf16(v: torch.Tensor):
     return hi, rnd(v - hi, torch.bfloat16)
 
 
-def frontend_bwd_plain(embed, w, x, dt, dh, tensor_cores: Optional[bool] = None):
+def frontend_bwd_plain(embed, w, x, dt, dh, tensor_cores: Optional[bool] = None, mask=None):
     """PyTorch version of the backward kernels: (d_embed (Q, C), d_w
     (K, C, C), d_b (C,)). d_w[k] = embed^T G[k], G[k] the scatter of
     dh[s + K-1-k] by x[s]; each d_e piece rnd(dh @ rnd(w[k])^T), with
     tensor_cores (default `default_order`) as the kernel computes it:
-    rnd(tc_mm(hi, .) + tc_mm(lo, .)) of dh split into bf16 hi + lo."""
+    rnd(tc_mm(hi, .) + tc_mm(lo, .)) of dh split into bf16 hi + lo. With
+    the halo `mask`, dh * mask and the masked classes."""
     k_taps = w.shape[0]
     q, c = embed.shape
     if tensor_cores is None:
         tensor_cores = default_order(dh.device, q, c, k_taps, dt)
     dh = dh.to(torch.float32)
+    if mask is not None:
+        dh = dh * mask[..., None]
+    x = masked_classes(x, mask)
     split = _split_bf16(dh) if tensor_cores else None
     ok = ((x >= 0) & (x < q)).reshape(-1)
     idx = x.reshape(-1)[ok].long()
@@ -169,7 +190,8 @@ def frontend_bwd_plain(embed, w, x, dt, dh, tensor_cores: Optional[bool] = None)
 class _FrontArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x", "emb", "w", "wT", "bias", "h", "dh", "de", "e", "partial", "grads", "table",
-    )] + [(n, ctypes.c_int) for n in ("B", "T", "Q", "C", "K", "bf16", "tc", "blocks")]
+    )] + [(n, ctypes.c_int) for n in ("B", "T", "Q", "C", "K", "bf16", "tc", "blocks")] + [
+        (n, ctypes.c_void_p) for n in ("mask", "dhm")]
 
 
 def lib_tc_smem(lib, q: int, c: int, k: int) -> int:
@@ -199,10 +221,11 @@ def _sm_count(device) -> int:
     return _sms(device.index if device.index is not None else torch.cuda.current_device())
 
 
-def _cuda_inputs(embed, w, b, x, dt):
+def _cuda_inputs(embed, w, b, x, dt, mask=None):
     """The kernels' operands, checked: classes int32, weights in the compute
     dtype and transposed (made once per weight set, `build.prepared`),
-    embedding and bias (None in the backward) fp32."""
+    embedding and bias (None in the backward) and the halo mask (or None)
+    fp32."""
     dev = embed.device
     q, c = embed.shape
     k_taps = w.shape[0]
@@ -214,6 +237,8 @@ def _cuda_inputs(embed, w, b, x, dt):
                          f"a (Q, C) fp32 table within 227 KB (got K={k_taps}, Q={q}, C={c})")
     if x.device != dev or w.device != dev or (b is not None and b.device != dev):
         raise ValueError("embed, w, b and x must be on one device")
+    if mask is not None and (mask.shape != x.shape or mask.device != dev):
+        raise ValueError(f"mask {tuple(mask.shape)} must match x {tuple(x.shape)} on {dev}")
 
     def cast():
         wd = w.detach().to(dt).contiguous()
@@ -221,7 +246,8 @@ def _cuda_inputs(embed, w, b, x, dt):
 
     wd, wt = build.prepared(f"frontend {dev} {dt}", (w,), cast)
     return dict(x=_as(x, torch.int32), emb=_as(embed, torch.float32), w=wd, wT=wt,
-                bias=None if b is None else _as(b, torch.float32))
+                bias=None if b is None else _as(b, torch.float32),
+                mask=None if mask is None else _as(mask, torch.float32))
 
 
 def _as(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -240,10 +266,10 @@ def _args(ops, bsz, t, q, c, k, dt, tc, blocks, **bufs):
     return a
 
 
-def frontend_fwd(embed, w, b, x, dt):
+def frontend_fwd(embed, w, b, x, dt, mask=None):
     """Forward kernels on the card: h0 (B, T, C) fp32. 2 launches (the tap
-    table, the gather)."""
-    ops = _cuda_inputs(embed, w, b, x, dt)
+    table, the gather), masked or not."""
+    ops = _cuda_inputs(embed, w, b, x, dt, mask)
     bsz, t = x.shape
     q, c = embed.shape
     k_taps = w.shape[0]
@@ -258,11 +284,15 @@ def frontend_fwd(embed, w, b, x, dt):
     vecs = bsz * t * (c // 4 if c % 4 == 0 else c)
     blocks = min(-(-vecs // 256), 8 * _sm_count(embed.device))
     args = _args(ops, bsz, t, q, c, k_taps, dt, tc, blocks, h=h, table=table)
-    frontend_fwd.launches += build.launch(lib, "wn_front_fwd", args, embed.device)
+    n = build.launch(lib, "wn_front_fwd", args, embed.device)
+    frontend_fwd.launches += n
+    if mask is not None:
+        frontend_fwd.mask_launches += n
     return h
 
 
-frontend_fwd.launches = 0
+# Kernel launches of the forward, and of those the masked ones.
+frontend_fwd.launches = frontend_fwd.mask_launches = 0
 
 
 def tc_slots(bsz: int, t: int, sms: int) -> int:
@@ -271,12 +301,13 @@ def tc_slots(bsz: int, t: int, sms: int) -> int:
     return max(1, min(bsz * -(-t // TC_TILE), sms))
 
 
-def frontend_bwd(embed, w, x, dt, dh):
+def frontend_bwd(embed, w, x, dt, dh, mask=None):
     """Backward kernels on the card: (d_embed, d_w, d_b) as the plain
     version returns them. 3 launches on the tensor-core route, 4 on the
-    CUDA-core one."""
+    CUDA-core one, masked or not (masked, the CUDA-core route also writes
+    dh * mask to a scratch copy)."""
     dev = embed.device
-    ops = _cuda_inputs(embed, w, None, x, dt)
+    ops = _cuda_inputs(embed, w, None, x, dt, mask)
     bsz, t = x.shape
     q, c = embed.shape
     k_taps = w.shape[0]
@@ -299,44 +330,50 @@ def frontend_bwd(embed, w, x, dt, dh):
         e = torch.empty_like(dh)
         partial = torch.empty((chunks, nw), dtype=torch.float32, device=dev)
         args = _args(ops, bsz, t, q, c, k_taps, dt, False, 0, dh=dh, de=de, e=e,
-                     partial=partial, grads=grads)
-    frontend_bwd.launches += build.launch(lib, "wn_front_bwd", args, dev)
+                     partial=partial, grads=grads,
+                     dhm=None if mask is None else torch.empty_like(dh))
+    n = build.launch(lib, "wn_front_bwd", args, dev)
+    frontend_bwd.launches += n
+    if mask is not None:
+        frontend_bwd.mask_launches += n
     d_embed, d_w, d_b = torch.split(grads, [q * c, k_taps * c * c, c])
     return d_embed.view(q, c), d_w.view(k_taps, c, c), d_b
 
 
-frontend_bwd.launches = 0
+# Kernel launches of the backward, and of those the masked ones.
+frontend_bwd.launches = frontend_bwd.mask_launches = 0
 
 
 class _Frontend(torch.autograd.Function):
-    """h0 = frontend(embed, w, b; x); the backward is the hand-written one."""
+    """h0 = frontend(embed, w, b; x[, mask]); the backward is the
+    hand-written one."""
 
     @staticmethod
-    def forward(ctx, dt, x, embed, w, b):
+    def forward(ctx, dt, x, mask, embed, w, b):
         if build.on_card(embed.device, "the frontend"):
-            h = frontend_fwd(embed, w, b, x, dt)
+            h = frontend_fwd(embed, w, b, x, dt, mask=mask)
         else:
-            h = frontend_fwd_plain(embed, w, b, x, dt)
+            h = frontend_fwd_plain(embed, w, b, x, dt, mask=mask)
         ctx.dt = dt
-        ctx.save_for_backward(x, embed, w)
+        ctx.save_for_backward(x, mask, embed, w)
         return h
 
     @staticmethod
     def backward(ctx, dh):
-        x, embed, w = ctx.saved_tensors
+        x, mask, embed, w = ctx.saved_tensors
         bwd = frontend_bwd if embed.device.type == "cuda" else frontend_bwd_plain
-        d_embed, d_w, d_b = bwd(embed, w, x, ctx.dt, dh)
-        return None, None, d_embed, d_w, d_b
+        d_embed, d_w, d_b = bwd(embed, w, x, ctx.dt, dh, mask=mask)
+        return None, None, None, d_embed, d_w, d_b
 
 
 def fused_frontend(embed: torch.Tensor, conv: dict, x_classes: torch.Tensor,
                    input_mask=None, compute_dtype: str = "bfloat16") -> torch.Tensor:
     """input_frontend (models/wavenet.py) through the kernel pair: h0
     (B, T, C) fp32 from classes (B, T), differentiable in embed and conv
-    ({"w": (K, C, C), "b": (C,)}); the classes get no gradient."""
-    if input_mask is not None:
-        raise NotImplementedError(
-            "the sequence-parallel input mask waits for the parallelism slice "
-            "(ROADMAP.md A queue item 7b)")
+    ({"w": (K, C, C), "b": (C,)}); the classes get no gradient.
+    `input_mask` (B, T), 0/1: the sequence-parallel halo mask (masked
+    positions embed to zero, h0's masked rows are zero); it gets no
+    gradient either."""
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[str(compute_dtype)]
-    return _Frontend.apply(dt, x_classes, embed, conv["w"], conv["b"])
+    mask = None if input_mask is None else input_mask.detach().to(torch.float32)
+    return _Frontend.apply(dt, x_classes, mask, embed, conv["w"], conv["b"])

@@ -29,6 +29,15 @@ fold [w_cond ; w_gcond] with both), enters every layer's gate; the
 backward returns d cond and d w_cond. On the tensor-core route cond's
 k-steps extend the gate product; elsewhere cond w_cond is added after the
 bias, the JAX order (`_pre`). No extra launch on either route.
+
+The sequence-parallel halo mask (the TPU kernels' `has_mask`, m (B, T) 0/1
+fp32, parallel/halo.py): x_{l+1} = ((x_l + z w_res) + b_res) * m, so masked
+rows of the residual stream stay exactly 0; the backward takes dx_{l+1} * m
+(in dz, d w_res, d b_res and dx_l) and returns dh0 unmasked; the mask gets
+no gradient. h0 arrives masked (the masked frontend's output, the TPU
+kernels' contract), so x_all's masked rows are 0 at every layer and the
+TPU backward's re-mask of the reconstructed layer input is the identity
+here. No extra launch on either route; conditioned or not.
 """
 from __future__ import annotations
 
@@ -103,13 +112,14 @@ def _order(lp: dict, device, dt, cond) -> bool:
 
 
 def stack_fwd_plain(lp: dict, h0: torch.Tensor, dils, dt, tapcat: bool,
-                    tensor_cores: Optional[bool] = None, cond=None):
+                    tensor_cores: Optional[bool] = None, cond=None, mask=None):
     """PyTorch version of the forward kernels: (skip (B, T, S) fp32,
     z_all (L, B, T, G) compute dtype, x_all (L, B, T, C) fp32). With
     tensor_cores (default: `default_order`) each product is summed as the
     tensor-core route sums it (tc_mm), else in one fp32 product. `cond`
     (B, T, Cc') fp32 (or None) enters every layer's gate against
-    lp["w_cond"] (L, Cc', 2G), as `_pre` orders it."""
+    lp["w_cond"] (L, Cc', 2G), as `_pre` orders it. The halo `mask` (B, T)
+    (or None) multiplies each layer's residual output."""
     if tensor_cores is None:
         tensor_cores = _order(lp, h0.device, dt, cond)
     mm = tc_mm if tensor_cores else torch.matmul
@@ -124,6 +134,8 @@ def stack_fwd_plain(lp: dict, h0: torch.Tensor, dils, dt, tapcat: bool,
         zs.append(z)
         zf = z.float()
         x = (x + mm(zf, rnd(lp["w_res"][i], dt))) + lp["b_res"][i]
+        if mask is not None:
+            x = x * mask[..., None]
         contrib = mm(zf, rnd(lp["w_skip"][i], dt)) + lp["b_skip"][i]
         skip = contrib if skip is None else skip + contrib
     return skip, torch.stack(zs), torch.stack(xs)
@@ -240,7 +252,7 @@ def _tc_dbs(g_skip: torch.Tensor) -> torch.Tensor:
 
 
 def stack_bwd_plain(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip,
-                    tensor_cores: Optional[bool] = None, cond=None):
+                    tensor_cores: Optional[bool] = None, cond=None, mask=None):
     """PyTorch version of the backward kernels: (dh0, {layer key: grad}),
     with cond (as stack_fwd_plain's) also {"w_cond": d w_cond (L, Cc', 2G),
     "cond": d cond (B, T, Cc'), summed over the layers in reverse}.
@@ -248,7 +260,8 @@ def stack_bwd_plain(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip,
     gradients are summed as the tensor-core layer pass sums them too (per
     tile, per block slot, the slots in order: `_tc_outer`, `_tc_db`,
     `_tc_dbr`, `_tc_dbs`), so every gradient agrees bit for bit with the
-    kernels; otherwise one fp32 sum each."""
+    kernels; otherwise one fp32 sum each. With the halo `mask`, each layer
+    takes dx_{l+1} * mask (dh0 is returned unmasked)."""
     if tensor_cores is None:
         tensor_cores = _order(lp, x_all.device, dt, cond)
     mm = tc_mm if tensor_cores else torch.matmul
@@ -264,6 +277,8 @@ def stack_bwd_plain(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip,
     out = {k: [None] * len(dils) for k in keys}
     for i in reversed(range(len(dils))):
         d = dils[i]
+        if mask is not None:
+            dx = dx * mask[..., None]
         xr = rnd(x_all[i], dt)
         xsh = shift_right(xr, d)
         z = z_all[i].float()
@@ -309,7 +324,8 @@ class _FwdArgs(ctypes.Structure):
         "h0", "x_all", "z_all", "skip", "w_cur", "w_prev", "b", "w_res",
         "b_res", "w_skip", "b_skip", "dils",
     )] + [(n, ctypes.c_int) for n in ("B", "T", "L", "C", "G", "S", "bf16", "tapcat", "tc")] + [
-        (n, ctypes.c_void_p) for n in ("cond", "w_cond")] + [("Cc", ctypes.c_int)]
+        (n, ctypes.c_void_p) for n in ("cond", "w_cond")] + [("Cc", ctypes.c_int),
+                                                            ("mask", ctypes.c_void_p)]
 
 
 class _BwdArgs(ctypes.Structure):
@@ -319,7 +335,7 @@ class _BwdArgs(ctypes.Structure):
     )] + [(n, ctypes.c_int) for n in (
         "B", "T", "L", "C", "G", "S", "bf16", "tapcat", "chunks")] + [
         (n, ctypes.c_void_p) for n in ("cond", "w_cond", "wcdT", "dcond")] + [
-        ("Cc", ctypes.c_int)]
+        ("Cc", ctypes.c_int), ("mask", ctypes.c_void_p)]
 
 
 class _BwdTcArgs(ctypes.Structure):
@@ -328,7 +344,8 @@ class _BwdTcArgs(ctypes.Structure):
         "dbs", "w_cur", "w_prev", "b", "w_res", "w_skip", "dils",
     )] + [(n, ctypes.c_int) for n in (
         "B", "T", "L", "C", "G", "S", "tapcat", "chunks", "s_chunks")] + [
-        (n, ctypes.c_void_p) for n in ("cond", "w_cond", "dcond")] + [("Cc", ctypes.c_int)]
+        (n, ctypes.c_void_p) for n in ("cond", "w_cond", "dcond")] + [
+        ("Cc", ctypes.c_int), ("mask", ctypes.c_void_p)]
 
 
 # Tensor-core route (csrc/train_stack.cu, namespace tsc): positions per tile,
@@ -391,6 +408,17 @@ def _route(lib, c: int, g: int, s: int, dt, cc: int = 0) -> bool:
     return route(c, g, s, dt, cc) == "tensor_cores"
 
 
+def _mask_operand(mask, b: int, t: int, device):
+    """The halo mask as the kernels read it: (B, T) fp32, contiguous (or
+    None)."""
+    if mask is None:
+        return None
+    if mask.shape != (b, t) or mask.device != device:
+        raise ValueError(f"mask {tuple(mask.shape)} on {mask.device} must be {(b, t)} "
+                         f"on {device}")
+    return mask.to(torch.float32).contiguous()
+
+
 def _check_shapes(lp: dict, h0: torch.Tensor, dt, cond=None):
     b, t, c = h0.shape
     L, c2, two_g = lp["w_cur"].shape
@@ -434,11 +462,14 @@ def _cond_operand(cond, dt, tc: bool):
     return cond.to(torch.bfloat16 if tc else torch.float32).contiguous()
 
 
-def train_stack_fwd(lp: dict, h0: torch.Tensor, dils, dt, tapcat: bool, cond=None):
+def train_stack_fwd(lp: dict, h0: torch.Tensor, dils, dt, tapcat: bool, cond=None,
+                    mask=None):
     """Forward kernels on the card: (skip, z_all, x_all) as the plain
-    version returns them. L + 1 launches, conditioned or not."""
+    version returns them. L + 1 launches, conditioned or not, masked or
+    not."""
     dev = h0.device
     b, t, c, g, s, L, cc = _check_shapes(lp, h0, dt, cond)
+    msk = _mask_operand(mask, b, t, dev)
     if len(dils) != L or h0.dtype != torch.float32:
         raise ValueError("h0 must be fp32 and the dilations one per layer")
     lib = build.load("train_stack")
@@ -455,17 +486,19 @@ def train_stack_fwd(lp: dict, h0: torch.Tensor, dils, dt, tapcat: bool, cond=Non
         h0.data_ptr(), x_all.data_ptr(), z_all.data_ptr(), skip.data_ptr(),
         *(w[k].data_ptr() for k in LAYER_KEYS), ctypes.addressof(dil),
         b, t, L, c, g, s, int(dt == torch.bfloat16), int(tapcat), int(tc),
-        build.ptr(cnd), build.ptr(w.get("w_cond")), cc,
+        build.ptr(cnd), build.ptr(w.get("w_cond")), cc, build.ptr(msk),
     )
     n = build.launch(lib, "wn_train_stack_fwd", args, dev)
     train_stack_fwd.launches += n
     if cond is not None:
         train_stack_fwd.cond_launches += n
+    if mask is not None:
+        train_stack_fwd.mask_launches += n
     return skip, z_all, x_all
 
 
-# Kernel launches of the forward, and of those the conditioned ones.
-train_stack_fwd.launches = train_stack_fwd.cond_launches = 0
+# Kernel launches of the forward, and of those the conditioned and the masked ones.
+train_stack_fwd.launches = train_stack_fwd.cond_launches = train_stack_fwd.mask_launches = 0
 
 
 def wgrad_chunks(n_pos: int) -> int:
@@ -485,14 +518,17 @@ def grad_pack(c: int, g: int, s: int, cc: int = 0) -> list:
                ("b_skip", (s,))])
 
 
-def train_stack_bwd(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip, cond=None):
+def train_stack_bwd(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip, cond=None,
+                    mask=None):
     """Backward kernels on the card: (dh0, {layer key: grad}) as the plain
     version returns them (with cond, "w_cond" and "cond" too). 2 L + 3
     launches on the tensor-core route, 3 L + 1 on the CUDA-core one,
-    conditioned or not: d cond (B, T, Cc') fp32 is added to by each layer's
-    pass (tensor cores) or its dx launch (CUDA cores)."""
+    conditioned or not, masked or not: d cond (B, T, Cc') fp32 is added to
+    by each layer's pass (tensor cores) or its dx launch (CUDA cores); the
+    halo mask multiplies each layer's dx output but the first's."""
     dev = x_all.device
     L, b, t, c = x_all.shape
+    msk = _mask_operand(mask, b, t, dev)
     g = z_all.shape[-1]
     s = g_skip.shape[-1]
     cc = 0 if cond is None else cond.shape[-1]
@@ -524,7 +560,7 @@ def train_stack_bwd(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip, cond
             ptr(grads), ptr(part_s), ptr(dbs),
             *(ptr(w[k]) for k in ("w_cur", "w_prev", "b", "w_res", "w_skip")),
             ctypes.addressof(dil), b, t, L, c, g, s, int(tapcat), chunks, s_chunks,
-            ptr(cnd), ptr(w.get("w_cond")), ptr(dcond), cc,
+            ptr(cnd), ptr(w.get("w_cond")), ptr(dcond), cc, ptr(msk),
         )
         n = build.launch(lib, "wn_train_stack_bwd_tc", args, dev)
     else:
@@ -536,11 +572,14 @@ def train_stack_bwd(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip, cond
             *(ptr(w[k]) for k in ("w_cur", "w_prev", "b", "wcT", "wpT", "wrT", "wsT")),
             ctypes.addressof(dil), b, t, L, c, g, s, int(dt == torch.bfloat16), int(tapcat),
             chunks, ptr(cnd), ptr(w.get("w_cond")), ptr(w.get("wcdT")), ptr(dcond), cc,
+            ptr(msk),
         )
         n = build.launch(lib, "wn_train_stack_bwd", args, dev)
     train_stack_bwd.launches += n
     if cond is not None:
         train_stack_bwd.cond_launches += n
+    if mask is not None:
+        train_stack_bwd.mask_launches += n
     parts = torch.split(grads, [math.prod(sh) for _, sh in pack], dim=1)
     out = {k: p.reshape((L,) + sh) for (k, sh), p in zip(pack, parts)}
     if cond is not None:
@@ -548,61 +587,63 @@ def train_stack_bwd(lp: dict, dils, dt, tapcat: bool, z_all, x_all, g_skip, cond
     return dx[L % 2], out
 
 
-# Kernel launches of the backward, and of those the conditioned ones.
-train_stack_bwd.launches = train_stack_bwd.cond_launches = 0
+# Kernel launches of the backward, and of those the conditioned and the masked ones.
+train_stack_bwd.launches = train_stack_bwd.cond_launches = train_stack_bwd.mask_launches = 0
 
 
 class _Stack(torch.autograd.Function):
-    """skip = stack(lp, h0[, cond]); the backward is the hand-written one.
-    With cond, the last weight is w_cond."""
+    """skip = stack(lp, h0[, cond][, mask]); the backward is the
+    hand-written one. With cond, the last weight is w_cond; the mask gets
+    no gradient."""
 
     @staticmethod
-    def forward(ctx, dils, dt, tapcat, h0, cond, *weights):
+    def forward(ctx, dils, dt, tapcat, h0, cond, mask, *weights):
         keys = LAYER_KEYS + (() if cond is None else ("w_cond",))
         lp = dict(zip(keys, weights))
+        kw = dict(cond=cond, mask=mask)
         if build.on_card(h0.device, "the training stack"):
-            skip, z_all, x_all = train_stack_fwd(lp, h0, dils, dt, tapcat, cond=cond)
+            skip, z_all, x_all = train_stack_fwd(lp, h0, dils, dt, tapcat, **kw)
         else:
-            skip, z_all, x_all = stack_fwd_plain(lp, h0, dils, dt, tapcat, cond=cond)
+            skip, z_all, x_all = stack_fwd_plain(lp, h0, dils, dt, tapcat, **kw)
         ctx.cfg = (dils, dt, tapcat, keys)
-        ctx.save_for_backward(z_all, x_all, cond, *weights)
+        ctx.save_for_backward(z_all, x_all, cond, mask, *weights)
         return skip
 
     @staticmethod
     def backward(ctx, g_skip):
         dils, dt, tapcat, keys = ctx.cfg
-        z_all, x_all, cond, *weights = ctx.saved_tensors
+        z_all, x_all, cond, mask, *weights = ctx.saved_tensors
         lp = dict(zip(keys, weights))
-        if x_all.device.type == "cuda":
-            dh0, grads = train_stack_bwd(lp, dils, dt, tapcat, z_all, x_all, g_skip,
-                                           cond=cond)
-        else:
-            dh0, grads = stack_bwd_plain(lp, dils, dt, tapcat, z_all, x_all, g_skip, cond=cond)
-        return (None, None, None, dh0, grads.get("cond"), *(grads[k] for k in keys))
+        bwd = train_stack_bwd if x_all.device.type == "cuda" else stack_bwd_plain
+        dh0, grads = bwd(lp, dils, dt, tapcat, z_all, x_all, g_skip, cond=cond, mask=mask)
+        return (None, None, None, dh0, grads.get("cond"), None, *(grads[k] for k in keys))
 
 
 def make_fused_stack(arch: ArchConfig, has_cond: bool = False, tapcat: bool = False,
                      has_mask: bool = False):
-    """fn(lp, h0[, cond]) -> skip_sum (B, T, S) fp32 over the layers dict
-    `lp` (w_cur, w_prev, b, w_res, b_res, w_skip, b_skip, and w_cond (L,
-    Cc', 2G) with has_cond) and h0 (B, T, C) fp32, differentiable in every
-    input. `tapcat` sums the two taps as one 2C-deep contraction (the order
-    of the TPU kernel's tap concat). With has_cond, `cond` (B, T, Cc') fp32
-    is the upsampled (and/or speaker) conditioning: each layer adds cond @
-    w_cond[l] to its gate pre-activation, and the backward returns d cond
-    and d w_cond."""
-    if has_mask:
-        raise NotImplementedError(
-            "the sequence-parallel input mask waits for the parallelism slice "
-            "(ROADMAP.md A queue item 7b)")
+    """fn(lp, h0[, cond][, mask]) -> skip_sum (B, T, S) fp32 over the layers
+    dict `lp` (w_cur, w_prev, b, w_res, b_res, w_skip, b_skip, and w_cond
+    (L, Cc', 2G) with has_cond) and h0 (B, T, C) fp32, differentiable in
+    every input but the mask. `tapcat` sums the two taps as one 2C-deep
+    contraction (the order of the TPU kernel's tap concat). With has_cond,
+    `cond` (B, T, Cc') fp32 is the upsampled (and/or speaker) conditioning:
+    each layer adds cond @ w_cond[l] to its gate pre-activation, and the
+    backward returns d cond and d w_cond. With has_mask, `mask` (B, T) 0/1
+    is the sequence-parallel halo mask: masked rows of the residual stream
+    stay exactly 0 through the stack (h0 must arrive masked, as the masked
+    frontend gives it); an all-ones mask gives the unmasked stack's
+    bits."""
     dils = tuple(arch.dilations)
     dt = compute_dtype(arch)
 
-    def fused(lp: dict, h0: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if (cond is not None) != has_cond:
-            raise ValueError(f"this stack was built with has_cond={has_cond}; "
-                             f"cond {'missing' if cond is None else 'given'}")
+    def fused(lp: dict, h0: torch.Tensor, *rest) -> torch.Tensor:
+        if len(rest) != int(has_cond) + int(has_mask):
+            raise ValueError(f"this stack was built with has_cond={has_cond}, "
+                             f"has_mask={has_mask}: it takes lp, h0"
+                             f"{', cond' if has_cond else ''}{', mask' if has_mask else ''}")
+        cond = rest[0] if has_cond else None
+        mask = rest[-1].detach().to(torch.float32) if has_mask else None
         keys = LAYER_KEYS + (("w_cond",) if has_cond else ())
-        return _Stack.apply(dils, dt, bool(tapcat), h0, cond, *(lp[k] for k in keys))
+        return _Stack.apply(dils, dt, bool(tapcat), h0, cond, mask, *(lp[k] for k in keys))
 
     return fused

@@ -47,8 +47,7 @@ import torch
 
 from ..config import ArchConfig
 from ..generate import generate_classes, reset_lanes, start_stream, stream_chunk
-from ..models.wavenet import params_to
-from .mesh import Mesh, all_gather_rows
+from .mesh import Mesh, all_gather_rows, shard_params
 
 FUSED_ENGINES = ("pallas", "turbo", "mega")
 _SEED_STRIDE = 0x9E3779B97F4A7C15   # 64-bit golden ratio: shard seeds far apart
@@ -71,18 +70,10 @@ def _check_skip_split(arch: ArchConfig, n_model: int) -> None:
 
 def skip_sharded_params(params: dict, mesh: Mesh) -> dict:
     """This rank's params on its device: the skip-separable dims sliced
-    (w_skip and b_skip on S, post.w1 on its rows), everything else whole.
-    The counterpart of JAX's `skip_sharded_param_specs`, cut per rank."""
-    s = params["layers"]["w_skip"].shape[-1]
-    if s % mesh.model:
-        raise ValueError(f"skip width {s} does not split over the model axis ({mesh.model})")
-    sl = slice(mesh.model_rank * (s // mesh.model), (mesh.model_rank + 1) * (s // mesh.model))
-    local = params_to(params, mesh.device)
-    lp, pp = dict(local["layers"]), dict(local["post"])
-    lp["w_skip"] = lp["w_skip"][..., sl].contiguous()
-    lp["b_skip"] = lp["b_skip"][..., sl].contiguous()
-    pp["w1"] = pp["w1"][sl].contiguous()
-    return {**local, "layers": lp, "post": pp}
+    (w_skip and b_skip on S, post.w1 on its rows), everything else whole
+    (`parallel.mesh.shard_params`, the layout training shares). The
+    counterpart of JAX's `skip_sharded_param_specs`, cut per rank."""
+    return shard_params(params, mesh)
 
 
 def _rows(x, mesh: Mesh, shard_b: int, dtype=None) -> Optional[torch.Tensor]:

@@ -11,7 +11,10 @@ the forward and backward (ms per call, CUDA events, 10 calls) at the
 WaveNet-30 training shape (B=8, W=10240, tapcat), and, where the tree has
 the conditioned pair (chip_smoke.py `cond_stack_case`), the conditioned
 pair at the mel recipe's shape (B=8, W=6144, Cc'=64) beside the
-unconditioned backward at that shape; and the card's name and power
+unconditioned backward at that shape; where it has the masked pair
+(chip_smoke.py `mask_case`), the masked conditioned pair at one
+sequence-parallel shard (B=8, T_ext = R - 1 + T_l, the first R - 1 rows
+masked) beside the same pair unmasked; and the card's name and power
 limit."""
 import argparse
 import json
@@ -60,6 +63,16 @@ def main() -> int:
         ulp = {k: v for k, v in mlp.items() if k != "w_cond"}
         out["bwd_uncond_mel_shape_ms"] = CS.cuda_ms(lambda: TS.train_stack_bwd(
             ulp, dils, dt, True, z, x, g), 10)
+        del z, x, h0, g, cond
+    if hasattr(CS, "mask_case"):
+        _, _, t = CS.sp_shape(march)
+        mask, h0, g, cond, mlp = CS.mask_case(march, mp["layers"], t, 64, 105)
+        _, z, x = TS.train_stack_fwd(mlp, h0, dils, dt, True, cond=cond, mask=mask)
+        for tag, m in (("mask", mask), ("unmasked_shard", None)):
+            out[f"fwd_{tag}_ms"] = CS.cuda_ms(lambda: TS.train_stack_fwd(
+                mlp, h0, dils, dt, True, cond=cond, mask=m), 10)
+            out[f"bwd_{tag}_ms"] = CS.cuda_ms(lambda: TS.train_stack_bwd(
+                mlp, dils, dt, True, z, x, g, cond=cond, mask=m), 10)
     print(json.dumps(out), flush=True)
     return 0
 

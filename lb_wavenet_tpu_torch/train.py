@@ -1,5 +1,5 @@
 """Training engine: the teacher-forced train step and the host loop (port of
-`lb_wavenet_tpu/train.py`) on one device.
+`lb_wavenet_tpu/train.py`), on one device or across ranks.
 
 A step is eager PyTorch: the loss of a batch (the production path runs the
 input frontend, the dilated stack and the post network + masked CE through
@@ -26,26 +26,52 @@ to the upsampler's stages, w_cond, w_gcond and the speaker table.
 
 `run_training` evaluates on a held-out corpus every train.eval_every steps
 (eval.py). Not ported yet, and raising NotImplementedError (ROADMAP.md A):
-model and sequence parallelism (mesh_model > 1, mesh_data > 1,
-seq_parallel; A queue item 7b) and TensorBoard (A queue item 8).
+TensorBoard (A queue item 8).
+
+Training across ranks (one process per rank, `parallel.mesh`; JAX gets the
+first from GSPMD and the others from shard_map):
+  * data-parallel (mesh_data > 1): each data rank loads rows
+    data_rank::data of the global batch, takes the gradients of the masked-CE
+    NUMERATOR and the sums (num, den) on them, and one flat all-reduce over
+    the data group sums all of it; the result is divided once by max(den,
+    1), and every rank applies the same Adam/EMA update (`make_dp_train_step`);
+  * sequence-parallel (train.seq_parallel): the data axis shards time
+    (parallel/halo.py, the masked frontend and training-stack kernels);
+    every rank loads the whole batch (`seq_batch_to_device`), and the
+    gradients and sums are all-reduced over the axis (`make_sp_train_step`);
+  * skip-split model-parallel (mesh_model > 1): each model rank holds its
+    slice of w_skip, b_skip and post.w1 (`parallel.mesh.shard_params`), runs
+    the whole stack down to its skip slice, and one all-reduce over the
+    model group completes the post network's hidden layer
+    (`make_tp_train_step`); composes with a data axis.
+Gradient accumulation (grad_accum = k) takes a rank's rows i::k as micro i
+on every path and reduces once per step. A process that runs alone trains
+on the 1 x 1 mesh (sequence parallelism over one rank included).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .config import ArchConfig, Config, TrainConfig
 from .data import Batch, Corpus, load_corpus, make_batches, prefetch
 from .generate import resolve_device
 from .models.conditioning import upsample_cond_train
 from .models.wavenet import (
-    compute_dtype, forward, init_params, input_frontend, masked_loss_sums,
+    _mm, compute_dtype, forward, init_params, input_frontend, masked_loss_sums,
     post_network,
 )
+from .parallel.mesh import (
+    Mesh, all_reduce_, all_reduce_flat_, gather_params, local_mesh, make_mesh, shard_params,
+    sharded_dim,
+)
 from .utils import checkpoint as ckpt_lib
+from .utils import multihost
 from .utils.metrics import MetricsLogger
 
 
@@ -75,6 +101,16 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_paths(tree, path=()) -> list:
+    """The leaves' paths (tuples of keys and list indices) in the order of
+    tree_leaves."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, path + (i,))]
+    return [path]
 
 
 def make_lr_schedule(train: TrainConfig):
@@ -126,10 +162,13 @@ class Adam:
         return {"count": 0, "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(self, grads: dict, state: dict):
-        """(updates, new state) for `grads`."""
+    def update(self, grads: dict, state: dict, g_norm=None):
+        """(updates, new state) for `grads`. With clipping, `g_norm` is the
+        global norm when `grads` hold only a part of it (a model rank's
+        slices); by default the norm of `grads`."""
         if self.clip > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+            if g_norm is None:
+                g_norm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
             if not bool(g_norm < self.clip):
                 grads = tree_map(lambda g: (g / g_norm) * self.clip, grads)
         b1, b2 = self.b1, self.b2
@@ -161,7 +200,7 @@ def init_state(rng, arch: ArchConfig, train: TrainConfig, device="cpu") -> Train
 
 def forward_fused(params: dict, arch: ArchConfig, x_classes, cond_frames=None,
                   speaker_ids=None, tapcat: bool = False, return_skip: bool = False,
-                  fused_frontend: bool = False, cond=None):
+                  fused_frontend: bool = False, cond=None, input_mask=None):
     """forward() with the dilated stack run by the training-stack kernel
     pair (ops/cuda/train_stack.py): same logits to float rounding.
     `fused_frontend` also runs the frontend through its kernel pair.
@@ -172,7 +211,9 @@ def forward_fused(params: dict, arch: ArchConfig, x_classes, cond_frames=None,
     T and carried in float32. `speaker_ids` (B,) add speaker_embed[id]
     broadcast over T after the mel channels, against [w_cond ; w_gcond]
     (w_gcond alone without mel): one cond row and one w_cond for the
-    conditioned stack kernels."""
+    conditioned stack kernels. `input_mask` (B, T) is the sequence-parallel
+    halo mask (parallel/halo.py): the masked frontend, then the masked
+    stack, which keeps the residual stream's masked rows exactly 0."""
     from .ops.cuda.train_stack import make_fused_stack
 
     if cond is not None and cond_frames is not None:
@@ -193,9 +234,11 @@ def forward_fused(params: dict, arch: ArchConfig, x_classes, cond_frames=None,
             lp["w_cond"] = torch.cat([lp["w_cond"], lp["w_gcond"]], 1)
         else:
             cond, lp["w_cond"] = gts, lp["w_gcond"]
-    h0 = input_frontend(params, arch, x_classes, dt, fused_frontend)
-    stack = make_fused_stack(arch, has_cond=cond is not None, tapcat=tapcat)
-    skip = stack(lp, h0, cond) if cond is not None else stack(lp, h0)
+    h0 = input_frontend(params, arch, x_classes, dt, fused_frontend, input_mask=input_mask)
+    stack = make_fused_stack(arch, has_cond=cond is not None, tapcat=tapcat,
+                             has_mask=input_mask is not None)
+    extra = [v for v in (cond, input_mask) if v is not None]
+    skip = stack(lp, h0, *extra)
     return skip if return_skip else post_network(params, skip, dt)
 
 
@@ -248,9 +291,10 @@ def _grad(out: torch.Tensor, params: dict) -> dict:
     return tree_map(lambda _: next(grads), params)
 
 
-def _apply_updates(state: TrainState, grads: dict, train: TrainConfig) -> TrainState:
-    """Optimizer + EMA + step bump."""
-    updates, opt_state = make_optimizer(train).update(grads, state.opt_state)
+def _apply_updates(state: TrainState, grads: dict, train: TrainConfig,
+                   g_norm=None) -> TrainState:
+    """Optimizer + EMA + step bump (`g_norm`: Adam.update's)."""
+    updates, opt_state = make_optimizer(train).update(grads, state.opt_state, g_norm)
     with torch.no_grad():
         params = tree_map(lambda p, u: p + u, state.params, updates)
         ema = state.ema
@@ -293,6 +337,212 @@ def train_step(state: TrainState, batch: dict, arch: ArchConfig, train: TrainCon
     return _apply_updates(state, grads, train), loss
 
 
+# ---- training across ranks ---------------------------------------------------
+
+def num_grads(params: dict, batch: dict, train: TrainConfig, sums_fn):
+    """The accumulable form of a step on this rank's rows: (gradients of the
+    masked-CE numerator, num, den), all detached, from sums_fn(params,
+    batch) -> (num, den). With grad_accum = k > 1, micro i takes rows i::k."""
+    params = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    k = max(train.grad_accum, 1)
+    b = batch["inputs"].shape[0]
+    if b % k:
+        raise ValueError(f"batch_size {b} is not divisible by grad_accum {k}")
+    g_sum, num, den = None, 0.0, 0.0
+    for i in range(k):
+        micro = batch if k == 1 else {key: v[i::k] for key, v in batch.items()}
+        n_i, d_i = sums_fn(params, micro)
+        g = _grad(n_i, params)
+        g_sum = g if g_sum is None else tree_map(torch.add, g_sum, g)
+        num, den = num + n_i.detach(), den + d_i.detach().to(torch.float32)
+    return g_sum, num, den
+
+
+def _reduced_step(train: TrainConfig, sums_fn, groups, g_norm=None):
+    """step(state, batch) -> (state, loss) of the multi-rank paths: this
+    rank's numerator gradients and (num, den) (`num_grads`), summed over
+    each (group, size, keep) of `groups` in turn (the leaves whose path
+    `keep` takes, and the sums where keep(None)), one flat buffer per group;
+    divided once by max(den, 1); then Adam and EMA (with clipping, by
+    g_norm(grads) when given)."""
+    def step(state: TrainState, batch: dict):
+        g, num, den = num_grads(state.params, batch, train, sums_fn)
+        paths, leaves = tree_paths(g), tree_leaves(g)
+        sums = torch.stack([num, den])
+        for group, size, keep in groups:
+            picked = [x for p, x in zip(paths, leaves) if keep(p)]
+            all_reduce_flat_(picked + ([sums] if keep(None) else []), group, size)
+        d = torch.clamp(sums[1], min=1.0)
+        grads = tree_map(lambda x: x / d, g)
+        norm = g_norm(grads) if g_norm is not None and train.grad_clip_norm > 0 else None
+        return _apply_updates(state, grads, train, norm), sums[0] / d
+
+    return step
+
+
+def make_dp_train_step(mesh: Mesh, arch: ArchConfig, train: TrainConfig):
+    """Data-parallel step(state, batch) -> (state, loss) on this data
+    rank's rows of the global batch: the windowed loss, its numerator's
+    gradients and both sums summed over the data group in one collective,
+    divided once; the same Adam/EMA update on every rank."""
+    def sums(p, b):
+        return loss_sums_fn(p, arch, train.window_size, b, train)
+
+    return _reduced_step(train, sums, [(mesh.data_group, mesh.data, lambda p: True)])
+
+
+def make_sp_train_step(mesh: Mesh, arch: ArchConfig, train: TrainConfig):
+    """Sequence-parallel step(state, batch) -> (state, loss): the data axis
+    shards time (parallel/halo.py; batches from seq_batch_to_device, the
+    whole batch on every rank). Each rank's numerator gradients and sums
+    are summed over the axis in one collective; the upsampler's gradient
+    adds the ranks' cond slices. grad_accum takes batch rows i::k (time
+    stays sharded within each micro). Model ranks, if any, are replicas."""
+    from .parallel.halo import sequence_parallel_loss_sums
+
+    def sums(p, b):
+        return sequence_parallel_loss_sums(
+            p, arch, b["inputs"], b["targets"], b["mask"], mesh, cond_frames=b.get("mel"),
+            speaker_ids=b.get("speaker"), remat=train.remat, fused_stack=train.fused_stack,
+            tapcat=train.tapcat, fused_frontend=train.fused_frontend,
+            fused_post=train.fused_post)
+
+    return _reduced_step(train, sums, [(mesh.data_group, mesh.data, lambda p: True)])
+
+
+class _HiddenSum(torch.autograd.Function):
+    """The post network's hidden layer summed over the model group (each
+    rank holds its skip slice's part). Every rank's loss then sees the same
+    hidden, so the cotangent arriving here is the same on every rank and
+    is each part's own: the backward passes it through."""
+
+    @staticmethod
+    def forward(ctx, h_part, mesh):
+        out = h_part.clone()
+        if mesh.model > 1:
+            all_reduce_(out, mesh.model_group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+# The post leaves after the hidden sum: every model rank computes their whole
+# gradient (the others' are partial: summed over the model group).
+_AFTER_HIDDEN_SUM = {("post", "b1"), ("post", "w2"), ("post", "b2")}
+
+
+def _global_norm(grads: dict, mesh: Mesh):
+    """The global norm of a model rank's gradients: the sharded leaves'
+    squares summed over the model group."""
+    sq_rep = sq_sh = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for p, g in zip(tree_paths(grads), tree_leaves(grads)):
+        if sharded_dim(p) is None:
+            sq_rep = sq_rep + torch.sum(g * g)
+        else:
+            sq_sh = sq_sh + torch.sum(g * g)
+    all_reduce_flat_([sq_sh], mesh.model_group, mesh.model)
+    return torch.sqrt(sq_rep + sq_sh)
+
+
+def make_tp_train_step(mesh: Mesh, arch: ArchConfig, train: TrainConfig):
+    """Skip-split model-parallel step(state, batch) -> (state, loss) on this
+    rank's sharded state (`shard_params`) and its data rank's rows: the
+    whole stack (fused kernels or not) down to the rank's skip slice,
+    arch.skip_channels // model wide; the post network's first product on
+    the slice for the last W positions only; ONE all-reduce of the (B, W, S)
+    hidden over the model group (`_HiddenSum`); the rest of the post network
+    and the CE in plain PyTorch, as JAX runs them in XLA. Gradients: the
+    replicated leaves before the hidden sum summed over the model group, the
+    sharded ones kept; then everything, with num and den, summed over the
+    data group. Clipping takes the global norm (`_global_norm`)."""
+    if arch.skip_channels % mesh.model:
+        raise ValueError(
+            f"skip-split TP training needs skip_channels ({arch.skip_channels}) % model axis "
+            f"({mesh.model}) == 0")
+    arch_local = dataclasses.replace(arch, skip_channels=arch.skip_channels // mesh.model)
+    dt = compute_dtype(arch)
+    w = train.window_size
+
+    def sums(p, b):
+        skip = _batch_logits(p, arch_local, b, train.remat, train.fused_stack, train.tapcat,
+                             return_skip=True, fused_frontend=train.fused_frontend)
+        pp = p["post"]
+        h_part = _mm(torch.relu(skip[:, -w:]), pp["w1"], dt)
+        h2 = torch.relu(_HiddenSum.apply(h_part, mesh) + pp["b1"])
+        logits = _mm(h2, pp["w2"], dt) + pp["b2"]
+        ce = -torch.log_softmax(logits, dim=-1)
+        ce = ce.gather(-1, b["targets"].long()[..., None])[..., 0]
+        mask = b["mask"].to(torch.float32)
+        return (ce * mask).sum(), mask.sum()
+
+    def before_sum(p):
+        return p is not None and sharded_dim(p) is None and tuple(p) not in _AFTER_HIDDEN_SUM
+
+    return _reduced_step(train, sums, [(mesh.model_group, mesh.model, before_sum),
+                                       (mesh.data_group, mesh.data, lambda p: True)],
+                         g_norm=lambda grads: _global_norm(grads, mesh))
+
+
+def seq_batch_to_device(batch: Batch, mesh: Mesh, window_size: int, device) -> dict:
+    """A host batch as the sequence-parallel step takes it, on `device`:
+    the windowed (targets, mask) expanded over the whole input length (only
+    the last `window_size` positions train, as masked_loss scores them),
+    time zero-padded to a multiple of the data axis (later positions:
+    causally inert, and masked). Mel frames and speaker ids whole."""
+    import numpy as np
+
+    n = mesh.data
+    inputs = np.asarray(batch.inputs)
+    b, t = inputs.shape
+    tp = -(-t // n) * n
+    inp = np.zeros((b, tp), inputs.dtype)
+    inp[:, :t] = inputs
+    tgt = np.zeros((b, tp), np.int32)
+    tgt[:, t - window_size: t] = batch.targets
+    msk = np.zeros((b, tp), np.float32)
+    msk[:, t - window_size: t] = batch.mask
+    out = {"inputs": inp, "targets": tgt, "mask": msk}
+    if batch.mel is not None:
+        out["mel"] = np.asarray(batch.mel)
+    if batch.speaker is not None:
+        out["speaker"] = np.asarray(batch.speaker)
+    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in out.items()}
+
+
+def _train_mesh(train: TrainConfig, device) -> Mesh:
+    """The mesh run_training trains on: (mesh_data, mesh_model) over the
+    ranks of the running process group, or the 1 x 1 mesh of a process
+    that runs alone."""
+    if dist.is_initialized():
+        return make_mesh(train.mesh_data, train.mesh_model, device=device)
+    if train.mesh_data in (-1, 1) and train.mesh_model == 1:
+        return local_mesh(resolve_device(device))
+    raise ValueError(
+        f"train.mesh_data={train.mesh_data} x mesh_model={train.mesh_model} needs that many "
+        "ranks: start them under torchrun (`cli train`), or join a process group first "
+        "(utils.multihost.init_distributed)")
+
+
+def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """This rank's part of a whole train state: params, Adam moments and
+    EMA through shard_params."""
+    opt = dict(state.opt_state, mu=shard_params(state.opt_state["mu"], mesh),
+               nu=shard_params(state.opt_state["nu"], mesh))
+    ema = None if state.ema is None else shard_params(state.ema, mesh)
+    return TrainState(shard_params(state.params, mesh), opt, state.step, ema)
+
+
+def gather_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """The whole train state on every rank of the model group (the inverse
+    of shard_state; every rank calls it)."""
+    opt = dict(state.opt_state, mu=gather_params(state.opt_state["mu"], mesh),
+               nu=gather_params(state.opt_state["nu"], mesh))
+    ema = None if state.ema is None else gather_params(state.ema, mesh)
+    return TrainState(gather_params(state.params, mesh), opt, state.step, ema)
+
+
 def batch_to_device(batch: Batch, device) -> dict:
     """A host batch as tensors on `device`."""
     d = {"inputs": batch.inputs, "targets": batch.targets, "mask": batch.mask}
@@ -304,11 +554,12 @@ def batch_to_device(batch: Batch, device) -> dict:
 
 
 def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
-    if train.mesh_model > 1 or train.mesh_data > 1 or train.seq_parallel:
-        raise NotImplementedError(
-            "model, data and sequence parallelism (train.mesh_model > 1, "
-            "mesh_data > 1, seq_parallel) wait for ROADMAP.md A queue item 7b; "
-            "the port trains on one device")
+    if train.seq_parallel and train.mesh_model > 1 and (
+            train.fused_stack or train.fused_post or train.fused_frontend):
+        raise ValueError(
+            "seq_parallel with mesh_model > 1 and fused kernels is not supported; drop one "
+            "of the three (the TP train step covers fused + model sharding, the SP step "
+            "fused + time sharding)")
     if train.tensorboard_dir:
         raise NotImplementedError(
             "the TensorBoard stream is not ported (ROADMAP.md A queue item 8); "
@@ -316,13 +567,13 @@ def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
 
 
 def _eval_record(state: TrainState, arch: ArchConfig, train: TrainConfig,
-                 eval_corpus: Corpus, dev) -> dict:
-    """The in-training evaluation of the params (and of the EMA copy),
-    through the fused stack when the step uses it."""
+                 eval_corpus: Corpus, dev, fused: bool) -> dict:
+    """The in-training evaluation of the (whole) params and of the EMA copy,
+    through the fused stack when `fused`."""
     from .eval import evaluate
 
-    kw = dict(max_batches=train.eval_batches, fused=train.fused_stack,
-              tapcat=train.tapcat and train.fused_stack, device=dev)
+    kw = dict(max_batches=train.eval_batches, fused=fused, tapcat=train.tapcat and fused,
+              device=dev)
     batch = train.eval_batch_size or train.batch_size
     ev = evaluate(state.params, arch, eval_corpus, batch, **kw)
     record = {f"eval_{k}": v for k, v in ev.items()}
@@ -339,14 +590,39 @@ def run_training(
     eval_corpus: Optional[Corpus] = None,
     device: Any = "cuda",
 ) -> TrainState:
-    """Full training run: data, resume, loop, checkpoints, metrics, and
-    every train.eval_every steps an evaluation of the held-out corpus
+    """Full training run: mesh, data, resume, loop, checkpoints, metrics,
+    and every train.eval_every steps an evaluation of the held-out corpus
     (`eval_corpus`, or train.eval_dir), logged as eval_* records (plus
     eval_ema_nll / eval_ema_accuracy with an EMA) and kept out of
-    step_time_ms."""
+    step_time_ms.
+
+    Across ranks (a running process group; `_train_mesh`) every rank calls
+    it: the sequence-parallel, the model-parallel or the data-parallel
+    step, in that order of precedence (JAX's routes); the loader unsharded
+    (sequence-parallel) or split by data rank (every model rank of one data
+    row loads the same rows); metrics and evaluation on rank (0, 0), the
+    evaluation unsharded on the whole params (unfused under model
+    sharding), with the numbers of a single-device `evaluate`; before every
+    checkpoint the divergence guard on every rank, then rank (0, 0) writes
+    the whole state (the sharded leaves and their moments gathered), and
+    every rank waits at a barrier; a restore re-slices. Returns this rank's
+    state (its slices under model sharding)."""
     arch, train = config.arch, config.train
     _check_supported(arch, train)
-    dev = resolve_device(device)
+    mesh = _train_mesh(train, device)
+    dev = mesh.device
+    lead = (mesh.data_rank, mesh.model_rank) == (0, 0)
+    # Model sharding holds the skip split; a sequence-parallel run's model
+    # ranks (unfused only, as in JAX) are replicas.
+    sharded = mesh.model > 1 and not train.seq_parallel
+    if train.seq_parallel:
+        step_fn = make_sp_train_step(mesh, arch, train)
+    elif sharded:
+        step_fn = make_tp_train_step(mesh, arch, train)
+    elif mesh.data > 1:
+        step_fn = make_dp_train_step(mesh, arch, train)
+    else:
+        step_fn = None
     if corpus is None:
         corpus = load_corpus(train.data_dir, arch, train.window_size)
     if eval_corpus is None and train.eval_dir:
@@ -354,16 +630,25 @@ def run_training(
     state = init_state(train.seed, arch, train, dev)
     manager = ckpt_lib.make_manager(train.checkpoint_dir)
     state, start_step = ckpt_lib.restore_if_available(manager, state)
-    batches = prefetch(make_batches(corpus, train, start_step=start_step,
-                                    with_mel=arch.use_local_cond))
-    metrics = MetricsLogger(train.metrics_path)
+    if sharded:
+        state = shard_state(state, mesh)
+    loader = (0, 1) if train.seq_parallel else (mesh.data_rank, mesh.data)
+    batches = prefetch(make_batches(corpus, train, host_id=loader[0], host_count=loader[1],
+                                    start_step=start_step, with_mel=arch.use_local_cond))
+    metrics = MetricsLogger(train.metrics_path, enabled=lead)
     total = n_steps if n_steps is not None else train.n_steps
     samples_per_step = train.batch_size * train.window_size
     t_last = time.perf_counter()
     try:
         for i in range(start_step, total):
-            batch = batch_to_device(next(batches), dev)
-            state, loss = train_step(state, batch, arch, train)
+            if train.seq_parallel:
+                batch = seq_batch_to_device(next(batches), mesh, train.window_size, dev)
+            else:
+                batch = batch_to_device(next(batches), dev)
+            if step_fn is None:
+                state, loss = train_step(state, batch, arch, train)
+            else:
+                state, loss = step_fn(state, batch)
             if (i + 1) % train.log_every == 0 or i + 1 == total:
                 loss_v = float(loss)  # waits for the step
                 now = time.perf_counter()
@@ -373,13 +658,25 @@ def run_training(
                 metrics.log(step=i + 1, loss=loss_v, lr=lr_at(train, i + 1),
                             samples_per_sec=samples_per_step * n_logged / dt,
                             step_time_ms=1000.0 * dt / n_logged)
+            whole = None
             if eval_corpus is not None and train.eval_every > 0 and (
                     (i + 1) % train.eval_every == 0 or i + 1 == total):
-                metrics.log(step=i + 1, **_eval_record(state, arch, train, eval_corpus, dev))
+                whole = gather_state(state, mesh) if sharded else state
+                if lead:
+                    metrics.log(step=i + 1, **_eval_record(
+                        whole, arch, train, eval_corpus, dev,
+                        fused=train.fused_stack and mesh.model == 1))
                 t_last = time.perf_counter()  # eval time is not step time
             if i + 1 == total or (train.checkpoint_every > 0
                                   and (i + 1) % train.checkpoint_every == 0):
-                ckpt_lib.save(manager, state, i + 1)
+                multihost.assert_replicated_params(state.params, i + 1,
+                                                   mesh if sharded else None)
+                if whole is None:
+                    whole = gather_state(state, mesh) if sharded else state
+                if lead:
+                    ckpt_lib.save(manager, whole, i + 1)
+                if dist.is_initialized():
+                    dist.barrier()
     finally:
         batches.close()
         metrics.close()

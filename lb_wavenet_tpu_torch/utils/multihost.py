@@ -1,5 +1,5 @@
-"""Process start-up for the port's meshes (what serving needs of
-`lb_wavenet_tpu/utils/multihost.py` and of the JAX CLI's
+"""Process start-up for the port's meshes and the training divergence guard
+(port of `lb_wavenet_tpu/utils/multihost.py` and of the JAX CLI's
 `_maybe_init_distributed`).
 
 A rank learns its place from torchrun's environment (RANK, WORLD_SIZE,
@@ -13,8 +13,14 @@ when ranks share a card (two ranks on one H100) or run on the CPU. NCCL
 refuses two ranks on one device; gloo sums CUDA tensors through host
 memory (`parallel.mesh.all_reduce_`).
 
-Not ported yet (ROADMAP.md A queue item 7b): `assert_replicated_params`,
-the training guard that all-gathers a parameter checksum.
+The guard (`params_checksum`, `assert_replicated_params`): every rank of a
+training mesh must hold the same parameters (the model axis: the same
+replicated leaves and its own slice of the sharded ones); a silent
+divergence (a non-deterministic input pipeline, a missed collective)
+corrupts training without crashing. Each rank takes the checksum of JAX's
+package (the same weighted sum), the sharded leaves' partial sums summed
+over the model group first (a rank's own slice would make the model ranks
+"diverge"), and every rank's checksum is all-gathered and compared.
 """
 from __future__ import annotations
 
@@ -81,3 +87,49 @@ def shutdown() -> None:
     """Leave the default process group (if this process joined one)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def _checksum_terms(params, mesh) -> torch.Tensor:
+    """(n_leaves, 2) fp32: each leaf's sum and sum of squares, in the order
+    of jax.tree.leaves, the SHARDED leaves' summed over the model group (one
+    collective)."""
+    from ..parallel.mesh import all_reduce_flat_, sharded_dim
+    from ..train import tree_leaves, tree_paths
+
+    terms = torch.stack([torch.stack([x.float().sum(), (x.float() * x.float()).sum()])
+                         for x in tree_leaves(params)])
+    if mesh is not None and mesh.model > 1:
+        rows = [i for i, p in enumerate(tree_paths(params)) if sharded_dim(p) is not None]
+        part = terms[rows].clone()
+        all_reduce_flat_([part], mesh.model_group, mesh.model)
+        terms[rows] = part
+    return terms
+
+
+def params_checksum(params, mesh=None) -> float:
+    """Order-stable scalar fingerprint of a parameter tree (fp32): the sum
+    over leaves i of sum(x_i) (1 + 0.001 i) + 0.5 sum(x_i^2), JAX's weights.
+    Under model sharding (`mesh` with a model axis) the sharded leaves'
+    sums are taken over the whole model group, so every rank of the mesh
+    gets the same number."""
+    terms = _checksum_terms(params, mesh)
+    acc = torch.zeros((), dtype=torch.float32, device=terms.device)
+    for i in range(terms.shape[0]):
+        acc = acc + terms[i, 0] * (1.0 + 0.001 * i) + terms[i, 1] * 0.5
+    return float(acc)
+
+
+def assert_replicated_params(params, step: int, mesh=None) -> None:
+    """Raise if the ranks disagree on the parameter checksum (every rank of
+    the default process group calls it; nothing happens in a process that
+    runs alone)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"   # NCCL gathers card tensors
+    mine = torch.tensor([params_checksum(params, mesh)], dtype=torch.float64, device=dev)
+    gathered = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, mine)
+    values = [float(g) for g in gathered]
+    if any(v != values[0] for v in values):
+        raise RuntimeError(
+            f"Cross-rank parameter divergence at step {step}: checksums {values}")

@@ -104,7 +104,7 @@ def test_bf16_d_embed_needs_rounded_pieces():
 def test_forward_with_fused_frontend_flag():
     """forward(fused_frontend=True) equals the unfused forward in fp32, and
     its frontend gradients equal autograd of the gather + conv; the
-    sequence-parallel mask raises naming its ROADMAP item."""
+    sequence-parallel mask is ported: an all-ones mask changes nothing."""
     arch = PArch(n_blocks=1, n_layers_per_block=3, residual_channels=8, skip_channels=8,
                  gate_channels=8, compute_dtype="float32")
     x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 40)).astype(np.int32))
@@ -120,8 +120,10 @@ def test_forward_with_fused_frontend_flag():
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
     p = init_params(4, arch)
-    with pytest.raises(NotImplementedError, match="A queue item 7"):
-        F.fused_frontend(p["embed"], p["input_conv"], x, input_mask=torch.ones(2, 40))
+    kw = dict(compute_dtype="float32")
+    torch.testing.assert_close(
+        F.fused_frontend(p["embed"], p["input_conv"], x, input_mask=torch.ones(2, 40), **kw),
+        F.fused_frontend(p["embed"], p["input_conv"], x, **kw), rtol=0, atol=0)
 
 
 def test_out_of_range_classes_embed_to_zero():

@@ -172,9 +172,9 @@ def test_plain_backward_matches_autograd_of_plain_forward():
 
 
 def test_unported_variants_and_devices_raise():
-    """The sequence-parallel mask still raises (A queue item 7b); the
-    conditioned stack is ported and wants its cond exactly when built with
-    has_cond; a device that is neither cpu nor cuda raises."""
+    """The conditioned and the masked stacks are ported and want their
+    cond and mask exactly when built with has_cond and has_mask; a device
+    that is neither cpu nor cuda raises."""
     parch = PArch(**dataclasses.asdict(MICRO))
     h, lp0 = torch.zeros((B, T, 8)), {k: torch.tensor(np.asarray(v)) for k, v in
                                       init_params(jax.random.key(0), MICRO)["layers"].items()}
@@ -182,8 +182,8 @@ def test_unported_variants_and_devices_raise():
         TS.make_fused_stack(parch, has_cond=True)(lp0, h)
     with pytest.raises(ValueError, match="has_cond=False"):
         TS.make_fused_stack(parch)(lp0, h, torch.zeros((B, T, 8)))
-    with pytest.raises(NotImplementedError, match="A queue item 7"):
-        TS.make_fused_stack(parch, has_mask=True)
+    with pytest.raises(ValueError, match="has_mask=True"):
+        TS.make_fused_stack(parch, has_mask=True)(lp0, h)
     lp = {k: torch.zeros(v.shape, device="meta")
           for k, v in init_params(jax.random.key(0), MICRO)["layers"].items()}
     with pytest.raises(ValueError, match="cpu or cuda"):
