@@ -29,7 +29,14 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      fused_stack at B=512 and B=100 is bit-identical to its plain version
      on its bf16 tensor-core route (tc::stack_tc_kernel); then the CUDA-core
      routes of fused_stack and tp_fused_stack (fp32, and bf16 at C=24)
-     within their tolerances;
+     within their tolerances; `mega_vmem`, mega's on-chip ring layout
+     (WAVENET_MEGA_VMEM_D, B2v): one-shot mega through generate_classes at
+     D = 2, 4, 8 (B=512, 1024 steps: teacher-forced classes and logits and
+     a sampled free run bit for bit against D = 1), D = 4 against the plain
+     version (128 teacher-forced steps, bit for bit), D = 4 conditioned
+     (wavenet30_mel.json, B=64) and on the CUDA-core route (fp32; bf16 at
+     C=24), the ValueError at D = 16, ms per launch at each D beside D = 1
+     with its weight slots and shared memory;
   3. serving: SessionPool(engine="mega", device="cuda"), pool batch 512,
      chunk 1024, pipelined, 12 requests of 8000-24000 samples with seeds and
      temperatures {0, 0.7, 1.0}, the last 4 on recycled lanes; a sampled
@@ -41,6 +48,18 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      multiple of the lane tile), 6 requests with seeds and temperatures, a
      sampled one replayed bit-identically on a dedicated session, and
      `cli serve --set gen.engine=turbo` writing the pool's audio;
+     `export_serving`: a per-lane mega artifact (B=512, chunk 1024, by
+     `cli export`) and a turbo one (B=100), loaded by a fresh `python -c`
+     process that serves phases 3's and 5's requests through
+     SessionPool(artifact=...) with the same audio bit for bit, imports
+     no model code, launches the kernels (its own counters), keeps the ring
+     in place, and times a chunk beside the in-process one; a model-sharded
+     turbo artifact of the stress config (B=256) on one NCCL rank against
+     ShardedSession with a lane reset; `http_serving`: `cli serve --listen`
+     on a mega pool of 64, from the checkpoint and from a per-lane artifact,
+     8 concurrent POSTs (seeds, temperatures {0, 0.7, 1.0}) each equal to a
+     dedicated session, /healthz with the server's kernel launches, the
+     request latencies (p50, p95);
      then bf16 mega and turbo at C=24, a width the tensor-core kernels do
      not take, through their CUDA-core route (B=64, 128 teacher-forced
      steps, within LOGIT_ATOL);
@@ -975,6 +994,7 @@ def phase_serving(params, arch, gpu):
     require(same, f"replay of {rep['id']} on a dedicated session differs")
 
     cli_serve(params, arch, requests, out, "mega", B, gpu)
+    SERVED["mega"] = (requests, out)
     return launches
 
 
@@ -1065,6 +1085,7 @@ def phase_turbo_serving(params, arch, gpu):
                     "temperature": rep["temperature"], "bit_identical": same}))
     require(same, f"turbo replay of {rep['id']} on a dedicated session differs")
     cli_serve(params, arch, requests, out, "turbo", TURBO_POOL, gpu)
+    SERVED["turbo"] = (requests, out)
     return launches
 
 
@@ -3467,6 +3488,9 @@ def phase_timing(params, arch, errs, launches, gpu, tp, mel, mel_train, extra_ro
         kernels.append(row)
     kernels += phase_mel_timing(*mel, errs, launches, gpu)
     kernels += cond_train_rows(*mel_train, launches, gpu)
+    for row in extra_rows:
+        if row["name"] == "mega_generate_vmem":   # row 2's function, plain version and shape
+            row["plain_ms"] = mega_plain
     kernels += list(extra_rows)
     train_shape = {"B": TRAIN_B, "W": TRAIN_W, "T": arch.receptive_field - 1 + TRAIN_W,
                    "tapcat": True}
@@ -4270,6 +4294,504 @@ def leaf_errs_np(got, want, prefix=""):
     return {prefix[:-1]: float(np.abs(np.asarray(got) - want).max()) / scale}
 
 
+# ---- mega's on-chip ring layout (B2v), serving artifacts, HTTP -------------
+
+VMEM_DS = (2, 4, 8)     # WAVENET_MEGA_VMEM_D values held against D = 1
+VMEM_TOO_BIG = 16       # leaves WaveNet-30's tensor-core kernel under 2 weight slots
+VMEM_PLAIN_T = 128      # teacher-forced steps of the D = 4 kernel-vs-plain check
+VMEM_MEL_T = 256        # steps of the conditioned and CUDA-core D = 4 checks
+SERVED = {}             # engine -> (requests, {id: classes}) of the in-process pools
+HTTP_POOL = 64          # the --listen pool (configs/wavenet30.json gen.batch_size)
+ART_TP_CHUNK = 64       # steps per chunk of the sharded artifact check
+
+
+@contextlib.contextmanager
+def vmem_d(d: int):
+    """WAVENET_MEGA_VMEM_D=d for the block (generate_classes reads it per call)."""
+    old = os.environ.get("WAVENET_MEGA_VMEM_D")
+    os.environ["WAVENET_MEGA_VMEM_D"] = str(d)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("WAVENET_MEGA_VMEM_D")
+        else:
+            os.environ["WAVENET_MEGA_VMEM_D"] = old
+
+
+def vmem_one_shot(params, arch, b: int, t: int, d: int, cond=None):
+    """One-shot mega through generate_classes at WAVENET_MEGA_VMEM_D=d:
+    (teacher-forced classes, logits) on random classes, and free-running
+    sampled classes (per-lane hash), from fixed seeds."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    forced = torch.randint(0, arch.quant_channels, (b, t), device="cuda", dtype=torch.int32,
+                           generator=gen)
+    with vmem_d(d):
+        cls, logits = G.generate_classes(params, arch, 9, b, t, cond=cond, forced=forced,
+                                         temperature=1.0, return_logits=True, engine="mega")
+        free = G.generate_classes(params, arch, 9, b, t, cond=cond, temperature=1.0,
+                                  engine="mega")
+    torch.cuda.synchronize()
+    return cls, logits, free
+
+
+def phase_mega_vmem(params, arch, gpu):
+    """B2v, mega's on-chip ring layout: one-shot mega through generate_classes
+    at D = 2, 4, 8 on WaveNet-30's tensor-core route (B = 512, CHUNK steps:
+    teacher-forced classes and logits, and a sampled free run, bit for bit
+    against D = 1), D = 4 against the plain version, D = 4 conditioned
+    (wavenet30_mel.json) and on the CUDA-core route (fp32, and bf16 at
+    C = 24), the ValueError of a D whose rings leave no room for two weight
+    slots, and the timings. Returns the kernels line's row."""
+    import dataclasses
+
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype, init_params
+    from lb_wavenet_tpu_torch.ops.cuda import ar_mega, ar_tc
+
+    require(ar_tc.route(arch, compute_dtype(arch)) == "tensor_cores",
+            "WaveNet-30 left the tensor-core route")
+    with comparison_launches():
+        ref = vmem_one_shot(params, arch, B, CHUNK, 1)
+    same = {}
+    launches = 0
+    for d in VMEM_DS:
+        ar_mega.mega_generate.launches = 0     # the main path of this slice: D = 4
+        got = vmem_one_shot(params, arch, B, CHUNK, d)
+        if d == 4:
+            launches = ar_mega.mega_generate.launches
+        same[d] = [bool(torch.equal(x, y)) for x, y in zip(got, ref)]
+        del got
+    log(json.dumps({"phase": "mega_vmem_vs_d1", "gpu": gpu, "B": B, "T": CHUNK,
+                    "route": "tensor_cores",
+                    "bit_identical_forced_classes_logits_free_classes": same}))
+    require(all(all(v) for v in same.values()), f"on-chip rings change mega's output: {same}")
+    require(launches == 2, f"generate_classes at D=4 launched mega {launches} times, not 2")
+    del ref
+
+    # D = 4 kernel against the plain version, teacher-forced, 3-row lanes.
+    h0, e0 = G._fused_frontend_zero(params, arch, B)
+    lp = params["layers"]
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    forced = torch.randint(0, arch.quant_channels, (VMEM_PLAIN_T, B), device="cuda",
+                           dtype=torch.int32, generator=gen)
+    inv = torch.tensor([0.0, 1 / 0.7, 1.0], device="cuda").repeat(B // 3 + 1)[:B]
+    lane = torch.stack([torch.arange(B, device="cuda", dtype=torch.int32) * 7919,
+                        torch.zeros(B, device="cuda", dtype=torch.int32),
+                        inv.view(torch.int32)])
+    with comparison_launches():
+        ck, cp = (ar_mega.mega_zero_carry(arch, h0, e0) for _ in range(2))
+        kc, kl = ar_mega.mega_generate_cuda(params, lp, arch, ck, 0, forced, 1.0, True, lane,
+                                            5, vmem_d=4)
+        pc, pl = ar_mega.mega_generate_plain(params, lp, arch, cp, 0, forced, 1.0, True, lane,
+                                             5, vmem_d=4)
+        torch.cuda.synchronize()
+    plain_err = abs_err(kl, pl)
+    log(json.dumps({"phase": "mega_vmem_vs_plain", "gpu": gpu, "D": 4, "B": B,
+                    "T": VMEM_PLAIN_T, "lane_rows": 3, "max_abs_logit_err": plain_err,
+                    "classes_equal": bool(torch.equal(kc, pc)),
+                    "h_s_equal": bool(torch.equal(ck["h_s"], cp["h_s"]))}))
+    require(plain_err == 0.0 and torch.equal(kc, pc),
+            f"mega at D=4 differs from the plain version: {plain_err}")
+    del ck, cp, kl, pl
+
+    # Conditioned (mel, B = 64) and the CUDA-core route (fp32; bf16 C = 24).
+    mel_arch, mel_params = mel_setup()
+    cond = torch.randn((MEL_B, VMEM_MEL_T, mel_arch.cond_channels), device="cuda",
+                       generator=gen).to(compute_dtype(mel_arch))
+    cases = {"cond_mel": (mel_params, mel_arch, cond)}
+    for tag, a in (("cuda_core_fp32", dataclasses.replace(arch, compute_dtype="float32")),
+                   ("cuda_core_bf16_C24", dataclasses.replace(arch, residual_channels=24))):
+        require(ar_tc.route(a, compute_dtype(a)) == "cuda_cores", f"{tag} left its route")
+        cases[tag] = (init_params(33, a, "cuda"), a, None)
+    other = {}
+    with comparison_launches():
+        for tag, (p, a, cnd) in cases.items():
+            want = vmem_one_shot(p, a, MEL_B, VMEM_MEL_T, 1, cnd)
+            got = vmem_one_shot(p, a, MEL_B, VMEM_MEL_T, 4, cnd)
+            other[tag] = all(bool(torch.equal(x, y)) for x, y in zip(got, want))
+    log(json.dumps({"phase": "mega_vmem_other_routes", "gpu": gpu, "D": 4, "B": MEL_B,
+                    "T": VMEM_MEL_T, "bit_identical_to_d1": other}))
+    require(all(other.values()), f"on-chip rings change mega's output: {other}")
+
+    # A D whose rings leave the tensor-core kernel under two weight slots.
+    try:
+        with vmem_d(VMEM_TOO_BIG), comparison_launches():
+            G.generate_classes(params, arch, 9, B, 8, temperature=0.0, engine="mega")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log(json.dumps({"phase": "mega_vmem_refused", "D": VMEM_TOO_BIG, "error": refused}))
+    require(refused is not None and "bytes" in refused,
+            f"WAVENET_MEGA_VMEM_D={VMEM_TOO_BIG} was not refused with the bytes: {refused}")
+
+    # Timing: ms per CHUNK-step launch at B, each D beside D = 1 in turns.
+    carry = ar_mega.mega_zero_carry(arch, h0, e0)
+    free = torch.full((CHUNK, B), -1, device="cuda", dtype=torch.int32)
+    ms = {d: [] for d in (1, *VMEM_DS)}
+    smem = {}
+    with comparison_launches():
+        for _ in range(2):
+            for d in (1, *VMEM_DS):
+                ms[d].append(cuda_ms(lambda: ar_mega.mega_generate_cuda(
+                    params, lp, arch, carry, 0, free, 1.0, False, lane, 0, vmem_d=d), 2))
+                smem[d] = tc_smem()["mega_tc_kernel"]
+    c = arch.residual_channels
+    fixed = smem[1] - 6 * 32768          # activations at D = 1 (six weight slots)
+    rows = {d: ar_mega.vmem_rows(arch.dilations, d) for d in (1, *VMEM_DS)}
+    per_d = {f"D={d}": {"ms": sum(v) / len(v), "ms_runs": v, "dynamic_smem_bytes": smem[d],
+                        "on_chip_ring_rows": rows[d],
+                        "weight_slots": (smem[d] - fixed - rows[d] * c * 8 * 4) // 32768}
+             for d, v in ms.items()}
+    wbytes = torch.finfo(compute_dtype(arch)).bits // 8
+    bms, by = bound_ms(*mega_cost(arch, B, CHUNK, 3, wbytes))
+    log(json.dumps({"phase": "mega_vmem_timing", "gpu": gpu, "B": B, "T": CHUNK,
+                    "lane_rows": 3, "by_d": per_d, "bound_ms": bms, "bound_by": by,
+                    "ptxas": {k: v for k, v in tc_ptxas().items() if "mega" in k}}))
+    return {"name": "mega_generate_vmem", "route": "cuda",
+            "source": "lb_wavenet_tpu_torch/csrc/ar_mega.cu",
+            "replaces": "lb_wavenet_tpu/ops/pallas/ar_mega.py:101",
+            "launches": launches, "max_abs_err": plain_err,
+            "ms": per_d["D=4"]["ms"], "plain_ms": None, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "unit": f"ms per launch ({CHUNK} steps, B={B}, WAVENET_MEGA_VMEM_D=4)",
+            "ms_d1_same_call": per_d["D=1"]["ms"]}
+
+
+def _artifact_pool_script(work: str) -> str:
+    """A fresh interpreter's program: load the params and the per-lane
+    artifacts, serve the in-process pools' requests through SessionPool
+    (artifact=...), time chunks, and save what it saw."""
+    return f"""
+import json, sys, time
+import numpy as np, torch
+from lb_wavenet_tpu_torch.serving import SessionPool
+from lb_wavenet_tpu_torch.utils.export import load_serving
+from lb_wavenet_tpu_torch.server import kernel_launches
+work = {work!r}
+params = torch.load(work + "/params.pt")
+spec = json.load(open(work + "/spec.json"))
+res = {{}}
+for name, s in spec.items():
+    art = load_serving(work + "/" + name)
+    pool = SessionPool(params, art.arch, s["batch"], 0, artifact=art, temperature=1.0,
+                       pipeline=True, device="cuda")
+    before = kernel_launches()
+    queue, out, parts = list(s["requests"]), {{}}, {{}}
+    def submit(r):
+        assert pool.submit(r["id"], r["n_samples"], seed=r["seed"], temperature=r["temperature"])
+        parts[r["id"]] = []
+    for r in queue[: s["first_wave"]]:
+        submit(r)
+    queue = queue[s["first_wave"]:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while pool.active or queue:
+        for rid, (c, done) in pool.step().items():
+            parts[rid].append(c)
+            if done:
+                out[rid] = np.concatenate(parts.pop(rid))
+                if queue:
+                    submit(queue.pop(0))
+    wall = time.perf_counter() - t0
+    after = kernel_launches()
+    np.savez(work + "/" + name + "_out.npz", **out)
+    # ms per chunk through the artifact, and the ring not copied per call.
+    st = art.init(params, 1)
+    lane = torch.stack([torch.arange(s["batch"], dtype=torch.int32) * 7919,
+                        torch.zeros(s["batch"], dtype=torch.int32),
+                        torch.full((s["batch"],), 1 / 0.7).view(torch.int32)]).cuda()
+    ptr = st["bufs"].data_ptr()
+    art.step(params, st, lane=lane)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ts = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        _, st = art.step(params, st, lane=lane)
+        torch.cuda.synchronize()
+        ts.append(1000 * (time.perf_counter() - t1))
+    res[name] = {{"launches": {{k: after[k] - before[k] for k in after}}, "wall_s": wall,
+                 "steps": pool.stats["steps"], "chunk_ms": ts,
+                 "ring_bytes": st["bufs"].numel() * 4, "ring_in_place": st["bufs"].data_ptr() == ptr,
+                 "peak_extra_bytes_per_chunk": torch.cuda.max_memory_allocated() - base,
+                 "device_kind": art.manifest["device_kind"]}}
+res["modules"] = sorted(m for m in sys.modules if m.startswith("lb_wavenet_tpu_torch."))
+print(json.dumps(res))
+"""
+
+
+def inprocess_chunk_ms(params, arch, engine: str, b: int) -> list:
+    """ms per chunk of stream_chunk on an in-process session at batch b
+    with the pool's 3-row lane block (host clock around a synchronised
+    call), beside the artifact's."""
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+
+    s = G.start_stream(arch, b, 1, engine=engine, params=params)
+    kw = dict(lane_seed=torch.arange(b, dtype=torch.int32).cuda() * 7919,
+              lane_t0=torch.zeros(b, dtype=torch.int32).cuda(),
+              lane_inv_temp=torch.full((b,), 1 / 0.7).cuda())
+    with comparison_launches():
+        G.stream_chunk(params, arch, s, CHUNK, temperature=1.0, engine=engine, **kw)
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, s = G.stream_chunk(params, arch, s, CHUNK, temperature=1.0, engine=engine, **kw)
+            torch.cuda.synchronize()
+            out.append(1000 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_export_serving(params, arch, gpu):
+    """Serving artifacts: a mega (per-lane, B = 512, CHUNK; by `cli export`)
+    and a turbo (per-lane, TURBO_POOL) artifact, loaded by a fresh
+    interpreter that serves the serving phases' requests through
+    SessionPool(artifact=...): the audio equals the in-process pools' bit
+    for bit, that process's launch counters show the hand-written kernels,
+    and its ms per chunk stands beside the in-process chunk. Then a
+    model-sharded artifact on one NCCL rank at the stress config against
+    ShardedSession."""
+    import numpy as np
+    import torch
+
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+    from lb_wavenet_tpu_torch.utils.export import export_serving
+
+    work = os.path.join(BUILD, "chip_smoke_art")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([
+            sys.executable, "-m", "lb_wavenet_tpu_torch.cli", "export",
+            "--config", os.path.join(ROOT, "configs", "wavenet30.json"),
+            "--out", os.path.join(work, "mega"), "--engine", "mega", "--batch", str(B),
+            "--chunk", str(CHUNK), "--per-lane", "--set", "gen.temperature=1.0"],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        require(proc.returncode == 0, f"cli export failed:\n{proc.stderr[-4000:]}")
+        t1 = time.perf_counter()
+        export_serving(params, arch, TURBO_POOL, CHUNK, os.path.join(work, "turbo"),
+                       engine="turbo", temperature=1.0, per_lane=True)
+        t2 = time.perf_counter()
+        torch.save({k: v for k, v in params.items()}, os.path.join(work, "params.pt"))
+        spec = {"mega": {"batch": B, "first_wave": 8, "requests": SERVED["mega"][0]},
+                "turbo": {"batch": TURBO_POOL, "first_wave": 4,
+                          "requests": SERVED["turbo"][0]}}
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        proc = subprocess.run([sys.executable, "-c", _artifact_pool_script(work)],
+                              capture_output=True, text=True, cwd=ROOT, timeout=900)
+        require(proc.returncode == 0, f"artifact pool process failed:\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        mods = [m for m in res.pop("modules")
+                if m.startswith(("lb_wavenet_tpu_torch.models", "lb_wavenet_tpu_torch.generate"))]
+        require(not mods, f"the artifact process imported model code: {mods}")
+        equal = {}
+        for name, (requests, want) in SERVED.items():
+            got = np.load(os.path.join(work, f"{name}_out.npz"))
+            equal[name] = all(np.array_equal(got[r["id"]], want[r["id"]]) for r in requests)
+        inproc = {"mega": inprocess_chunk_ms(params, arch, "mega", B),
+                  "turbo": inprocess_chunk_ms(params, arch, "turbo", TURBO_POOL)}
+        log(json.dumps({
+            "phase": "export_serving", "gpu": gpu, "export_s": {"mega_cli": t1 - t0,
+                                                                "turbo": t2 - t1},
+            "audio_equal_to_in_process_pool": equal,
+            "artifact": res, "in_process_chunk_ms": inproc, "chunk": CHUNK,
+            "batch": {"mega": B, "turbo": TURBO_POOL}}))
+        require(all(equal.values()), f"artifact pools' audio differs: {equal}")
+        require(res["mega"]["launches"]["mega_generate"] == res["mega"]["steps"],
+                f"the mega artifact pool launched mega {res['mega']['launches']}")
+        require(res["turbo"]["launches"]["turbo_step"] == res["turbo"]["steps"] * CHUNK,
+                f"the turbo artifact pool launched turbo {res['turbo']['launches']}")
+        for name in res:
+            require(res[name]["ring_in_place"] and
+                    res[name]["peak_extra_bytes_per_chunk"] < res[name]["ring_bytes"] // 4,
+                    f"the {name} artifact copies its ring per chunk: {res[name]}")
+        sharded = artifact_sharded_1rank(work, gpu)
+        return {"mega_generate": res["mega"]["launches"]["mega_generate"],
+                "turbo_step": res["turbo"]["launches"]["turbo_step"],
+                "tp_fused_stack": sharded}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def artifact_sharded_1rank(work: str, gpu) -> int:
+    """A model-sharded turbo artifact of the stress config (B = TP_B) on one
+    NCCL rank in this process, against ShardedSession chunk for chunk with
+    a lane reset; returns B7's launches through the artifact."""
+    import torch
+
+    from lb_wavenet_tpu_torch.ops.cuda import ar_tp
+    from lb_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from lb_wavenet_tpu_torch.parallel.synthesis import ShardedSession
+    from lb_wavenet_tpu_torch.utils.export import export_sharded_serving, load_serving
+    from lb_wavenet_tpu_torch.utils.multihost import init_distributed, shutdown
+
+    arch, params = tp_setup()
+    art_dir = os.path.join(work, "sharded")
+    export_sharded_serving(params, arch, TP_B, ART_TP_CHUNK, art_dir, engine="turbo",
+                           temperature=1.0, mesh_data=1, mesh_model=1)
+    mask = torch.zeros(TP_B, dtype=torch.bool)
+    mask[1::7] = True
+    try:
+        init_distributed(device="cuda", init_method=f"file://{work}/store", rank=0,
+                         world_size=1)
+        mesh = make_mesh(1, 1)
+        art = load_serving(art_dir)
+        placed = art.place_params(params)
+        state = art.init(placed, TP_SEED)
+        ar_tp.tp_fused_stack.launches = 0
+        got = []
+        for i in range(3):
+            cls, state = art.step(placed, state)
+            got.append(cls)
+            if i == 0:
+                state = art.reset(placed, state, mask)
+        torch.cuda.synchronize()
+        launches = ar_tp.tp_fused_stack.launches
+        with comparison_launches():
+            sess = ShardedSession(params, arch, TP_B, TP_SEED, mesh, engine="turbo")
+            want = []
+            for i in range(3):
+                want.append(sess.chunk(ART_TP_CHUNK, temperature=1.0))
+                if i == 0:
+                    sess.reset_lanes(mask)
+        same = bool(torch.equal(torch.cat(got, 1), torch.cat(want, 1)))
+        log(json.dumps({"phase": "export_sharded_1rank", "gpu": gpu,
+                        "config": "configs/stress_gen.json", "B": TP_B,
+                        "steps": 3 * ART_TP_CHUNK, "backend": mesh.backend,
+                        "bit_identical_to_sharded_session": same,
+                        "tp_fused_stack_launches": launches}))
+        require(same, "the sharded artifact differs from ShardedSession")
+        require(launches == 3 * ART_TP_CHUNK, f"B7 launched {launches} times")
+        return launches
+    finally:
+        shutdown()
+
+
+def _post(url: str, payload: dict):
+    import urllib.request
+
+    req = urllib.request.Request(url + "/synthesize", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = json.loads(r.read())
+    return body, time.perf_counter() - t0
+
+
+def http_round(cmd, requests, work, tag):
+    """Start `cli serve --listen` (cmd), send the requests concurrently,
+    read /healthz, stop the server. Returns ({id: classes}, {id: latency s},
+    healthz)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    log_path = os.path.join(work, f"{tag}.log")
+    with open(log_path, "w") as errf:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=errf, text=True, cwd=ROOT)
+    try:
+        import select
+
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        line = proc.stdout.readline() if ready else ""
+        require(line.strip().startswith("{"),
+                f"{tag}: the server did not start:\n{open(log_path).read()[-4000:]}")
+        url = "http://" + json.loads(line)["listening"]
+        out, lat, errors = {}, {}, []
+
+        def go(r):
+            try:
+                body, s = _post(url, {"n_samples": r["n_samples"], "seed": r["seed"],
+                                      "temperature": r["temperature"], "format": "classes"})
+                out[r["id"]] = np.asarray(body["classes"], np.int32)
+                lat[r["id"]] = s
+            except Exception as e:  # noqa: BLE001 (reported below)
+                errors.append(f"{r['id']}: {e}")
+
+        threads = [threading.Thread(target=go, args=(r,)) for r in requests]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        require(not errors and len(out) == len(requests), f"{tag}: {errors}")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        return out, lat, health
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def phase_http_serving(params, arch, gpu):
+    """`cli serve --listen` on a mega pool of HTTP_POOL, from the checkpoint
+    and from a per-lane artifact: 8 concurrent POSTs with seeds and
+    temperatures {0, 0.7, 1.0}, each response equal to a dedicated session
+    (a pool of one), /healthz with the server's kernel launches, and the
+    request latencies."""
+    import numpy as np
+
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+    from lb_wavenet_tpu_torch.utils.checkpoint import save_params
+    from lb_wavenet_tpu_torch.utils.export import export_serving
+
+    requests = [{"id": f"h{i}", "n_samples": 4000 + 1237 * i, "seed": 300 + 11 * i,
+                 "temperature": (0.0, 0.7, 1.0)[i % 3]} for i in range(8)]
+    work = os.path.join(BUILD, "chip_smoke_http")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        save_params(os.path.join(work, "ckpt"), params, 0)
+        export_serving(params, arch, HTTP_POOL, CHUNK, os.path.join(work, "art"),
+                       engine="mega", temperature=1.0, per_lane=True)
+        base = [sys.executable, "-m", "lb_wavenet_tpu_torch.cli", "serve",
+                "--config", os.path.join(ROOT, "configs", "wavenet30.json"),
+                "--listen", "127.0.0.1:0", "--stream-chunk", str(CHUNK),
+                "--set", f"gen.checkpoint_dir={os.path.join(work, 'ckpt')}",
+                "--set", f"gen.batch_size={HTTP_POOL}", "--set", "gen.temperature=1.0",
+                "--set", "gen.engine=mega"]
+        with comparison_launches():
+            want = {r["id"]: serve_pool(params, arch, [r], 1, first_wave=1)[0][r["id"]]
+                    for r in requests}
+        report = {}
+        for tag, cmd in (("params", base),
+                         ("artifact", base + ["--artifact", os.path.join(work, "art")])):
+            out, lat, health = http_round(cmd, requests, work, tag)
+            equal = all(np.array_equal(out[r["id"]], want[r["id"]]) for r in requests)
+            ms = sorted(1000 * v for v in lat.values())
+            report[tag] = {"equal_to_dedicated_sessions": equal,
+                           "latency_ms": {"p50": float(np.percentile(ms, 50)),
+                                          "p95": float(np.percentile(ms, 95)),
+                                          "max": ms[-1], "all": ms},
+                           "healthz": health}
+            require(equal, f"HTTP ({tag}) responses differ from dedicated sessions")
+            require(health["ok"] and health["kernel_launches"]["mega_generate"] > 0,
+                    f"HTTP ({tag}): the server never launched the mega kernel: {health}")
+        total = sum(r["n_samples"] for r in requests)
+        log(json.dumps({"phase": "http_serving", "gpu": gpu, "pool_batch": HTTP_POOL,
+                        "chunk": CHUNK, "requests": len(requests), "concurrent": True,
+                        "audio_sec": total / arch.sample_rate, **report}))
+        return report["params"]["healthz"]["kernel_launches"]["mega_generate"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's seconds."""
     t0 = time.perf_counter()
@@ -4301,6 +4823,7 @@ def main() -> int:
         arch = Config.load(os.path.join(ROOT, "configs", "wavenet30.json")).arch
         params = params_from_jax(numpy_params(arch, 0), device="cuda")
         errs = timed("kernels", phase_kernels, params, arch, gpu)
+        vmem_row = timed("mega_vmem", phase_mega_vmem, params, arch, gpu)
         errs.update(timed("turbo_kernels", phase_turbo_kernels, params, arch, gpu))
         timed("cuda_core_sampling", phase_cuda_core_sampling, arch, gpu)
         timed("stack_cuda_core", phase_stack_cuda_core, arch, gpu)
@@ -4312,6 +4835,10 @@ def main() -> int:
                                          gpu),
                     "turbo_step": timed("turbo_serving", phase_turbo_serving, params, arch,
                                         gpu)}
+        art_launches = timed("export_serving", phase_export_serving, params, arch, gpu)
+        http_launches = timed("http_serving", phase_http_serving, params, arch, gpu)
+        log(json.dumps({"phase": "artifact_and_http_launches", "artifact_process":
+                        art_launches, "http_server_mega_generate": http_launches}))
         tp_arch, tp_params = tp_setup()
         errs.update(timed("tp_kernel", phase_tp_kernel, tp_params, tp_arch, gpu))
         launches["tp_fused_stack"], one_rank, tp_measured = timed(
@@ -4335,7 +4862,8 @@ def main() -> int:
         launches.update(train_launches)
         timed("timing", phase_timing, params, arch, errs, launches, gpu,
               (tp_arch, tp_params, tp_measured), (mel_params, mel_arch, mel_measured),
-              (mel_arch, cond_stack, mel_trained), mask_rows(mel_arch, masked, mask_launches))
+              (mel_arch, cond_stack, mel_trained),
+              [*mask_rows(mel_arch, masked, mask_launches), vmem_row])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1,5 +1,5 @@
-"""Command-line entry points of the port: `train`, `eval`, `serve --requests`
-and `generate` (the in-process parts of `lb_wavenet_tpu/cli.py`).
+"""Command-line entry points of the port: `train`, `eval`, `serve`,
+`generate` and `export` (the parts of `lb_wavenet_tpu/cli.py` ported so far).
 
     python -m lb_wavenet_tpu_torch.cli train --config configs/wavenet30.json \
         --set train.data_dir=/data/wavs
@@ -45,15 +45,29 @@ Rank (0, 0) logs the metrics, writes the checkpoints and prints the summary
 line, which states the mesh and its backend (gloo when the ranks share a
 card or run on the CPU, NCCL when each has its own).
 
+Serving from a frozen artifact (utils/export.py) and over HTTP (server.py):
+
+    python -m lb_wavenet_tpu_torch.cli export --config configs/wavenet30.json \
+        --out /art/mega --engine mega --batch 512 --chunk 1024 --per-lane
+    python -m lb_wavenet_tpu_torch.cli serve --config configs/wavenet30.json \
+        --artifact /art/mega --listen 127.0.0.1:8000 --set gen.batch_size=512 \
+        --set gen.checkpoint_dir=/ckpt
+    python -m lb_wavenet_tpu_torch.cli generate --config configs/wavenet30.json \
+        --artifact /art/turbo --set gen.checkpoint_dir=/ckpt
+
+`export` writes the programs for the device it runs on (`--device`);
+weights are not baked in: `generate`/`serve --artifact` read them from
+gen.checkpoint_dir. `serve --listen HOST:PORT` answers POST /synthesize and
+GET /healthz (server.py) instead of replaying a --requests file.
+
 `--set section.key=value` overrides any config field (values parsed as JSON,
 falling back to string). `--device` defaults to `cuda`; pass `--device cpu`
 to run the plain PyTorch paths. `train` writes its checkpoints to
 train.checkpoint_dir and resumes from them; `generate`/`serve` read the
 params of the latest checkpoint in gen.checkpoint_dir (a training directory
 or `utils.checkpoint.save_params` files), and so does `eval`. The other
-subcommands (info, export, warm, pack), `train --profile`, `generate
---prime` and the serving options (--listen, --artifact) are ROADMAP.md
-items.
+subcommands (info, warm, pack), `train --profile` and `generate --prime`
+are ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -243,10 +257,45 @@ def cmd_serve(args) -> int:
     from .serving import SessionPool
     from .utils.checkpoint import restore_params
 
-    requests = _read_requests(args.requests, cfg)
+    if args.listen and args.requests:
+        raise SystemExit("pass --requests FILE or --listen HOST:PORT, not both")
+    if not args.listen and not args.requests:
+        raise SystemExit("pass --requests FILE (batch) or --listen HOST:PORT (online daemon)")
+    if args.listen and args.deliver == "request":
+        # Request-mode ring capacity is sized from the batch file's longest
+        # request; an online daemon has no such bound up front.
+        raise SystemExit("--listen serves with chunk delivery; drop --deliver request")
+    if args.listen and _distributed(args):
+        raise SystemExit("--listen serves a single-process pool; drop --mesh-model / torchrun")
+    requests = _read_requests(args.requests, cfg) if args.requests else []
     params = restore_params(cfg.gen.checkpoint_dir)
     chunk = args.stream_chunk or 1024
     engine = _engine(cfg, "mega")
+    art = None
+    if args.artifact:
+        # A FROZEN per-lane artifact: engine and chunk from its manifest,
+        # the weights from the checkpoint (artifacts do not bake them in).
+        from .utils.export import load_serving
+
+        art = load_serving(args.artifact)
+        if not art.manifest.get("per_lane"):
+            raise SystemExit(f"{args.artifact}: pool serving needs a per-lane artifact "
+                             "(re-export with `cli export --per-lane`)")
+        if art.arch != cfg.arch:
+            raise SystemExit(f"{args.artifact}: artifact arch does not match the "
+                             "configured arch")
+        if _distributed(args):
+            raise SystemExit("--artifact pools are single-device")
+        if cfg.gen.global_rng:
+            raise SystemExit("--artifact pools use per-lane sampling (gen.global_rng=false)")
+        if cfg.gen.temperature <= 0.0:
+            raise SystemExit("--artifact pools need gen.temperature > 0 (greedy requests "
+                             'are "temperature": 0 submits)')
+        if args.stream_chunk and args.stream_chunk != art.manifest["chunk_size"]:
+            raise SystemExit(f"--stream-chunk {args.stream_chunk} != artifact chunk "
+                             f"{art.manifest['chunk_size']}")
+        chunk = int(art.manifest["chunk_size"])
+        engine = art.manifest["engine"]
     mesh, started = None, False
     if _distributed(args):
         # Model-sharded pool: skip-split sessions over the model axis.
@@ -265,10 +314,8 @@ def cmd_serve(args) -> int:
         engine=engine, chunk_size=chunk, temperature=cfg.gen.temperature,
         deliver=args.deliver, **({"acc_samples": acc} if acc else {}),
         per_lane_rng=not cfg.gen.global_rng, pipeline=args.pipeline,
-        mesh=mesh, device=args.device,
+        mesh=mesh, device=args.device, artifact=art,
     )
-    if lead:
-        os.makedirs(cfg.gen.out_dir, exist_ok=True)
 
     def make_cond_fn(mel_path: str, n_samples: int, where: str):
         """A request's conditioning: its (F, n_mels) frames upsampled ONCE
@@ -297,6 +344,10 @@ def cmd_serve(args) -> int:
 
         return cond_fn
 
+    if args.listen:
+        return _serve_http(args, cfg, pool, engine, chunk, make_cond_fn)
+    if lead:
+        os.makedirs(cfg.gen.out_dir, exist_ok=True)
     next_req = 0
     parts: dict = {}
     used_seed: dict = {}
@@ -373,8 +424,151 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _serve_http(args, cfg, pool, engine: str, chunk: int, make_cond_fn) -> int:
+    """The online daemon: the pool behind HTTP (server.py) until SIGTERM or
+    SIGINT; one worker thread steps the pool, handlers enqueue and wait."""
+    import signal
+
+    from .server import PoolServer, make_http_server
+
+    host, _, port_s = args.listen.rpartition(":")
+    try:
+        port = int(port_s)
+    except ValueError:
+        raise SystemExit(f"--listen expects HOST:PORT, got {args.listen!r}")
+    cond_builder = None
+    if cfg.arch.use_local_cond:
+        def cond_builder(mel_path, n_samples):
+            return make_cond_fn(mel_path, n_samples, f"mel {mel_path}")
+    pool_server = PoolServer(pool)
+    pool_server.start()
+    httpd = make_http_server(pool_server, cfg.arch, host or "127.0.0.1", port,
+                             cond_builder=cond_builder, request_timeout=args.request_timeout)
+
+    def _term(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _term)
+    bound = httpd.server_address
+    print(json.dumps({"listening": f"{bound[0]}:{bound[1]}", "engine": engine,
+                      "batch": cfg.gen.batch_size, "chunk": chunk,
+                      "artifact": args.artifact or None, "device": str(pool.device)}),
+          flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        pool_server.stop()
+    return 0
+
+
+def _generate_from_artifact(args, cfg, params, cond_frames) -> int:
+    """Synthesis from a serving artifact (utils/export.py): init once, step
+    per chunk, decode, write wavs; no model code is traced."""
+    import numpy as np
+
+    from .data import write_wav
+    from .ops.mulaw import mu_law_decode
+    from .utils.export import load_serving
+
+    art = load_serving(args.artifact)
+    if art.arch != cfg.arch:
+        raise SystemExit("artifact arch differs from --config arch; pass the config the "
+                         "artifact was exported with")
+    if args.speakers:
+        raise SystemExit("--artifact bakes the session shape; --speakers needs the "
+                         "in-process path")
+    if _distributed(args) or args.fleet:
+        raise SystemExit("--artifact synthesis is single-process")
+    m = art.manifest
+    batch, chunk = m["batch"], m["chunk_size"]
+    if m.get("per_lane"):
+        raise SystemExit(f"{args.artifact} was exported --per-lane for pools: serve it "
+                         "(cli serve --artifact) or re-export without --per-lane")
+    cond_chunks = None
+    if m["with_cond"]:
+        if cond_frames is None:
+            raise SystemExit("artifact was exported with_cond: pass --mel")
+        if cond_frames.shape[0] != batch:
+            raise SystemExit(f"--mel batch {cond_frames.shape[0]} != artifact batch {batch}")
+        cond_chunks = _cond_chunks(params, cfg.arch, cond_frames, chunk, batch,
+                                   params["embed"].device)
+    elif cond_frames is not None:
+        raise SystemExit(
+            "artifact was exported WITHOUT conditioning but the config is "
+            "mel-conditioned; re-export from this config (with_cond is set "
+            "automatically) or generate without --artifact")
+    state = art.init(params, cfg.gen.seed)
+    parts, emitted = [], 0
+    while emitted < cfg.gen.n_samples:
+        classes, state = art.step(params, state,
+                                  cond=None if cond_chunks is None else next(cond_chunks))
+        parts.append(mu_law_decode(classes, cfg.arch.quant_channels).cpu().numpy())
+        emitted += chunk
+    wav_np = np.concatenate(parts, axis=1)[:, : cfg.gen.n_samples]
+    os.makedirs(cfg.gen.out_dir, exist_ok=True)
+    for i in range(wav_np.shape[0]):
+        write_wav(os.path.join(cfg.gen.out_dir, f"gen_{i:04d}.wav"), wav_np[i],
+                  cfg.arch.sample_rate)
+    print(json.dumps({"generated": int(wav_np.shape[0]), "n_samples": int(wav_np.shape[1]),
+                      "out_dir": cfg.gen.out_dir, "artifact": args.artifact,
+                      "engine": m["engine"]}), flush=True)
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Export a serving artifact (utils/export.py) for `--device`; with
+    --mesh-model N a model-sharded one for the (world / N, N) mesh of the
+    torchrun ranks that will load it (WORLD_SIZE; N ranks without it)."""
+    cfg = _load_config(args)
+    from .generate import resolve_device
+    from .models.wavenet import init_params
+    from .utils.export import export_serving, export_sharded_serving
+
+    params = init_params(0, cfg.arch, device=resolve_device(args.device))
+    batch = args.batch or cfg.gen.batch_size
+    if args.per_lane and args.mesh_model > 1:
+        raise SystemExit("--per-lane is for single-device pool artifacts")
+    if args.mesh_model > 1:
+        world = int(os.environ.get("WORLD_SIZE", args.mesh_model))
+        if world % args.mesh_model:
+            raise SystemExit(f"--mesh-model {args.mesh_model} must divide the {world} ranks")
+        try:
+            manifest = export_sharded_serving(
+                params, cfg.arch, batch=batch, chunk_size=args.chunk, out_dir=args.out,
+                engine=args.engine, temperature=cfg.gen.temperature,
+                mesh_data=world // args.mesh_model, mesh_model=args.mesh_model,
+                with_cond=cfg.arch.use_local_cond)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        print(json.dumps({"exported": args.out, **{k: manifest[k] for k in (
+            "engine", "batch", "chunk_size", "with_cond", "mesh_data", "mesh_model",
+            "device_kind")}}), flush=True)
+        return 0
+    from .generate import MEGA_LANE_MULTIPLE
+
+    if args.engine == "mega" and batch % MEGA_LANE_MULTIPLE:
+        raise SystemExit(f"--engine mega needs batch % {MEGA_LANE_MULTIPLE} == 0 (got "
+                         f"{batch}); pass --batch <multiple of {MEGA_LANE_MULTIPLE}> or "
+                         "--engine turbo")
+    if args.per_lane and cfg.gen.temperature <= 0.0:
+        raise SystemExit("--per-lane needs gen.temperature > 0 (greedy lanes are "
+                         "inverse-temperature 0 at serve time)")
+    manifest = export_serving(
+        params, cfg.arch, batch=batch, chunk_size=args.chunk, out_dir=args.out,
+        engine=args.engine, temperature=cfg.gen.temperature,
+        with_cond=cfg.arch.use_local_cond, per_lane=args.per_lane)
+    print(json.dumps({"exported": args.out, **{k: manifest[k] for k in (
+        "engine", "batch", "chunk_size", "with_cond", "per_lane", "device_kind")}}),
+        flush=True)
+    return 0
+
+
 def cmd_generate(args) -> int:
-    """Batched synthesis: one-shot, or streamed in --stream-chunk chunks."""
+    """Batched synthesis: one-shot, or streamed in --stream-chunk chunks, or
+    from a serving artifact (--artifact)."""
     cfg = _load_config(args)
     import numpy as np
 
@@ -417,6 +611,8 @@ def cmd_generate(args) -> int:
         if len(ids) != b:
             raise SystemExit(f"--speakers needs 1 or {b} ids, got {len(ids)}")
         speaker_ids = np.asarray(ids, np.int64)
+    if args.artifact:
+        return _generate_from_artifact(args, cfg, params, cond_frames)
     if _distributed(args) or args.fleet:
         if args.stream_chunk:
             raise SystemExit("--stream-chunk sessions are single-process; drop it for "
@@ -601,12 +797,34 @@ def main(argv=None) -> int:
         help="shard gen.batch_size over every rank with the model replicated "
         "(implied under torchrun with more than one rank)",
     )
+    p_gen.add_argument(
+        "--artifact", default="", metavar="DIR",
+        help="synthesize through a serving artifact (cli export) instead of the "
+        "in-process engines; batch, chunk and engine come from its manifest",
+    )
     p_serve = sub.add_parser(
         "serve", help="continuous-batching request server over one streaming batch",
     )
     _add_common(p_serve)
     p_serve.add_argument(
-        "--requests", required=True,
+        "--artifact", default=None, metavar="DIR",
+        help="serve a FROZEN artifact (cli export --per-lane) instead of the "
+        "in-process session: engine and chunk come from its manifest, the weights "
+        "from gen.checkpoint_dir",
+    )
+    p_serve.add_argument(
+        "--listen", default=None, metavar="HOST:PORT",
+        help="run as an online daemon instead of replaying a --requests file: "
+        "POST /synthesize {n_samples[, seed][, temperature][, speaker][, mel_path]"
+        "[, format: wav|classes]} -> audio/wav; GET /healthz -> pool stats "
+        "(server.py)",
+    )
+    p_serve.add_argument(
+        "--request-timeout", default=600.0, type=float,
+        help="--listen: seconds a handler waits for synthesis (504 after)",
+    )
+    p_serve.add_argument(
+        "--requests", default=None,
         help='JSONL of {"id": ..., "n_samples": N[, "seed": N]'
         '[, "temperature": T][, "mel": "<(F, n_mels) .npy>"][, "speaker": N]} '
         'requests; "seed" pins the per-lane sampling seed (defaults to a '
@@ -631,9 +849,28 @@ def main(argv=None) -> int:
         help="'request': accumulate classes in a device-side uint8 time ring "
         "and fetch each request once at completion",
     )
+    p_export = sub.add_parser("export", help="export a serving artifact (torch.export)")
+    _add_common(p_export)
+    p_export.add_argument("--out", required=True, help="artifact directory")
+    p_export.add_argument("--engine", default="mega",
+                          choices=["xla", "pallas", "turbo", "mega"])
+    p_export.add_argument(
+        "--mesh-model", type=int, default=1, metavar="N",
+        help="export a MODEL-SHARDED session artifact for a (ranks / N, N) mesh "
+        "(turbo/mega engines)",
+    )
+    p_export.add_argument("--batch", type=int, default=0,
+                          help="session batch (default gen.batch_size)")
+    p_export.add_argument("--chunk", type=int, default=4096, help="samples per step call")
+    p_export.add_argument(
+        "--per-lane", action="store_true",
+        help="add the (3, B) per-lane block (seeds, lease times, 1/tau bits) to the "
+        "exported step, so `serve --artifact` can pool it with per-request seeds and "
+        "temperatures",
+    )
     args = parser.parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "generate": cmd_generate,
-            "serve": cmd_serve}[args.cmd](args)
+            "serve": cmd_serve, "export": cmd_export}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -62,6 +62,16 @@
 // + cond-sum, the JAX order. Per 1024-step launch it adds 2 B T L Cc' 2G
 // operations (+0.26 TFLOP at B = 512, Cc' = 64: +20%) and T B Cc' bf16
 // cond bytes (64 MB at B = 512); shared memory grows by 8 Cc' bf16 (1 KB).
+//
+// On-chip rings (the JAX kernel's vmem_dmax variant, ar_mega.py:101-131,
+// :240-247, :532-547; WAVENET_MEGA_VMEM_D = D, one-shot calls only): the
+// rings of layers with 1 < d <= D live in shared memory (vrows * C * TB
+// fp32, zeroed before step 0) instead of `bufs`, on both routes; the
+// tensor-core kernel then has no tap of theirs to prefetch by cp.async.
+// The function, and its bound, are row 2's. What it costs is shared
+// memory: 2,048 d bytes a ring at C = 64, taken from the weight ring's
+// slots (WaveNet-30: 6 slots at D = 2, 5 at D = 4, 4 at D = 8, under 2 at
+// D = 16, which the host refuses with the bytes: wn_mega_smem_need).
 #include "ar_tc.cuh"
 
 namespace wn {
@@ -98,7 +108,25 @@ struct MegaArgs {
   const void* cond;    // (T, B, Cc) compute dtype, or null: unconditioned
   const void* wcond;   // CUDA-core route: (L, Cc, 2G) compute dtype
   int Cc;              // conditioning channels (tensor cores: a multiple of 16)
+  int vmem_d;          // layers with 1 < d <= vmem_d keep their ring on chip (1: none)
+  int vrows;           // sum of those d (the host's count from the dilations)
 };
+
+// The on-chip ring layout (the JAX kernel's vmem_dmax, WAVENET_MEGA_VMEM_D):
+// a layer with 1 < d <= vmem_d keeps its d ring rows in a shared-memory
+// region of vrows * C * TB floats instead of `bufs`, zeroed before step 0.
+// Each step reads the tap at its slot (t_abs mod d) and overwrites it with
+// h, the HBM ring's order; the rows are fp32 as `bufs` is, so placement
+// changes no value. One-shot only: the streaming carry holds no such rows.
+__host__ __device__ inline bool on_chip_ring(int d, int vmem_d) { return d > 1 && d <= vmem_d; }
+
+// Dynamic shared memory of the CUDA-core kernel (bytes).
+inline size_t core_smem(const MegaArgs& a) {
+  return sizeof(float) * TB *
+             (4 * a.C + 3 * a.G + 3 * a.S + a.Q + a.n_d1 * a.C + (a.K - 1) * a.C + a.C +
+              (a.cond ? a.Cc : 0) + (size_t)a.vrows * a.C) +
+         sizeof(int) * TB;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
@@ -117,7 +145,8 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
   float* es = d1 + a.n_d1 * C * TB; // [(K-1)C][TB] embedding stack (fp32)
   float* er = es + (K - 1) * C * TB;  // [C][TB] rounded embedding operand
   float* cr = er + C * TB;          // [Cc][TB] rounded conditioning of the step
-  int* cls = reinterpret_cast<int*>(cr + a.Cc * TB);  // [TB]
+  float* vr = cr + a.Cc * TB;       // [vrows][C][TB] on-chip rings
+  int* cls = reinterpret_cast<int*>(vr + (size_t)a.vrows * C * TB);  // [TB]
   const int b0 = blockIdx.x * TB;
   const T* wcat = static_cast<const T*>(a.wcat);
   const T* wcond = static_cast<const T*>(a.wcond);
@@ -138,6 +167,7 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
     const int r = i / TB, j = i % TB;
     es[i] = a.e_s[(size_t)r * B + b0 + j];
   }
+  for (int i = threadIdx.x; i < a.vrows * C * TB; i += NT) vr[i] = 0.f;
   {
     int i1 = 0;
     for (int l = 0; l < a.L; ++l) {
@@ -158,15 +188,20 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
       stage_cond<T, false>(static_cast<const T*>(a.cond) + (size_t)t * B * a.Cc, cr, B, b0,
                            a.Cc, NT);
     }
-    int off = 0, i1 = 0;
+    int off = 0, voff = 0, i1 = 0;
     for (int l = 0; l < a.L; ++l) {
       const int d = a.dils[l];
+      const bool vring = on_chip_ring(d, a.vmem_d);
       // Stage [h | tap]: the tap is read before its ring row takes h.
       for (int i = threadIdx.x; i < C * TB; i += NT) {
         const int c = i / TB, j = i % TB, b = b0 + j;
         const float h = x[i];
         float tap;
-        if (d > 1) {
+        if (vring) {
+          float* p = vr + (size_t)(voff + t_abs % d) * C * TB + i;
+          tap = *p;
+          *p = h;
+        } else if (d > 1) {
           float* p = a.bufs + ((size_t)(off + t_abs % d) * C + c) * B + b;
           tap = *p;
           *p = h;
@@ -212,6 +247,7 @@ __global__ void __launch_bounds__(NT) mega_kernel(MegaArgs a) {
       });
       __syncthreads();
       off += d;
+      if (vring) voff += d;
       if (d == 1) ++i1;
     }
 
@@ -239,10 +275,7 @@ template <typename T>
 static cudaError_t launch(const MegaArgs& a, cudaStream_t stream, int* launches) {
   if ((a.wcond != nullptr) != (a.cond != nullptr) || (a.cond ? a.Cc < 1 : a.Cc != 0))
     return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * TB *
-                          (4 * a.C + 3 * a.G + 3 * a.S + a.Q + a.n_d1 * a.C +
-                           (a.K - 1) * a.C + a.C + (a.cond ? a.Cc : 0)) +
-                      sizeof(int) * TB;
+  const size_t smem = core_smem(a);
   cudaError_t err = cudaFuncSetAttribute(
       mega_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -257,7 +290,7 @@ static cudaError_t launch(const MegaArgs& a, cudaStream_t stream, int* launches)
 static int tc_smem = 0;  // dynamic shared memory of the last launch (bytes)
 
 struct MegaTc {  // the block's shared memory
-  float *x, *skip, *lg, *d1, *es, *tap[2];
+  float *x, *skip, *lg, *d1, *es, *tap[2], *vr;
   int* dl;
   tc::bf16 *xb, *zb, *ab, *hb, *eb;
   int* cls;
@@ -280,6 +313,7 @@ __host__ __device__ inline MegaTc mega_tc_carve(const MegaArgs& a, char* base, i
   s.es = cv.take<float>((a.K - 1) * a.C * TB);
   s.tap[0] = cv.take<float>(a.C * TB);
   s.tap[1] = cv.take<float>(a.C * TB);
+  s.vr = cv.take<float>((size_t)a.vrows * a.C * TB);
   s.dl = cv.take<int>(a.L);
   s.xb = cv.take<tc::bf16>(TB * (2 * a.C + a.Cc + 8));
   s.zb = cv.take<tc::bf16>(TB * (a.G + 8));
@@ -309,14 +343,15 @@ __global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_s
       tc::produce(ring, static_cast<const char*>(a.wpk), a.prods, a.n_prod, a.T);
     return;
   }
-  float *x = s.x, *skip = s.skip, *d1 = s.d1, *es = s.es;
+  float *x = s.x, *skip = s.skip, *d1 = s.d1, *es = s.es, *vr = s.vr;
   const int b0 = blockIdx.x * TB;
   const Sampler sp = {a.lane, a.lane_rows, a.mode, a.seed_base, a.inv_temp, B, 1};
   // Layer l's taps (ring row off + t mod d, lanes b0..b0+7) go to tap[q & 1]
   // by cp.async while the layer before it computes (q counts layers).
+  // Layers whose ring is on chip have nothing to prefetch.
   auto prefetch = [&](int l, int t_abs, int off, float* dst) {
     const int d = dl[l];
-    if (d == 1) return;
+    if (d == 1 || on_chip_ring(d, a.vmem_d)) return;
     const float* src = a.bufs + (size_t)(off + t_abs % d) * C * B + b0;
     for (int i = threadIdx.x; i < 2 * C; i += tc::NC) {
       tc::cp_async16(dst + i * 4, src + (size_t)(i >> 1) * B + (i & 1) * 4);
@@ -324,6 +359,7 @@ __global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_s
   };
 
   for (int l = threadIdx.x; l < a.L; l += tc::NC) dl[l] = a.dils[l];
+  for (int i = threadIdx.x; i < a.vrows * C * TB; i += tc::NC) vr[i] = 0.f;
   for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
     x[i] = a.h_s[(size_t)(i / TB) * B + b0 + i % TB];
   }
@@ -354,16 +390,21 @@ __global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_s
         xb[(i / Cc) * lda + 2 * C + i % Cc] = ct[i];
       }
     }
-    int off = 0, i1 = 0;
+    int off = 0, voff = 0, i1 = 0;
     for (int l = 0; l < a.L; ++l, ++q) {
       const int d = dl[l];
+      const bool vring = on_chip_ring(d, a.vmem_d);
       const float* tp = q & 1 ? tap1 : tap0;  // no dynamic index
       // Stage bf16 [h | tap] per lane; h takes the tap's ring row.
       for (int i = threadIdx.x; i < C * TB; i += tc::NC) {
         const int c = i / TB, j = i % TB, b = b0 + j;
         const float h = x[i];
         float tap;
-        if (d > 1) {
+        if (vring) {
+          float* p = vr + (size_t)(voff + t_abs % d) * C * TB + i;
+          tap = *p;
+          *p = h;
+        } else if (d > 1) {
           tap = tp[i];
           a.bufs[((size_t)(off + t_abs % d) * C + c) * B + b] = h;
         } else {
@@ -409,6 +450,7 @@ __global__ void __launch_bounds__(tc::NTH, 1) mega_tc_kernel(MegaArgs a, int n_s
       tc::cp_async_wait_all();
       tc::csync();
       off += d;
+      if (vring) voff += d;
       if (d == 1) ++i1;
     }
 
@@ -449,7 +491,7 @@ static cudaError_t launch_tc(const MegaArgs& a, cudaStream_t stream, int* launch
   size_t fixed;
   mega_tc_carve(a, nullptr, 0, &fixed);
   const int n_slots = tc::ring_slots(fixed);
-  if (n_slots < 2) return cudaErrorInvalidValue;
+  if (n_slots < 2) return cudaErrorInvalidValue;  // the host names the bytes first
   const size_t smem = fixed + (size_t)n_slots * tc::SLOT;
   tc_smem = (int)smem;
   switch (tc::step_tpw(a.C, a.G, a.S, a.Q)) {
@@ -474,3 +516,22 @@ extern "C" int wn_mega_generate(const wn::MegaArgs* a, void* stream, int* launch
 // Dynamic shared memory (bytes) of the last bf16 launch: activations plus
 // the weight ring.
 extern "C" int wn_mega_tc_smem() { return wn::tc_smem; }
+
+// The least dynamic shared memory a launch with these arguments needs
+// (bytes): the CUDA-core kernel's whole carve, or the tensor-core kernel's
+// activations (on-chip rings included) plus two weight slots. The host
+// compares it with wn_mega_smem_avail before the launch and raises.
+extern "C" long long wn_mega_smem_need(const wn::MegaArgs* a) {
+  if (!a->bf16 || !a->tc) return (long long)wn::core_smem(*a);
+  size_t fixed;
+  wn::mega_tc_carve(*a, nullptr, 0, &fixed);
+  return (long long)(fixed + 2 * (size_t)wn::tc::SLOT);
+}
+
+// Dynamic shared memory a block may use on the current device (bytes).
+extern "C" long long wn_mega_smem_avail() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}

@@ -45,8 +45,10 @@ as the JAX step; the kernel engines see one folded conditioning row per
 step and lane, [cond | speaker row] against [w_cond ; w_gcond]
 (`_fold_gcond`, the folded weight made once per weight set).
 
-Not ported yet (raise NotImplementedError, see ROADMAP.md A): the TPU
-VMEM-ring layout WAVENET_MEGA_VMEM_D > 1.
+WAVENET_MEGA_VMEM_D (as in JAX): read once by `generate_classes` and
+passed to one-shot mega only, whose kernel then keeps the rings of layers
+with 1 < d <= D on chip (ops/cuda/ar_mega.py); every other engine and all
+streaming ignore it.
 """
 from __future__ import annotations
 
@@ -64,26 +66,17 @@ from .ops.cuda import ar_mega, build
 from .ops.cuda.ar_step import buffer_offsets, pallas_stack_step
 from .ops.cuda.ar_tp import tp_fused_stack
 from .ops.cuda.ar_turbo import turbo_generate
-from .ops.cuda.ar_mega import (
-    LANE_TILE, _M32, _mix32, _mul32, _u32, estack_feature_major,
-    gumbel_from_bits, mega_generate, mega_zero_carry, sample_fm,
+from .ops.cuda.ar_mega import (  # noqa: F401  (the streaming geometry is re-exported)
+    LANE_TILE, MEGA_LANE_MULTIPLE, _M32, _mix32, _mul32, _u32, estack_feature_major,
+    gumbel_from_bits, mega_generate, mega_zero_carry, padded_stream_batch, sample_fm,
+    session_seed_base, stream_lane_multiple,
 )
 from .ops.cuda.train_stack import LAYER_KEYS
 from .ops.mulaw import mu_law_decode
+from .ops.numerics import resolve_device  # noqa: F401
 from .parallel.mesh import all_reduce_
 
 Rng = Union[int, torch.Generator]
-
-
-def resolve_device(device) -> torch.device:
-    """The torch.device to run on; a CUDA request without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' was requested but CUDA is not available; pass "
-            "device='cpu' to run the plain PyTorch paths on the CPU"
-        )
-    return dev
 
 
 def _model_group(model_axis):
@@ -114,13 +107,33 @@ class RingState(NamedTuple):
     embed_buf: torch.Tensor     # (K-1, B, C): past input-conv embeddings
     bufs: torch.Tensor          # (sum_d, B, C) packed residual history
     prev_class: torch.Tensor    # (B,) int32: sample emitted at t-1
-    rng: torch.Generator        # sampling generator on the state's device
+    # The sampling generator on the state's device; in an exported program
+    # its state tensor (ops/library.py `generator_state`), advanced in place.
+    rng: Union[torch.Generator, torch.Tensor]
 
 
-def _device_generator(rng: Rng, device) -> torch.Generator:
+def _device_generator(rng, device):
     if isinstance(rng, torch.Generator):
         return rng
+    if isinstance(rng, torch.Tensor):  # an exported init's seed input
+        from .ops import library
+
+        return library.generator_state(rng, device)
     return torch.Generator(device=device).manual_seed(int(rng))
+
+
+def _ring_swap(bufs: torch.Tensor, slot, h: torch.Tensor) -> torch.Tensor:
+    """Return ring row `slot` (a copy) and write h there. `slot` is an int,
+    or a 0-d tensor in an exported program, whose absolute time is an
+    input."""
+    if isinstance(slot, torch.Tensor):
+        idx = slot.reshape(1).to(bufs.device)
+        tap = bufs.index_select(0, idx)[0]
+        bufs.index_copy_(0, idx, h[None].to(bufs.dtype))
+        return tap
+    tap = bufs[slot].clone()
+    bufs[slot] = h
+    return tap
 
 
 def init_ring_state(arch: ArchConfig, batch: int, rng: Rng,
@@ -166,11 +179,9 @@ def stack_step(
                            device=h.device)
     bufs = state.bufs
     for i, (off, d) in enumerate(zip(buffer_offsets(arch), arch.dilations)):
-        slot = off + t % d
         # For t < d the slot still holds the zero init: the tap reaches
         # before the sequence start, where forward() pads zeros.
-        h_prev = bufs[slot].clone()
-        bufs[slot] = h
+        h_prev = _ring_swap(bufs, off + t % d, h)
         pre = _mm(h, lp["w_cur"][i], dt) + _mm(h_prev, lp["w_prev"][i], dt) + lp["b"][i]
         if cond_t is not None:
             pre = pre + _mm(cond_t, lp["w_cond"][i], dt)
@@ -184,11 +195,16 @@ def stack_step(
     return new_embed_buf, bufs, post_network(params, skip_sum, dt)
 
 
-def _sample_class(gen: torch.Generator, logits: torch.Tensor,
-                  temperature: float) -> torch.Tensor:
+def _sample_class(gen, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """Draw from softmax(logits / temperature) with `gen` (a torch.Generator,
+    or its state tensor in an exported program), or greedy at 0."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits / temperature, dim=-1)
+    if isinstance(gen, torch.Tensor):
+        from .ops import library
+
+        return library.multinomial_(gen, probs)[:, 0].to(torch.int32)
     return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
 
 
@@ -248,13 +264,6 @@ def _pack_lane(lane_seed, lane_t0, lane_inv_temp=None):
     return torch.stack(rows)
 
 
-def _check_env():
-    if int(os.environ.get("WAVENET_MEGA_VMEM_D", "1")) > 1:
-        raise NotImplementedError(
-            "the TPU VMEM-ring layout (WAVENET_MEGA_VMEM_D > 1) is not ported "
-            "(ROADMAP.md B2)")
-
-
 def generate_classes(
     params: Params,
     arch: ArchConfig,
@@ -287,7 +296,8 @@ def generate_classes(
     synthesis, one all-reduce per step. turbo and mega then run the TP step
     (kernel B7), which samples greedy or from the per-lane hash only.
     """
-    _check_env()
+    # Read here, once per call, and passed down: one-shot mega uses it.
+    vmem_d = int(os.environ.get("WAVENET_MEGA_VMEM_D", "1"))
     dev = resolve_device(device)
     params = params_to(params, dev)
     if forced is not None:
@@ -312,7 +322,7 @@ def generate_classes(
     if engine == "mega":
         return _generate_classes_mega(
             params, arch, rng, b, n_samples, forced, temperature,
-            return_logits, global_rng, cond, gcond,
+            return_logits, global_rng, cond, gcond, vmem_d,
         )
     if engine == "turbo":
         return _generate_classes_turbo(
@@ -442,13 +452,18 @@ def _fused_frontend_zero(params: Params, arch: ArchConfig, batch: int):
     return h0, estack0
 
 
-def _seed_base(rng: Rng) -> int:
+def _seed_base(rng: Rng):
     """Session seed of the hash samplers, drawn on the host; bounded so
-    seed_base + t stays far from int32 overflow."""
-    gen = rng if isinstance(rng, torch.Generator) else \
-        torch.Generator().manual_seed(int(rng))
+    seed_base + t stays far from int32 overflow. An exported init's seed (a
+    0-d tensor) gives it as a 0-d tensor (ops/library.py `seed_base`)."""
+    if isinstance(rng, torch.Tensor):
+        from .ops import library
+
+        return library.seed_base(rng)
+    if not isinstance(rng, torch.Generator):
+        return session_seed_base(int(rng))
     return int(torch.randint(0, np.iinfo(np.int32).max // 2, (),
-                             generator=gen, device=gen.device))
+                             generator=rng, device=rng.device))
 
 
 def _forced_ts(forced, n: int, b: int, device) -> torch.Tensor:
@@ -465,9 +480,10 @@ def _cond_ts(cond, n_steps: int):
 
 def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
                            temperature, return_logits, global_rng, cond=None,
-                           gcond=None):
+                           gcond=None, vmem_d: int = 1):
     """One-shot mega: lanes padded to the kernel's lane tile (pad lanes are
-    forced to class 0, conditioned on zeros, and dropped)."""
+    forced to class 0, conditioned on zeros, and dropped); the rings of
+    layers with 1 < d <= vmem_d on chip."""
     dev = params["embed"].device
     forced_ts = _forced_ts(forced, n_samples, b, dev)
     lp, cond_ts = _fold_gcond(params["layers"], _cond_ts(cond, n_samples), gcond,
@@ -494,7 +510,7 @@ def _generate_classes_mega(params, arch, rng, b, n_samples, forced,
     out = mega_generate(
         params, lp, arch, h0, e0, seed_base,
         forced_ts[:, None, :], cond_ts, n_samples, temperature, cond_ts is not None,
-        emit_logits=return_logits, lane=lane,
+        emit_logits=return_logits, lane=lane, vmem_d=vmem_d,
     )
     if return_logits:
         classes, logits = out
@@ -580,14 +596,23 @@ def _tp_zero_state(params: Params, arch: ArchConfig, batch: int) -> dict:
     }
 
 
-def _tp_logits(fm: dict, skip_local: torch.Tensor, group, dt) -> torch.Tensor:
-    """(Q, B) logits from the local skip sum: this rank's partial product
-    of the post network's first layer, ONE all-reduce over the model axis,
-    then relu(. + b1) and the second layer (post_network_sharded,
-    feature-major)."""
-    part = all_reduce_(fm["w1T"] @ rnd(torch.relu(skip_local), dt), group)
+def _tp_partial(fm: dict, skip_local: torch.Tensor, dt) -> torch.Tensor:
+    """This rank's partial product (S, B) of the post network's first layer
+    from its local skip sum: the operand of the step's one all-reduce."""
+    return fm["w1T"] @ rnd(torch.relu(skip_local), dt)
+
+
+def _tp_finish(fm: dict, part: torch.Tensor, dt) -> torch.Tensor:
+    """(Q, B) logits from the all-reduced partial product: relu(. + b1)
+    and the second layer (post_network_sharded, feature-major)."""
     hidden = torch.relu(part + fm["b1"])
     return fm["w2T"] @ rnd(hidden, dt) + fm["b2"]
+
+
+def _tp_logits(fm: dict, skip_local: torch.Tensor, group, dt) -> torch.Tensor:
+    """(Q, B) logits from the local skip sum, ONE all-reduce over the model
+    axis between the post network's two halves."""
+    return _tp_finish(fm, all_reduce_(_tp_partial(fm, skip_local, dt), group), dt)
 
 
 def _tp_next_frontend(fm: dict, state: dict, cls: torch.Tensor, dt) -> None:
@@ -688,23 +713,6 @@ class Stream(NamedTuple):
     t: int  # absolute sample index of the next step
 
 
-MEGA_LANE_MULTIPLE = LANE_TILE
-
-
-def stream_lane_multiple(engine: str) -> int:
-    """Lane-count granularity of a streaming session: the mega kernel's lane
-    tile (on every device, so a session pads alike on the CPU and the card);
-    the other engines stream at any batch."""
-    return MEGA_LANE_MULTIPLE if engine == "mega" else 1
-
-
-def padded_stream_batch(batch: int, engine: str) -> int:
-    """Smallest engine-streamable session batch >= `batch` (pad lanes are
-    free-running throwaways, sliced off by the caller)."""
-    m = stream_lane_multiple(engine)
-    return -(-batch // m) * m
-
-
 def start_stream(arch: ArchConfig, batch: int, rng: Rng, engine: str = "xla",
                  params: Optional[Params] = None,
                  model_axis=None, device="cuda") -> Stream:
@@ -714,7 +722,6 @@ def start_stream(arch: ArchConfig, batch: int, rng: Rng, engine: str = "xla",
     SessionPool does), turbo streams at any batch. With `model_axis`
     (params: this rank's skip slice) turbo and mega carry the TP step's
     state instead, at any batch; xla and pallas keep their RingState."""
-    _check_env()
     dev = resolve_device(device)
     if engine in ("mega", "turbo"):
         if params is None:

@@ -38,14 +38,9 @@ from typing import Optional, Union
 import torch
 
 from ..config import ArchConfig
+from ..ops.numerics import compute_dtype, params_to, rnd, shift_right  # noqa: F401
 
 Params = dict
-
-
-def compute_dtype(arch: ArchConfig) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[
-        arch.compute_dtype
-    ]
 
 
 def _generator(rng: Union[int, torch.Generator]) -> torch.Generator:
@@ -113,32 +108,9 @@ def init_params(
     return params
 
 
-def params_to(params, device):
-    """The parameter tree (dicts and lists) with every leaf on `device` (no
-    copy if there)."""
-    if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [params_to(v, device) for v in params]
-    return params.to(device)
-
-
-def rnd(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """Round to the compute dtype, held in float32."""
-    return x.to(dt).to(torch.float32)
-
-
 def _mm(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """(..., C) @ (C, D): operands in compute dtype, float32 accumulation."""
     return rnd(x, dt) @ rnd(w, dt)
-
-
-def shift_right(x: torch.Tensor, d: int) -> torch.Tensor:
-    """y[:, t] = x[:, t - d] with zeros for t < d. Shapes (B, T, C)."""
-    if d == 0:
-        return x
-    t = x.shape[1]
-    return torch.nn.functional.pad(x, (0, 0, d, 0))[:, :t]
 
 
 def gated_unit(x, x_prev, layer_params: Params, i: int, dt, cond=None, gcond=None):

@@ -22,6 +22,14 @@ conditioning row, mel and/or speaker folded into one
 (generate._fold_gcond), and lp["w_cond"] (L, Cc', 2G) the matching folded
 weight; step t of the chunk reads row t (chunk-local), while the ring
 slots and the sampling counters use the absolute time t0 + t.
+
+On-chip rings (the JAX kernel's `vmem_dmax`, WAVENET_MEGA_VMEM_D read by
+generate.generate_classes for one-shot calls): `vmem_d` > 1 keeps the ring
+of every layer with 1 < d <= vmem_d in the kernel's shared memory instead of
+`bufs` (csrc/ar_mega.cu). The rows are fp32 either way, so the function,
+and its plain version, are unchanged; a `vmem_d` whose rings leave no room
+for the kernel's weight slots raises a ValueError naming the bytes.
+Streaming calls refuse it, as JAX's do: the carry holds no on-chip rows.
 """
 from __future__ import annotations
 
@@ -32,11 +40,26 @@ import numpy as np
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import compute_dtype, rnd
+from ..numerics import compute_dtype, rnd
 from . import ar_tc, build
 from .ar_step import buffer_offsets
 
 LANE_TILE = 8  # lanes per block: the batch must be a multiple (wn::TB)
+MEGA_LANE_MULTIPLE = LANE_TILE
+
+
+def stream_lane_multiple(engine: str) -> int:
+    """Lane-count granularity of a streaming session: the mega kernel's lane
+    tile (on every device, so a session pads alike on the CPU and the card);
+    the other engines stream at any batch."""
+    return MEGA_LANE_MULTIPLE if engine == "mega" else 1
+
+
+def padded_stream_batch(batch: int, engine: str) -> int:
+    """Smallest engine-streamable session batch >= `batch` (pad lanes are
+    free-running throwaways, sliced off by the caller)."""
+    m = stream_lane_multiple(engine)
+    return -(-batch // m) * m
 
 _M32 = 0xFFFFFFFF
 _PL_T = 0x9E3779B9   # mixing constants (uint32, golden-ratio / murmur3)
@@ -127,6 +150,12 @@ def sample_fm(logits, temperature, lane, t_abs, seed_base, forced_t):
 # ---------------------------------------------------------------------------
 # Carry layout.
 
+def vmem_rows(dilations, vmem_d: int) -> int:
+    """Ring rows (units of C lanes) kept on chip at `vmem_d`: the sum of the
+    dilations d with 1 < d <= vmem_d (JAX `vrows`)."""
+    return sum(d for d in dilations if 1 < d <= vmem_d)
+
+
 def estack_feature_major(estack: torch.Tensor) -> torch.Tensor:
     """(K-1, B, C) embedding stack -> ((K-1)*C, B): C-row block j holds
     estack[j]^T (oldest tap first)."""
@@ -154,9 +183,11 @@ def mega_zero_carry(arch: ArchConfig, h0: torch.Tensor, estack0: torch.Tensor):
 def mega_generate_plain(params, lp, arch: ArchConfig, carry: dict, t0: int,
                         forced: torch.Tensor, temperature: float,
                         emit_logits: bool, lane, seed_base: int,
-                        tensor_cores: Optional[bool] = None, cond=None):
+                        tensor_cores: Optional[bool] = None, cond=None,
+                        vmem_d: int = 1):
     """PyTorch version of the kernel on any device, op for op as the JAX
-    kernel. forced (T, B) int32; cond (T, B, Cc') or None, against the
+    kernel, for every `vmem_d` (where a ring lives changes no value: the
+    argument is accepted and ignored). forced (T, B) int32; cond (T, B, Cc') or None, against the
     folded lp["w_cond"]. Updates `carry` in place; returns (classes (T, B)
     int32, logits (T, Q, B) or None). With tensor_cores (the default on a
     CUDA carry in bf16 at widths the kernel takes, ar_tc.default_order)
@@ -260,7 +291,16 @@ class _MegaArgs(ctypes.Structure):
         (n, ctypes.c_int) for n in ("bf16", "n_d1")
     ] + [(n, ctypes.c_void_p) for n in ("wpk", "prods")] + [
         (n, ctypes.c_int) for n in ("n_prod", "grid", "tc")
-    ] + [(n, ctypes.c_void_p) for n in ("cond", "wcond")] + [("Cc", ctypes.c_int)]
+    ] + [(n, ctypes.c_void_p) for n in ("cond", "wcond")] + [
+        (n, ctypes.c_int) for n in ("Cc", "vmem_d", "vrows")
+    ]
+
+
+def session_seed_base(seed: int) -> int:
+    """The hash samplers' session seed of an int session seed, drawn on the
+    host; bounded so seed_base + t stays far from int32 overflow."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return int(torch.randint(0, np.iinfo(np.int32).max // 2, (), generator=gen))
 
 
 def _library() -> ctypes.CDLL:
@@ -273,7 +313,8 @@ def _library() -> ctypes.CDLL:
 
 def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
                        forced: torch.Tensor, temperature: float,
-                       emit_logits: bool, lane, seed_base: int, cond=None):
+                       emit_logits: bool, lane, seed_base: int, cond=None,
+                       vmem_d: int = 1):
     """The kernel: same contract as mega_generate_plain."""
     dev = carry["h_s"].device
     dt = compute_dtype(arch)
@@ -373,9 +414,21 @@ def mega_generate_cuda(params, lp, arch: ArchConfig, carry: dict, t0: int,
         int(bf16), sum(1 for d in arch.dilations if d == 1),
         ptr(ops["wpk"]), ptr(ops["prods"]), 0 if ops["prods"] is None else len(ops["prods"]),
         ar_tc.launch_shape(b)[0], int(tc),
-        ptr(cond), ptr(ops["wcond"]), cc,
+        ptr(cond), ptr(ops["wcond"]), cc, max(int(vmem_d), 1),
+        vmem_rows(arch.dilations, vmem_d),
     )
-    mega_generate.launches += build.launch(_library(), "wn_mega_generate", args, dev)
+    lib = _library()
+    need = build.entry(lib, "wn_mega_smem_need", [ctypes.c_void_p], ctypes.c_longlong)(
+        ctypes.addressof(args))
+    avail = build.entry(lib, "wn_mega_smem_avail", [], ctypes.c_longlong)()
+    if need > avail:
+        raise ValueError(
+            f"mega with on-chip rings (WAVENET_MEGA_VMEM_D={vmem_d}: "
+            f"{vmem_rows(arch.dilations, vmem_d)} ring rows of {c} x {LANE_TILE} fp32) "
+            f"needs {need} bytes of shared memory per block on the "
+            f"{'tensor-core' if tc else 'CUDA-core'} route; the card allows {avail}. "
+            "Lower WAVENET_MEGA_VMEM_D")
+    mega_generate.launches += build.launch(lib, "wn_mega_generate", args, dev)
     return classes, logits
 
 
@@ -396,6 +449,7 @@ def mega_generate(
     carry: Optional[dict] = None,   # mega_zero_carry-shaped (streaming only)
     t0: int = 0,                    # absolute chunk start
     lane: Optional[torch.Tensor] = None,  # (2|3, B) int32 lane block
+    vmem_d: int = 1,                # on-chip rings for 1 < d <= vmem_d (one-shot)
 ):
     """Run the whole generation loop; returns classes (T, 1, B) int32 (plus
     logits (T, Q, B) when emit_logits). With streaming=True also returns
@@ -406,11 +460,24 @@ def mega_generate(
     at the chunk's step t."""
     if has_cond != (cond_ts is not None):
         raise ValueError("pass cond_ts exactly when has_cond")
+    if streaming and vmem_rows(arch.dilations, vmem_d):
+        raise NotImplementedError(
+            "streaming carries do not include the on-chip rings; use the default "
+            "WAVENET_MEGA_VMEM_D=1 for mega streaming")
     if not streaming:
         carry = mega_zero_carry(arch, h0, e0)
         t0 = 0
     forced = forced_ts[:n_samples, 0, :]
     dev = carry["h_s"].device
+    cond = None if cond_ts is None else cond_ts[:n_samples]
+    if torch.compiler.is_exporting():  # a traced program calls the op (ops/library.py)
+        from .. import library
+
+        if emit_logits or vmem_d > 1:
+            raise ValueError("exported mega programs emit classes only, from the HBM rings")
+        classes = library.mega_generate(params, lp, arch, carry, t0, forced, temperature,
+                                        lane, seed_base, cond)[:, None, :]
+        return (classes, carry) if streaming else classes
     if dev.type == "cpu":
         run = mega_generate_plain
     elif dev.type == "cuda":
@@ -419,7 +486,7 @@ def mega_generate(
         raise ValueError(f"mega_generate runs on cpu or cuda, not {dev}")
     classes, logits = run(
         params, lp, arch, carry, int(t0), forced, temperature, emit_logits,
-        lane, int(seed_base), cond=None if cond_ts is None else cond_ts[:n_samples],
+        lane, int(seed_base), cond=cond, vmem_d=vmem_d,
     )
     classes = classes[:, None, :]
     out = (classes, logits) if emit_logits else (classes,)

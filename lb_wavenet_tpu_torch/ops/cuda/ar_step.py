@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import compute_dtype, input_step, post_network, rnd
+from ..numerics import compute_dtype, rnd
 from . import ar_tc, build
 
 
@@ -122,6 +122,10 @@ def fused_stack(
 ):
     """Run all gated layers; returns (bufs, skip_sum (B, S) fp32). With
     cond_t, lp["w_cond"] is the matching folded (L, Cc', 2G) weight."""
+    if torch.compiler.is_exporting():  # a traced program calls the op (ops/library.py)
+        from .. import library
+
+        return library.fused_stack(lp, arch, h0, bufs, t, cond_t)
     if h0.device.type == "cpu":
         return fused_stack_plain(lp, arch, h0, bufs, t, cond_t=cond_t)
     if h0.device.type != "cuda":
@@ -197,6 +201,7 @@ def pallas_stack_step(
     (B, E) is folded into the step's cond as in the JAX step: one cond_t
     [cond_t | gcond] against [w_cond ; w_gcond] (generate._fold_gcond)."""
     from ...generate import _fold_gcond
+    from ...models.wavenet import input_step, post_network
 
     lp, cond_t = _fold_gcond(params["layers"], cond_t, gcond)
     h, new_embed_buf = input_step(params, arch, state.embed_buf, x_class)

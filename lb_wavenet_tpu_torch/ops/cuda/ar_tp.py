@@ -43,7 +43,7 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import compute_dtype, rnd
+from ..numerics import compute_dtype, rnd
 from . import ar_tc, build
 from .ar_step import buffer_offsets
 
@@ -122,6 +122,10 @@ def tp_fused_stack(
     cond_t is given exactly when fm holds "wcond"."""
     if (cond_t is None) != ("wcond" not in fm):
         raise ValueError("pass cond_t exactly when the weights hold wcond")
+    if torch.compiler.is_exporting():  # a traced program calls the op (ops/library.py)
+        from .. import library
+
+        return library.tp_fused_stack(fm, arch, h0, bufs, t, cond_t)
     if not build.on_card(h0.device, "tp_fused_stack"):
         return tp_fused_stack_plain(fm, arch, h0, bufs, t, cond_t=cond_t)
     dev = h0.device

@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import compute_dtype, rnd
+from ..numerics import compute_dtype, rnd
 from . import ar_tc, build
 from .ar_mega import _gumbel_bits, _inv_temp, _perlane_bits, gumbel_from_bits
 from .ar_step import fused_stack_plain
@@ -230,6 +230,13 @@ def turbo_generate(params, lp, arch: ArchConfig, state: dict, t0: int,
     "e" (K-1, B, C)}, updated in place; forced (T, B) int32, -1 free-runs;
     cond (T, B, Cc') or None, against the folded lp["w_cond"]. Returns
     (classes (T, B) int32, logits (T, B, Q) or None)."""
+    if torch.compiler.is_exporting():  # a traced program calls the op (ops/library.py)
+        from .. import library
+
+        if emit_logits:
+            raise ValueError("exported turbo programs emit classes only")
+        return library.turbo_generate(params, lp, arch, state, t0, forced, temperature,
+                                      lane, seed_base, cond), None
     run = (turbo_generate_cuda if build.on_card(state["h"].device, "turbo_step")
            else turbo_generate_plain)
     return run(params, lp, arch, state, int(t0), forced, temperature, emit_logits, lane,

@@ -146,6 +146,10 @@ def prepared(tag: str, sources: tuple, make):
     slice) is keyed apart from the whole. The entry holds the sources, so
     their storage cannot be reused by another tensor while it is cached; the
     few newest entries are kept."""
+    import torch
+
+    if torch.compiler.is_exporting():  # traced into the program: no storage to key by
+        return make()
     key = (tag,) + tuple((t.data_ptr(), t._version, t.dtype, tuple(t.shape), t.stride())
                          for t in sources)
     hit = _prepared.get(key)

@@ -53,7 +53,7 @@ from typing import Optional
 
 import torch
 
-from ...models.wavenet import rnd, shift_right
+from ..numerics import rnd, shift_right
 from . import build
 from .train_stack import _shift_left, tc_mm
 

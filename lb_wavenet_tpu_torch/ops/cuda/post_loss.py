@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ...models.wavenet import rnd
+from ..numerics import rnd
 from . import ar_tc, build
 from .train_stack import tc_mm, wgrad_chunks
 

@@ -48,7 +48,7 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
-from ...models.wavenet import compute_dtype, rnd, shift_right
+from ..numerics import compute_dtype, rnd, shift_right
 from . import ar_tc, build
 
 LAYER_KEYS = ("w_cur", "w_prev", "b", "w_res", "b_res", "w_skip", "b_skip")

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -53,6 +54,17 @@ class Mesh:
     def describe(self) -> dict:
         """The mesh as summary lines print it."""
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model, "backend": self.backend}
+
+
+_SEED_STRIDE = 0x9E3779B97F4A7C15   # 64-bit golden ratio: shard seeds far apart
+
+
+def data_shard_seed(seed: int, data_rank: int) -> int:
+    """The sampling seed of data shard `data_rank` of a session seeded with
+    `seed` (shard 0 keeps it)."""
+    if not isinstance(seed, (int, np.integer)):
+        raise TypeError(f"mesh synthesis takes an int seed, got {type(seed).__name__}")
+    return (int(seed) + data_rank * _SEED_STRIDE) % 2**63
 
 
 def make_mesh(mesh_data: int = -1, mesh_model: int = 1, device="cuda") -> Mesh:

@@ -47,20 +47,9 @@ import torch
 
 from ..config import ArchConfig
 from ..generate import generate_classes, reset_lanes, start_stream, stream_chunk
-from .mesh import Mesh, all_gather_rows, shard_params
+from .mesh import Mesh, all_gather_rows, data_shard_seed, shard_params  # noqa: F401
 
 FUSED_ENGINES = ("pallas", "turbo", "mega")
-_SEED_STRIDE = 0x9E3779B97F4A7C15   # 64-bit golden ratio: shard seeds far apart
-
-
-def data_shard_seed(seed: int, data_rank: int) -> int:
-    """The sampling seed of data shard `data_rank` of a session seeded with
-    `seed` (shard 0 keeps it)."""
-    if not isinstance(seed, (int, np.integer)):
-        raise TypeError(f"mesh synthesis takes an int seed, got {type(seed).__name__}")
-    return (int(seed) + data_rank * _SEED_STRIDE) % 2**63
-
-
 def _check_skip_split(arch: ArchConfig, n_model: int) -> None:
     if arch.skip_channels % n_model:
         raise ValueError(

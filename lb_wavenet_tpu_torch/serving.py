@@ -28,7 +28,11 @@ consume, zero-pads the tail, and assembles one (B, chunk, Cc) slab in the
 compute dtype: host spans in a pinned buffer (two, used in turn) uploaded
 with one asynchronous copy, device spans copied on the device.
 
-Not ported yet: frozen artifacts (ROADMAP.md A queue item 5).
+`artifact=` (utils/export.py, a per-lane export) serves a FROZEN artifact
+instead of the in-process session: no model code is imported, and the
+(3, B) lane block [seeds; lease times; f32(1/tau) bits] crosses the export
+boundary every chunk, so per-request seeds and temperatures replay as on a
+pool over the in-process session seeded with the same int.
 """
 from __future__ import annotations
 
@@ -41,16 +45,8 @@ import numpy as np
 import torch
 
 from .config import ArchConfig
-from .generate import (
-    Params,
-    Rng,
-    padded_stream_batch,
-    reset_lanes,
-    resolve_device,
-    start_stream,
-    stream_chunk,
-)
-from .models.wavenet import params_to
+from .ops.cuda.ar_mega import padded_stream_batch
+from .ops.numerics import compute_dtype, params_to, resolve_device
 
 
 @dataclasses.dataclass
@@ -88,10 +84,10 @@ class SessionPool:
 
     def __init__(
         self,
-        params: Params,
+        params: dict,
         arch: ArchConfig,
         batch: int,
-        rng: Rng,
+        rng,
         engine: str = "mega",
         chunk_size: int = 1024,
         temperature: float = 1.0,
@@ -103,10 +99,41 @@ class SessionPool:
         artifact=None,
         device="cuda",
     ):
+        # artifact: serve a FROZEN per-lane artifact instead of the
+        # in-process session. `rng` is the artifact init's INT seed (a pool
+        # over the in-process session seeded with the same int is
+        # bit-identical); engine and chunk come from the manifest.
+        self._artifact = artifact
         if artifact is not None:
-            raise NotImplementedError(
-                "serving artifacts are not ported yet (ROADMAP.md A queue item 5)"
-            )
+            man = artifact.manifest
+            if mesh is not None:
+                raise ValueError(
+                    "artifact pools are single-device (sharded artifacts serve "
+                    "through ShardedServingArtifact)")
+            if not man.get("per_lane"):
+                raise ValueError(
+                    "SessionPool needs a per_lane artifact (cli export --per-lane); "
+                    "this one was exported without the lane block")
+            if not per_lane_rng:
+                raise ValueError("artifact pools need per_lane_rng=True")
+            if temperature <= 0.0:
+                raise ValueError(
+                    "artifact pools need temperature > 0 (greedy requests are "
+                    "submit(temperature=0))")
+            if bool(man["with_cond"]) != bool(arch.use_local_cond):
+                raise ValueError(
+                    f"artifact with_cond={man['with_cond']} does not match "
+                    f"arch.use_local_cond={arch.use_local_cond}")
+            if arch.use_global_cond:
+                raise ValueError(
+                    "speaker-conditioned archs are not supported by artifact pools "
+                    "(export has no speaker input)")
+            if not isinstance(rng, (int, np.integer)):
+                raise ValueError(
+                    "artifact pools take rng as an INT seed (ServingArtifact.init "
+                    "seeds are integers)")
+            engine = man["engine"]
+            chunk_size = int(man["chunk_size"])
         self._session = None
         if mesh is not None:
             if not per_lane_rng and temperature > 0.0:
@@ -140,6 +167,12 @@ class SessionPool:
         # lanes are free-running throwaways, never leased. A mesh pool's TP
         # step takes any batch: its device batch is the pool batch.
         self._device_batch = batch if mesh is not None else padded_stream_batch(batch, engine)
+        if artifact is not None and artifact.manifest["batch"] != self._device_batch:
+            raise ValueError(
+                f"artifact batch {artifact.manifest['batch']} != the pool's padded "
+                f"device batch {self._device_batch} (pool batch {batch}, engine "
+                f"{engine}); export with --batch {self._device_batch} or match the "
+                "pool size")
         self._lane_seed = np.zeros(self._device_batch, np.int32)
         self._lane_t0 = np.zeros(self._device_batch, np.int32)
         # Host-computed float32(1.0 / tau) per lane; inv == 0 is greedy.
@@ -150,12 +183,18 @@ class SessionPool:
         self._lane_inv_temp = np.full(
             self._device_batch, self._default_inv, np.float32
         )
-        if mesh is not None:
+        self._art_state = None
+        if artifact is not None:
+            self._art_state = artifact.init(self.params, int(rng))
+            self.stream = None
+        elif mesh is not None:
             from .parallel.synthesis import ShardedSession
 
             self._session = ShardedSession(self.params, arch, batch, rng, mesh, engine=engine)
             self.stream = None
         else:
+            from .generate import start_stream
+
             self.stream = start_stream(arch, self._device_batch, rng,
                                        engine=engine, params=self.params,
                                        device=self.device)
@@ -316,9 +355,14 @@ class SessionPool:
         (asynchronous on the card); returns (classes handle, metadata)."""
         t0 = time.perf_counter()
         if self._pending_reset.any():
-            if self._session is not None:
+            if self._artifact is not None:
+                self._art_state = self._artifact.reset(
+                    self.params, self._art_state, self._to_device(self._pending_reset))
+            elif self._session is not None:
                 self._session.reset_lanes(self._pending_reset.copy())
             else:
+                from .generate import reset_lanes
+
                 self.stream = reset_lanes(
                     self.params, self.arch, self.stream,
                     self._to_device(self._pending_reset), engine=self.engine,
@@ -340,7 +384,7 @@ class SessionPool:
         t1 = t2
 
         lane_kw = {}
-        if self.per_lane_rng:
+        if self.per_lane_rng and self._artifact is None:
             lane_kw = dict(
                 lane_seed=self._to_device(self._lane_seed),
                 lane_t0=self._to_device(self._lane_t0),
@@ -349,10 +393,18 @@ class SessionPool:
                 # Always ride the per-lane inverse temperature on sampled
                 # pools: logits * f32(1/tau) equals the folded constant.
                 lane_kw["lane_inv_temp"] = self._to_device(self._lane_inv_temp)
-        if self._session is not None:
+        if self._artifact is not None:
+            # One (3, B) int32 upload per chunk: [seeds; lease times; 1/tau bits].
+            lane = self._to_device(np.stack([self._lane_seed, self._lane_t0,
+                                             self._lane_inv_temp.view(np.int32)]))
+            classes, self._art_state = self._artifact.step(
+                self.params, self._art_state, cond=cond, lane=lane)
+        elif self._session is not None:
             classes = self._session.chunk(self.chunk_size, cond=cond, speaker_ids=speaker_ids,
                                           temperature=self.temperature, **lane_kw)
         else:
+            from .generate import stream_chunk
+
             classes, self.stream = stream_chunk(
                 self.params, self.arch, self.stream, self.chunk_size,
                 cond=cond, speaker_ids=speaker_ids,
@@ -406,8 +458,6 @@ class SessionPool:
         asynchronous copy; spans already on the device are stacked and
         written by one indexed copy per span length. With no host span the
         slab is made on the device."""
-        from .models.wavenet import compute_dtype
-
         dt = compute_dtype(self.arch)
         cc, n = self.arch.cond_channels, self.chunk_size
         host_rows, dev_rows = [], {}

@@ -142,15 +142,3 @@ def test_kernel_wrappers_refuse_unknown_devices_and_unported_options():
     with pytest.raises(TypeError, match="process group"):
         generate_classes(params, arch, 0, 2, 4, device="cpu", model_axis="model")
 
-
-def test_vmem_ring_layout_is_not_ported(monkeypatch):
-    from lb_wavenet_tpu_torch.generate import generate_classes
-    from lb_wavenet_tpu_torch.models.wavenet import init_params
-
-    arch = pcfg.ArchConfig(n_blocks=1, n_layers_per_block=2, residual_channels=8,
-                           skip_channels=8, gate_channels=8,
-                           compute_dtype="float32")
-    monkeypatch.setenv("WAVENET_MEGA_VMEM_D", "4")
-    with pytest.raises(NotImplementedError, match="VMEM"):
-        generate_classes(init_params(0, arch), arch, 0, 2, 4, engine="mega",
-                         device="cpu")
