@@ -9,7 +9,10 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
 
   1. environment: CUDA, the card and its power limit, triton, nvcc; build
      every kernel from lb_wavenet_tpu_torch/csrc with nvcc (sm_90a), one
-     nvcc per source, all started together; the ptxas report (registers,
+     nvcc per source, all started together, and the native ingest tier
+     with g++, by `python -m lb_wavenet_tpu_torch.cli warm` in a subprocess
+     (its seconds per library); then build_all() must find nothing to build
+     and a second `cli warm` only cache hits; the ptxas report (registers,
      stack, spills) of the tensor-core kernels (bf16 sampling, B1 and B7,
      train stack, post-loss, frontend), and the libraries' shared-memory counts
      against the ones the routes are decided on;
@@ -85,6 +88,23 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      grad_accum=2 step against the one-shot step, a resume from the
      checkpoint, and `python -m lb_wavenet_tpu_torch.cli train` for 2 steps
      followed by `serve` and `eval` from its checkpoint directory;
+     `pack_training`, after it: an hour of synthetic 16 kHz audio (60
+     one-minute wavs from a numpy seed, 57.6 M samples) packed by `cli
+     pack` (58 MB of uint8 classes); 50 batches of the recipe from the pack
+     (pread), from the wavs through the native tier and through the Python
+     path (WAVENET_NATIVE_LOADER=0), equal bit for bit, with each one's ms
+     per batch and the pack path's RSS growth against the in-RAM corpus's
+     bytes; `cli train --profile` from the pack for 5 steps with EMA,
+     TensorBoard and a checkpoint: the losses of `cli train` from the wavs
+     bit for bit, and the Chrome trace's B3/B4/B5 kernels as many as their
+     launch counters; `cli pack` of a mel arch (with waves) and 3 steps of
+     configs/wavenet30_mel.json's recipe from it, its mel frames equal to
+     the wavs', the conditioned B3 pair every step; `cli generate --prime
+     <1500 samples> --ema` on mega (B=64) and turbo, 4096 samples, each
+     lane's primed span kept and the audio equal to in-process
+     generate_classes(forced=...) on the EMA params; `cli serve --ema` with
+     4 requests against a pool on the EMA params; `cli info`'s bounds equal
+     to utils/profiling.py's and to PERF.md's rows 5-10 plus Adam's bytes;
   8. evaluation: `evaluate` of the trained params on a held-out
      synthetic_corpus (another seed), fused and plain forward, and a short
      run_training with in-training eval records;
@@ -223,8 +243,6 @@ UNFUSED_RTOL = 0.18
 # Eval through the fused stack vs the plain forward: the same bf16 operands,
 # the skip sum in another order (read 1.3e-5 nats on an H100).
 EVAL_NLL_ATOL = 1e-4
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
-H100_BYTES_S = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
 TP_CONFIG = os.path.join(ROOT, "configs", "stress_gen.json")
 TP_B = 256          # stress_gen.json gen.batch_size
 TP_STEPS = 256      # steps of the model-sharded greedy and sampled runs
@@ -262,6 +280,13 @@ DP_CONFIG = os.path.join(ROOT, "configs", "multihost_mel.json")
 SP_N = 2
 PAR_STEPS = 3       # steps of each layout
 
+sys.path.insert(0, ROOT)
+try:   # the bounds' yardstick; main() reports a missing port
+    from lb_wavenet_tpu_torch.utils.profiling import (  # noqa: F401
+        bound_ms, frontend_cost, mega_cost, post_loss_cost, stack_cost, tp_cost,
+        train_stack_cost, turbo_cost)
+except ImportError:
+    pass
 KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss",
                   "ar_tp")
 
@@ -341,119 +366,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def mega_cost(arch, b: int, t: int, lane_rows: int, wbytes: int, cc: int = 0):
-    """(bytes, flops) one mega_generate call must move and do: weights,
-    biases, the carry read and written once, forced/lane in, classes out;
-    with cc conditioning channels also w_cond, the (t, b, cc) cond rows and
-    the cond product of every layer and step."""
-    L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
-    S, Q, K = arch.skip_channels, arch.quant_channels, arch.input_kernel
-    w = L * ((2 * C + cc) * 2 * G + G * (C + S)) + S * S + S * Q + Q * C + K * C * C
-    bias = L * (2 * G + C + S) + S + Q + C
-    carry = (sum(arch.dilations) * C + L * 2 * C + C + (K - 1) * C) * b
-    nbytes = (w * wbytes + 4 * (bias + 2 * carry + t * b + lane_rows * b + t * b)
-              + t * b * cc * wbytes)
-    flops = 2 * b * t * (L * ((2 * C + cc) * 2 * G + G * (C + S)) + S * S + S * Q
-                         + K * C * C)
-    return nbytes, flops
-
-
-def stack_cost(arch, b: int, wbytes: int, cc: int = 0):
-    """(bytes, flops) of one fused_stack step: weights, biases, h0, the L
-    ring rows read and written, the skip sum out; with cc conditioning
-    channels also w_cond, the (b, cc) cond row and its products."""
-    L, C, G, S = (len(arch.dilations), arch.residual_channels,
-                  arch.gate_channels, arch.skip_channels)
-    w = L * ((2 * C + cc) * 2 * G + G * C + G * S)
-    nbytes = (w * wbytes + 4 * (L * (2 * G + C + S) + b * C + 2 * L * b * C + b * S)
-              + b * cc * wbytes)
-    return nbytes, 2 * b * L * ((2 * C + cc) * 2 * G + G * C + G * S)
-
-
-def train_stack_cost(arch, b: int, t: int, wbytes: int, backward: bool, cc: int = 0):
-    """(bytes, flops) of the training stack's forward or backward at
-    (b, t), as the TPU kernels define the function: each input read once,
-    each output written once. The layer inputs x_all that the port's
-    forward also stores (so its backward need not reconstruct x) are not
-    counted: the function does not need them. With cc conditioning
-    channels also cond (b, t, cc) in the compute dtype and w_cond in, and
-    in the backward d cond (fp32) and d w_cond out; the products cond
-    w_cond (forward, and the backward's recompute of pre), cond^T dpre and
-    dpre w_cond^T."""
-    L, C, G, S = (len(arch.dilations), arch.residual_channels,
-                  arch.gate_channels, arch.skip_channels)
-    w = L * ((2 * C + cc) * 2 * G + G * C + G * S)
-    bias = L * (2 * G + C + S)
-    z_all = L * b * t * G * wbytes
-    cond = b * t * cc * wbytes
-    if backward:   # z_all, x_final, g_skip, cond, weights in; dh0, d cond, grads out
-        nbytes = (z_all + 4 * b * t * (2 * C + S) + cond + 4 * b * t * cc + w * wbytes
-                  + 4 * (bias + w + bias))
-        macs = L * b * t * (2 * C * 2 * G + G * (S + C) + 2 * (2 * G * C)
-                            + 2 * C * 2 * G + G * C + G * S + 3 * cc * 2 * G)
-    else:          # h0, cond, weights in; z_all, skip, x_final out
-        nbytes = 4 * b * t * (2 * C + S) + cond + z_all + w * wbytes + 4 * bias
-        macs = L * b * t * (2 * C * 2 * G + G * C + G * S + cc * 2 * G)
-    return nbytes, 2 * macs
-
-
-def post_loss_cost(arch, b: int, t: int, w: int, wbytes: int, backward: bool):
-    """(bytes, flops) of the post-loss forward or backward over the scored
-    window (the head rows need no work)."""
-    S, Q = arch.skip_channels, arch.quant_channels
-    weights = (S * S + S * Q) * wbytes + 4 * (S + Q)
-    rows_in = 4 * b * w * S + 8 * b * w            # skip rows, targets, mask
-    if backward:   # + dskip (all rows) and the gradients out
-        return (rows_in + weights + 4 * b * t * S + 4 * (S * S + S * Q + S + Q),
-                2 * b * w * 3 * (S * S + S * Q))
-    return rows_in + weights + 4, 2 * b * w * (S * S + S * Q)
-
-
-def turbo_cost(arch, b: int, lane_rows: int, wbytes: int, cc: int = 0):
-    """(bytes, flops) of one turbo step: weights and biases, h and the
-    embedding stack in and out, the L ring rows read and written, forced
-    and the lane block in, the classes out; with cc conditioning channels
-    also w_cond, the (b, cc) cond row and its products."""
-    L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
-    S, Q, K = arch.skip_channels, arch.quant_channels, arch.input_kernel
-    w = L * ((2 * C + cc) * 2 * G + G * C + G * S) + S * S + S * Q + Q * C + K * C * C
-    bias = L * (2 * G + C + S) + S + Q + C
-    state = 2 * (C + (K - 1) * C + L * C) * b
-    nbytes = w * wbytes + 4 * (bias + state + b + lane_rows * b + b) + b * cc * wbytes
-    flops = 2 * b * (L * ((2 * C + cc) * 2 * G + G * C + G * S) + S * S + S * Q
-                     + K * C * C)
-    return nbytes, flops
-
-
-def frontend_cost(arch, b: int, t: int, backward: bool):
-    """(bytes, flops) of the frontend's forward or backward at (b, t): the
-    classes, table, taps and bias in (fp32, as the TPU kernel reads them);
-    h0 out, or dh in and d_embed, d_w, d_b out."""
-    C, Q, K = arch.residual_channels, arch.quant_channels, arch.input_kernel
-    params = Q * C + K * C * C + C
-    taps = 2 * b * t * K * C * C
-    if backward:   # d_w and d_e products, plus the scatter's adds
-        return 4 * (b * t + params + b * t * C + params), 2 * taps + b * t * C
-    return 4 * (b * t + params + b * t * C), taps
-
-
-def tp_cost(arch, b: int, s_l: int, wbytes: int, cc: int = 0):
-    """(bytes, flops) of one tp_fused_stack step on a skip slice of width
-    s_l: weights and biases, h0 in, the L ring rows read and written, the
-    local skip sum out; with cc conditioning channels also w_cond, the
-    (cc, b) cond tile and its products."""
-    L, C, G = len(arch.dilations), arch.residual_channels, arch.gate_channels
-    w = L * (2 * G * (2 * C + cc) + (C + s_l) * G)
-    nbytes = (w * wbytes + 4 * (L * (2 * G + C + s_l) + C * b + 2 * L * C * b + s_l * b)
-              + cc * b * wbytes)
-    return nbytes, 2 * L * b * (2 * G * (2 * C + cc) + (C + s_l) * G)
-
-
-def bound_ms(nbytes: int, flops: int):
-    by_bytes, by_ops = nbytes / H100_BYTES_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
-
-
 def phase_environment():
     import torch
 
@@ -476,14 +388,26 @@ def phase_environment():
         "gpu": gpu_line(), "triton": has_triton, "nvcc": nvcc,
         "nvcc_version": ver,
     }))
+    # `cli warm` builds every library (nvcc, one process per source, all at
+    # once; the native tier with g++) before any phase loads one.
     t0 = time.perf_counter()
+    first = cli_warm()
+    seconds = time.perf_counter() - t0
+    built = {w["target"]: w["s"] for w in first["warmed"]}
+    require(set(built) == {f"nvcc:{n}" for n in KERNEL_SOURCES} | {"native:loader"},
+            f"cli warm built {sorted(built)}, expected every kernel source and the native tier")
     build.build_all()
+    require(not build.build_seconds, f"libraries built after cli warm: {build.build_seconds}")
+    second = cli_warm()
+    require(all(w["cached"] for w in second["warmed"]),
+            f"a second cli warm rebuilt: {second['warmed']}")
     for name in KERNEL_SOURCES:
         build.load(name)
     res = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
            for k, v in build.build_log.items()}
-    log(json.dumps({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
-                    "ptxas": res}))
+    log(json.dumps({"phase": "build", "seconds": round(seconds, 2), "cli_warm_s": built,
+                    "cached_before": [w["target"] for w in first["warmed"] if w["cached"]],
+                    "second_warm_all_cached": True, "ptxas": res}))
     # The train stack's route rests on tc_smem: the library must carve the
     # same bytes (WaveNet-30's widths, the stress config's, S = 1024).
     lib = build.load("train_stack")
@@ -513,6 +437,19 @@ def phase_environment():
             f"csrc/post_loss.cu and post_loss.tc_smem disagree: {psmem}")
     require(all(a == b for a, b in ssmem.values()),
             f"csrc/ar_step.cu or csrc/ar_tp.cu and ar_tc.stack_smem disagree: {ssmem}")
+
+
+def cli_warm() -> dict:
+    """`python -m lb_wavenet_tpu_torch.cli warm` in a subprocess: its last
+    JSON line ({"warmed": [...], "cache_dir": ..., "backend": ...})."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "lb_wavenet_tpu_torch.cli", "warm",
+         "--config", os.path.join(ROOT, "configs", "wavenet30.json")],
+        capture_output=True, text=True, cwd=ROOT, timeout=900)
+    require(proc.returncode == 0, f"cli warm failed:\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(out["backend"] == "cuda", f"cli warm: {out}")
+    return out
 
 
 def stack_smem() -> dict:
@@ -2094,6 +2031,394 @@ def phase_training(arch, gpu):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches, {"step_ms": ms, "samples_per_s": TRAIN_B * TRAIN_W / (ms / 1000.0)}
+
+PACK_SEED = 23
+PACK_FILES, PACK_FILE_SAMPLES = 60, 60 * 16000   # one hour of 16 kHz mono PCM16
+PACK_BATCHES = 50       # batches compared across the pack, native and Python loaders
+PACK_STEPS = 5          # cli train steps from the pack (traced) and from the wavs
+PACK_MEL_STEPS = 3      # steps of the mel recipe from a with-waves pack
+PRIME_SAMPLES, PRIME_GEN = 1500, 4096   # --prime length, samples generated
+PACK_REQUESTS = 4       # cli serve --ema requests
+# PERF.md's bound column, rows 5-10 (ms a call at B=8, W=10240): the train
+# step's kernels, which `cli info` must sum to (plus Adam's bytes).
+PERF_ROWS_5_10 = (0.238, 0.582, 0.0253, 0.0651, 0.0083, 0.0083)
+
+
+def rss_kb() -> int:
+    """This process's resident set (VmRSS of /proc/self/status), KB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise SmokeFailure("no VmRSS in /proc/self/status")
+
+
+def source_kernels(name: str) -> set:
+    """Qualified names (wn::...::name) of the __global__ functions defined
+    in lb_wavenet_tpu_torch/csrc/<name> (a .cu or .cuh file), by a scan of
+    its namespaces."""
+    import re
+
+    with open(os.path.join(ROOT, "lb_wavenet_tpu_torch", "csrc", name)) as f:
+        text = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read(), flags=re.S)
+    pat = re.compile(r"namespace\s+(\w+)\s*\{|__global__\s+void\s+"
+                     r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(|[{}]")
+    stack, depth, names = [], 0, set()
+    for m in pat.finditer(text):
+        if m.group(1):
+            depth += 1
+            stack.append((m.group(1), depth))
+        elif m.group(2):
+            names.add("::".join([n for n, _ in stack] + [m.group(2)]))
+        elif m.group(0) == "{":
+            depth += 1
+        else:
+            if stack and stack[-1][1] == depth:
+                stack.pop()
+            depth -= 1
+    return names
+
+
+def trace_kernel_counts(trace_dir: str, stems) -> tuple:
+    """({source: kernel events}, {source: kernel names}) of the Chrome
+    trace that `--profile` wrote into trace_dir. A kernel defined in a
+    source's .cu counts for that source; one defined in a header that
+    several sources include (tile.cuh's weight-gradient reduction) counts
+    under "shared", as the trace alone cannot tell which source launched
+    it."""
+    import re
+
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    require(len(files) == 1, f"--profile wrote {files} into {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    csrc = os.path.join(ROOT, "lb_wavenet_tpu_torch", "csrc")
+    headers = set()
+    for s in stems:
+        with open(os.path.join(csrc, f"{s}.cu")) as f:
+            headers |= set(re.findall(r'#include "(\w+\.cuh)"', f.read()))
+    groups = {s: source_kernels(f"{s}.cu") for s in stems}
+    groups["shared"] = set().union(*(source_kernels(h) for h in sorted(headers)))
+    pats = {g: re.compile("|".join(r"(?<![\w:])" + re.escape(q) + r"[<(]" for q in sorted(qs)))
+            for g, qs in groups.items()}
+    counts, names = dict.fromkeys(groups, 0), {g: set() for g in groups}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for g, pat in pats.items():
+            if pat.search(e.get("name", "")):
+                counts[g] += 1
+                names[g].add(e["name"].split("(")[0][-60:])
+                break
+    return counts, {g: sorted(v) for g, v in names.items()}
+
+
+def cli_main(argv) -> list:
+    """`lb_wavenet_tpu_torch.cli.main(argv)` in this process: the JSON lines
+    it printed, and its stderr."""
+    import io
+
+    from lb_wavenet_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    require(rc == 0, f"cli {argv[0]} returned {rc}:\n{err.getvalue()[-4000:]}")
+    return [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")], \
+        err.getvalue()
+
+
+def batch_digests(corpus, train) -> tuple:
+    """(sha256 of each of PACK_BATCHES batches, ms per batch of make_batches
+    alone, after one warm-up window); the batches are dropped as they come,
+    so RSS sees one."""
+    import hashlib
+
+    from lb_wavenet_tpu_torch.data import make_batches
+
+    corpus.examples_batch([corpus.index[0]])   # one-time set-up (the native concat)
+    it = make_batches(corpus, train)
+    digests, spent = [], 0.0
+    for _ in range(PACK_BATCHES):
+        t0 = time.perf_counter()
+        b = next(it)
+        spent += time.perf_counter() - t0
+        h = hashlib.sha256()
+        for a in (b.inputs, b.targets, b.mask):
+            h.update(a.tobytes())
+        digests.append(h.hexdigest())
+    return digests, 1000.0 * spent / PACK_BATCHES
+
+
+def int16_audio(classes, arch):
+    """The int16 samples write_wav stores for these classes."""
+    import numpy as np
+
+    from lb_wavenet_tpu_torch.ops.mulaw import mu_law_decode
+
+    wav = mu_law_decode(classes, arch.quant_channels).cpu().numpy()
+    return (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
+
+
+def phase_pack_training(arch, gpu):
+    """The out-of-core corpus and the rest of the CLI at WaveNet-30 full
+    width: an hour of synthetic audio packed by `cli pack`; batches from the
+    pack, from the wavs through the native tier and through the Python path
+    equal bit for bit; `cli train --profile` from the pack (EMA, TensorBoard,
+    checkpoint) with the same losses as from the wavs and the B3/B4/B5
+    kernels in its trace as often as their counters say; the mel recipe
+    from a with-waves pack; `cli generate --prime --ema` on mega and turbo
+    against in-process generation; `cli serve --ema` against a pool on the
+    EMA params; `cli info`'s bounds."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.data import Corpus, load_wav, make_batches, write_wav
+    from lb_wavenet_tpu_torch.generate import generate_classes
+    from lb_wavenet_tpu_torch.ops.cuda.build import BUILD
+    from lb_wavenet_tpu_torch.ops.mulaw import mu_law_encode
+    from lb_wavenet_tpu_torch.utils import profiling
+    from lb_wavenet_tpu_torch.utils.checkpoint import restore_params
+
+    work = os.path.join(BUILD, "chip_smoke_pack")   # gitignored, removed below
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    conf = os.path.join(ROOT, "configs", "wavenet30.json")
+    cfg = Config.load(conf)
+    counters = train_counters()
+    try:
+        # An hour of synthetic chords and noise, 60 one-minute files.
+        t0 = time.perf_counter()
+        wavs = os.path.join(work, "wavs")
+        os.makedirs(wavs)
+        rng = np.random.default_rng(PACK_SEED)
+        t = np.arange(PACK_FILE_SAMPLES) / arch.sample_rate
+        for i in range(PACK_FILES):
+            w = 0.02 * rng.standard_normal(PACK_FILE_SAMPLES)
+            for f0, a in zip(rng.uniform(80, 400, 3), rng.uniform(0.05, 0.25, 3)):
+                w += a * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 2 * np.pi))
+            write_wav(os.path.join(wavs, f"{i:02d}.wav"), w, arch.sample_rate)
+        write_s = time.perf_counter() - t0
+        pack = os.path.join(work, "corpus.pack")
+        t0 = time.perf_counter()
+        (summary,), _ = cli_main(["pack", "--config", conf, "--data-dir", wavs, "--out", pack])
+        pack_s = time.perf_counter() - t0
+        require(summary["n_samples"] == PACK_FILES * PACK_FILE_SAMPLES
+                and summary["enc_dtype"] == "uint8" and not summary["with_waves"],
+                f"cli pack: {summary}")
+
+        # Batches: the pack (pread), the wavs through the native tier and
+        # through the Python path, equal bit for bit; the pack's RSS growth.
+        train = cfg.train
+        rss0 = rss_kb()
+        pc = Corpus.from_pack(pack, arch, TRAIN_W)
+        d_pack, ms_pack = batch_digests(pc, train)
+        rss_growth = rss_kb() - rss0
+        dc = Corpus.from_dir(wavs, arch, TRAIN_W)
+        d_native, ms_native = batch_digests(dc, train)
+        ram_bytes = (sum(w.nbytes for w in dc.waves) + sum(e.nbytes for e in dc.encoded)
+                     + dc._packed[0].nbytes)
+        old = os.environ.get("WAVENET_NATIVE_LOADER")
+        os.environ["WAVENET_NATIVE_LOADER"] = "0"
+        try:
+            t0 = time.perf_counter()
+            yc = Corpus.from_dir(wavs, arch, TRAIN_W)
+            ingest_python_s = time.perf_counter() - t0
+            d_python, ms_python = batch_digests(yc, train)
+        finally:
+            if old is None:
+                del os.environ["WAVENET_NATIVE_LOADER"]
+            else:
+                os.environ["WAVENET_NATIVE_LOADER"] = old
+        del dc, yc
+        loader = {"phase": "pack_loader", "gpu": gpu, "files": PACK_FILES,
+                  "samples": PACK_FILES * PACK_FILE_SAMPLES, "pack_bytes": summary["bytes"],
+                  "write_wavs_s": write_s, "cli_pack_s": pack_s,
+                  "ingest_python_s": ingest_python_s, "batches": PACK_BATCHES,
+                  "B": TRAIN_B, "W": TRAIN_W,
+                  "ms_per_batch": {"pack_pread": ms_pack, "native_in_ram": ms_native,
+                                   "python_in_ram": ms_python},
+                  "pack_rss_growth_kb": rss_growth, "in_ram_corpus_bytes": ram_bytes,
+                  "equal": {"pack_vs_native": d_pack == d_native,
+                            "pack_vs_python": d_pack == d_python}}
+        log(json.dumps(loader))
+        require(d_pack == d_native == d_python,
+                "batches from the pack, the native tier and the Python path differ")
+        require(rss_growth * 1024 < ram_bytes // 20,
+                f"the pack path's RSS grew {rss_growth} KB against an in-RAM corpus of "
+                f"{ram_bytes} bytes")
+
+        # cli train --profile from the pack, with EMA, TensorBoard and a
+        # checkpoint; then from the wavs: the same losses.
+        common = ["--config", conf, "--set", f"train.n_steps={PACK_STEPS}",
+                  "--set", "train.log_every=1", "--set", "train.ema_decay=0.999",
+                  "--set", f"train.checkpoint_every={PACK_STEPS}"]
+        ckpt, prof, tb = (os.path.join(work, n) for n in ("ckpt", "profile", "tb"))
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        recs, err = cli_main(["train", *common, "--profile", prof,
+                              "--set", f"train.data_dir={pack}",
+                              "--set", f"train.checkpoint_dir={ckpt}",
+                              "--set", f"train.tensorboard_dir={tb}"])
+        traced_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        losses_pack = [r["loss"] for r in recs if "loss" in r]
+        recs, _ = cli_main(["train", *common, "--set", f"train.data_dir={wavs}",
+                            "--set", f"train.checkpoint_dir={os.path.join(work, 'ckpt_dir')}"])
+        losses_dir = [r["loss"] for r in recs if "loss" in r]
+        per_step = train_launches_per_call(arch)
+        stems = ("train_stack", "post_loss", "frontend")
+        traced, names = trace_kernel_counts(prof, stems)
+        want = {s: (per_step[f"{s}_fwd"] + per_step[f"{s}_bwd"]) * PACK_STEPS for s in stems}
+        counted = {s: launches[f"{s}_fwd"] + launches[f"{s}_bwd"] for s in stems}
+        # Every counted launch is in the trace: each source's own kernels at
+        # most its count, the shared header kernels making up the rest.
+        trace_ok = (counted == want and sum(traced.values()) == sum(counted.values())
+                    and all(0 < traced[s] <= counted[s] for s in stems))
+        has_tb = importlib.util.find_spec("tensorboard") is not None
+        tb_tags = []
+        if has_tb:
+            from tensorboard.backend.event_processing.event_accumulator import (
+                EventAccumulator)
+
+            acc = EventAccumulator(tb)
+            acc.Reload()
+            tb_tags = acc.Tags()["scalars"]
+        spread = max(abs(a - b) for a, b in zip(losses_pack, losses_dir)) \
+            if len(losses_pack) == len(losses_dir) else None
+        log(json.dumps({"phase": "pack_train", "gpu": gpu, "steps": PACK_STEPS,
+                        "losses_pack": losses_pack, "losses_dir": losses_dir,
+                        "loss_spread": spread, "traced_run_s": traced_s,
+                        "trace_kernels": traced, "counters": counted, "expected": want,
+                        "trace_kernel_names": names, "tensorboard_installed": has_tb,
+                        "tensorboard_active": has_tb and "disabled" not in err,
+                        "tensorboard_scalars": tb_tags}))
+        require(len(losses_pack) == PACK_STEPS and losses_pack == losses_dir,
+                f"losses from the pack {losses_pack} != from the wavs {losses_dir}")
+        require(trace_ok, f"trace {traced}, counters {counted}, expected {want} kernel launches")
+        require(not has_tb or "loss" in tb_tags, f"TensorBoard scalars: {tb_tags}")
+        require(has_tb or "tensorboard writer disabled" in err,
+                "no tensorboard package and no notice of it")
+
+        # The mel recipe from a with-waves pack: mel frames equal the
+        # directory's, the conditioned B3 pair every step.
+        mcfg = Config.load(MEL_CONFIG)
+        mel_pack = os.path.join(work, "mel.pack")
+        (msum,), _ = cli_main(["pack", "--config", MEL_CONFIG, "--data-dir", wavs,
+                               "--out", mel_pack])
+        require(msum["with_waves"], f"cli pack of a mel arch: {msum}")
+        mpc = Corpus.from_pack(mel_pack, mcfg.arch, MEL_TRAIN_W)
+        mdc = Corpus.from_dir(wavs, mcfg.arch, MEL_TRAIN_W)
+        first_mel_batches = []
+        it_p = make_batches(mpc, mcfg.train, with_mel=True)
+        it_d = make_batches(mdc, mcfg.train, with_mel=True)
+        for _ in range(PACK_MEL_STEPS):
+            a, b = next(it_p), next(it_d)
+            first_mel_batches.append(bool(np.array_equal(a.mel, b.mel)
+                                          and np.array_equal(a.inputs, b.inputs)))
+        del mdc
+        for f in counters.values():
+            f.launches = 0
+        recs, _ = cli_main(["train", "--config", MEL_CONFIG,
+                            "--set", f"train.n_steps={PACK_MEL_STEPS}",
+                            "--set", "train.log_every=1", "--set", f"train.data_dir={mel_pack}",
+                            "--set", f"train.checkpoint_dir={os.path.join(work, 'ckpt_mel')}"])
+        mel_launches = {k: f.launches for k, f in counters.items()}
+        mel_losses = [r["loss"] for r in recs if "loss" in r]
+        mel_per = train_launches_per_call(mcfg.arch)
+        log(json.dumps({"phase": "pack_mel_train", "gpu": gpu, "pack_bytes": msum["bytes"],
+                        "mel_batches_equal": first_mel_batches, "losses": mel_losses,
+                        "launches": mel_launches, "launches_per_step": mel_per}))
+        require(all(first_mel_batches), "mel frames from the pack differ from the wavs'")
+        require(len(mel_losses) == PACK_MEL_STEPS and all(np.isfinite(mel_losses)),
+                f"mel training from the pack: {mel_losses}")
+        for k in ("train_stack_fwd", "train_stack_bwd"):
+            require(mel_launches[k] == mel_per[k] * PACK_MEL_STEPS,
+                    f"{k}: {mel_launches[k]} launches in {PACK_MEL_STEPS} mel steps")
+
+        # generate --prime --ema on mega and turbo against in-process
+        # generation on the EMA params.
+        prime = os.path.join(work, "prime.wav")
+        write_wav(prime, 0.3 * np.sin(2 * np.pi * 220.0 * np.arange(PRIME_SAMPLES)
+                                      / arch.sample_rate), arch.sample_rate)
+        prime_cls = mu_law_encode(torch.from_numpy(load_wav(prime)[0]),
+                                  arch.quant_channels).numpy()
+        ema = restore_params(ckpt, prefer_ema=True)
+        forced = np.full((GEN_B, PRIME_GEN), -1, np.int32)
+        forced[:, :PRIME_SAMPLES] = prime_cls
+        kc = kernel_counters()
+        primed = {}
+        for engine, counter in (("mega", "mega_generate"), ("turbo", "turbo_step")):
+            out_dir = os.path.join(work, f"gen_{engine}")
+            kc[counter].launches = 0
+            cli_main(["generate", "--config", conf, "--prime", prime, "--ema",
+                      "--set", f"gen.checkpoint_dir={ckpt}", "--set", f"gen.engine={engine}",
+                      "--set", f"gen.batch_size={GEN_B}", "--set", f"gen.n_samples={PRIME_GEN}",
+                      "--set", f"gen.out_dir={out_dir}"])
+            n_launch = kc[counter].launches
+            with comparison_launches():
+                classes = generate_classes(ema, arch, cfg.gen.seed, GEN_B, PRIME_GEN,
+                                           forced=torch.from_numpy(forced),
+                                           temperature=cfg.gen.temperature, engine=engine,
+                                           device="cuda")
+            cls = classes.cpu().numpy()
+            want_audio = int16_audio(classes, arch)
+            got = np.stack([wavfile.read(os.path.join(out_dir, f"gen_{i:04d}.wav"))[1]
+                            for i in range(GEN_B)])
+            primed[engine] = {"launches": n_launch,
+                              "prime_kept": bool((cls[:, :PRIME_SAMPLES] == prime_cls).all()),
+                              "cli_equals_in_process": bool(np.array_equal(got, want_audio)),
+                              "lanes_distinct_after_prime": int(len(
+                                  {row.tobytes() for row in cls[:, PRIME_SAMPLES:]}))}
+        log(json.dumps({"phase": "pack_prime_ema", "gpu": gpu, "B": GEN_B,
+                        "n_samples": PRIME_GEN, "prime": PRIME_SAMPLES, **primed}))
+        for engine, r in primed.items():
+            require(r["launches"] > 0 and r["prime_kept"] and r["cli_equals_in_process"],
+                    f"generate --prime --ema ({engine}): {r}")
+
+        # serve --ema against a pool on the EMA params.
+        requests = [{"id": f"e{i}", "n_samples": 3000 + 700 * i, "seed": 50 + i,
+                     "temperature": (0.0, 1.0)[i % 2]} for i in range(PACK_REQUESTS)]
+        req = os.path.join(work, "requests.jsonl")
+        with open(req, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in requests)
+        served_dir = os.path.join(work, "served")
+        cli_main(["serve", "--config", conf, "--ema", "--requests", req,
+                  "--stream-chunk", str(CHUNK), "--set", f"gen.checkpoint_dir={ckpt}",
+                  "--set", f"gen.out_dir={served_dir}", "--set", f"gen.batch_size={GEN_B}"])
+        with comparison_launches():
+            pool_out, _, _, _ = serve_pool(ema, arch, requests, GEN_B, first_wave=PACK_REQUESTS)
+        serve_equal = {r["id"]: bool(np.array_equal(
+            wavfile.read(os.path.join(served_dir, f"{r['id']}.wav"))[1],
+            int16_audio(torch.from_numpy(pool_out[r["id"]]), arch))) for r in requests}
+
+        # cli info: the bounds of utils.profiling and of PERF.md's rows.
+        (info,), _ = cli_main(["info", "--config", conf])
+        n_param = profiling.n_params(arch)
+        want_train = profiling.train_step_speed_of_light(arch, TRAIN_B, TRAIN_W, n_param=n_param)
+        want_ar = profiling.ar_step_speed_of_light(arch, cfg.gen.batch_size)
+        perf_sum = sum(PERF_ROWS_5_10) + want_train["optimizer_ms"]
+        log(json.dumps({"phase": "pack_serve_ema_and_info", "gpu": gpu,
+                        "serve_equal": serve_equal, "info_gpu": info.get("gpu"),
+                        "n_params": info["n_params"],
+                        "train_sol_step_ms": info["train_speed_of_light"]["sol_step_ms"],
+                        "perf_rows_5_10_plus_adam_ms": perf_sum,
+                        "ar_sol_step_us": info["ar_speed_of_light"]["sol_step_us"]}))
+        require(all(serve_equal.values()), f"serve --ema differs from the EMA pool: {serve_equal}")
+        require(info["train_speed_of_light"] == want_train and info["ar_speed_of_light"] == want_ar
+                and info["n_params"] == n_param, "cli info's bounds differ from utils.profiling's")
+        require(abs(want_train["sol_step_ms"] - perf_sum) < 1e-3,
+                f"train bound {want_train['sol_step_ms']} ms != PERF.md rows 5-10 + Adam "
+                f"{perf_sum} ms")
+        require(info.get("gpu"), "cli info did not name the card")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return loader
 
 
 def union_us(spans) -> float:
@@ -4860,6 +5185,7 @@ def main() -> int:
         mask_launches, _ = timed("parallel_training", phase_parallel_training, gpu)
         train_launches, _ = timed("training", phase_training, arch, gpu)
         launches.update(train_launches)
+        timed("pack_training", phase_pack_training, arch, gpu)
         timed("timing", phase_timing, params, arch, errs, launches, gpu,
               (tp_arch, tp_params, tp_measured), (mel_params, mel_arch, mel_measured),
               (mel_arch, cond_stack, mel_trained),

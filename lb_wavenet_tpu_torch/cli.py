@@ -1,5 +1,6 @@
-"""Command-line entry points of the port: `train`, `eval`, `serve`,
-`generate` and `export` (the parts of `lb_wavenet_tpu/cli.py` ported so far).
+"""Command-line entry points of the port (counterpart of
+`lb_wavenet_tpu/cli.py`): `train`, `eval`, `serve`, `generate`, `export`,
+`info`, `warm` and `pack`.
 
     python -m lb_wavenet_tpu_torch.cli train --config configs/wavenet30.json \
         --set train.data_dir=/data/wavs
@@ -65,13 +66,35 @@ falling back to string). `--device` defaults to `cuda`; pass `--device cpu`
 to run the plain PyTorch paths. `train` writes its checkpoints to
 train.checkpoint_dir and resumes from them; `generate`/`serve` read the
 params of the latest checkpoint in gen.checkpoint_dir (a training directory
-or `utils.checkpoint.save_params` files), and so does `eval`. The other
-subcommands (info, warm, pack), `train --profile` and `generate --prime`
-are ROADMAP.md items.
+or `utils.checkpoint.save_params` files), and so does `eval`; `--ema` on
+`generate`, `serve` and `eval` takes the checkpoint's EMA params instead.
+
+Corpora, tooling and the rest:
+
+    python -m lb_wavenet_tpu_torch.cli pack --config configs/wavenet30.json \
+        --data-dir /data/wavs --out /data/corpus.pack
+    python -m lb_wavenet_tpu_torch.cli train --config configs/wavenet30.json \
+        --set train.data_dir=/data/corpus.pack --profile /traces
+    python -m lb_wavenet_tpu_torch.cli generate --config configs/wavenet30.json \
+        --prime prompt.wav --ema --set gen.checkpoint_dir=/ckpt
+    python -m lb_wavenet_tpu_torch.cli info --config configs/wavenet30.json
+    python -m lb_wavenet_tpu_torch.cli warm --config configs/wavenet30.json
+
+`pack` writes an out-of-core corpus file (pack.py) that train.data_dir or
+train.eval_dir may name: batches are read from it by pread, host memory
+stays O(batch). `--profile DIR` writes a torch.profiler Chrome trace of the
+run (train; one-shot and streamed generate). `generate --prime WAV` forces
+the first samples of every lane to the recording's classes and continues
+past it. `info` prints the arch's geometry, parameter count and its H100
+bounds (utils/profiling.py) and launches nothing. `warm` builds every
+library ahead of time: the native ingest tier with g++ and, on a card, the
+CUDA kernels with nvcc (`--skip-train`, `--skip-generate` leave out their
+kernels); a second `warm` finds every library built.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -165,6 +188,47 @@ def _read_requests(path: str, cfg):
     return requests
 
 
+# gen.matmul_precision -> torch.set_float32_matmul_precision; "default" is
+# torch's own default.
+_PRECISION = {"default": "highest", "high": "high", "highest": "highest"}
+
+
+@contextlib.contextmanager
+def _matmul_precision(cfg, engine: str):
+    """Run the block at the fp32 matmul precision gen.matmul_precision asks
+    for on the xla engine, torch's setting restored after; nothing changes
+    when it is empty. The other engines' contractions are the kernels' own:
+    the knob is refused there, as in JAX."""
+    value = cfg.gen.matmul_precision
+    if not value:
+        yield
+        return
+    if engine != "xla":
+        raise SystemExit(
+            "gen.matmul_precision is the xla-engine audit knob; the kernel engines' "
+            'contractions are their own: set gen.engine="xla"')
+    if value not in _PRECISION:
+        raise SystemExit(f"gen.matmul_precision {value!r} is not one of {sorted(_PRECISION)}")
+    import torch
+
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(_PRECISION[value])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def _profiled(args):
+    """The torch.profiler trace that --profile DIR asks for, or a null
+    context."""
+    if not args.profile:
+        return contextlib.nullcontext()
+    from .utils.profiling import trace
+
+    return trace(args.profile)
+
+
 def _start_mesh(args, mesh_model: int):
     """Join the ranks' process group (torchrun's environment, unless this
     process already belongs to one) and make the (world / N, N) mesh.
@@ -208,7 +272,8 @@ def cmd_train(args) -> int:
         started = not dist.is_initialized()
         init_distributed(device=args.device)
     try:
-        state = run_training(cfg, device=args.device)
+        with _profiled(args):
+            state = run_training(cfg, device=args.device)
         summary = {"trained_to_step": int(state.step)}
         if dist.is_initialized():
             if dist.get_rank() != 0:   # rank 0 is (data 0, model 0)
@@ -249,6 +314,11 @@ def cmd_serve(args) -> int:
     requests JSONL through ONE fixed-shape streaming batch, writing each
     request's wav as it completes."""
     cfg = _load_config(args)
+    with _matmul_precision(cfg, _engine(cfg, "mega")):
+        return _serve(args, cfg)
+
+
+def _serve(args, cfg) -> int:
     import numpy as np
     import torch
 
@@ -268,7 +338,7 @@ def cmd_serve(args) -> int:
     if args.listen and _distributed(args):
         raise SystemExit("--listen serves a single-process pool; drop --mesh-model / torchrun")
     requests = _read_requests(args.requests, cfg) if args.requests else []
-    params = restore_params(cfg.gen.checkpoint_dir)
+    params = restore_params(cfg.gen.checkpoint_dir, prefer_ema=args.ema)
     chunk = args.stream_chunk or 1024
     engine = _engine(cfg, "mega")
     art = None
@@ -473,13 +543,13 @@ def _generate_from_artifact(args, cfg, params, cond_frames) -> int:
     from .ops.mulaw import mu_law_decode
     from .utils.export import load_serving
 
+    if args.speakers or args.prime:
+        raise SystemExit("--artifact bakes the session shape; --speakers and --prime need "
+                         "the in-process path")
     art = load_serving(args.artifact)
     if art.arch != cfg.arch:
         raise SystemExit("artifact arch differs from --config arch; pass the config the "
                          "artifact was exported with")
-    if args.speakers:
-        raise SystemExit("--artifact bakes the session shape; --speakers needs the "
-                         "in-process path")
     if _distributed(args) or args.fleet:
         raise SystemExit("--artifact synthesis is single-process")
     m = art.manifest
@@ -568,8 +638,35 @@ def cmd_export(args) -> int:
 
 def cmd_generate(args) -> int:
     """Batched synthesis: one-shot, or streamed in --stream-chunk chunks, or
-    from a serving artifact (--artifact)."""
+    from a serving artifact (--artifact); --prime WAV forces every lane's
+    first samples to the recording's classes."""
     cfg = _load_config(args)
+    with _matmul_precision(cfg, _engine(cfg, "xla")):
+        return _generate(args, cfg)
+
+
+def _prime_classes(args, cfg):
+    """(B, n_samples) int32 forced classes of --prime: the recording's
+    mu-law classes on every lane, -1 (free-running) after it; or None."""
+    if not args.prime:
+        return None
+    import numpy as np
+    import torch
+
+    from .data import load_wav
+    from .ops.mulaw import mu_law_encode
+
+    wav, sr = load_wav(args.prime)
+    if sr != cfg.arch.sample_rate:
+        raise SystemExit(f"--prime sample rate {sr} != arch {cfg.arch.sample_rate}")
+    n_prime = min(len(wav), cfg.gen.n_samples)
+    classes = mu_law_encode(torch.from_numpy(wav[:n_prime]), cfg.arch.quant_channels).numpy()
+    forced = np.full((cfg.gen.batch_size, cfg.gen.n_samples), -1, np.int32)
+    forced[:, :n_prime] = classes[None, :]
+    return forced
+
+
+def _generate(args, cfg) -> int:
     import numpy as np
 
     from .data import write_wav
@@ -579,7 +676,9 @@ def cmd_generate(args) -> int:
     )
     from .utils.checkpoint import restore_params
 
-    params = restore_params(cfg.gen.checkpoint_dir)
+    if args.prime and args.stream_chunk:
+        raise SystemExit("--stream-chunk streams synthesis; priming needs the one-shot path")
+    params = restore_params(cfg.gen.checkpoint_dir, prefer_ema=args.ema)
     b = cfg.gen.batch_size
     if not (_distributed(args) or args.fleet):
         # Once, not per chunk: the kernels' packed weights are cached per
@@ -613,44 +712,46 @@ def cmd_generate(args) -> int:
         speaker_ids = np.asarray(ids, np.int64)
     if args.artifact:
         return _generate_from_artifact(args, cfg, params, cond_frames)
+    forced = _prime_classes(args, cfg)
     if _distributed(args) or args.fleet:
         if args.stream_chunk:
             raise SystemExit("--stream-chunk sessions are single-process; drop it for "
                              "mesh synthesis (or serve through `serve --mesh-model`)")
-        return _generate_mesh(args, cfg, params, cond_frames, speaker_ids)
+        return _generate_mesh(args, cfg, params, cond_frames, speaker_ids, forced)
     engine = _engine(cfg, "xla")
-    if args.stream_chunk:
-        chunk = int(args.stream_chunk)
-        if chunk <= 0:
-            raise SystemExit(f"--stream-chunk must be positive, got {chunk}")
-        device_b = padded_stream_batch(b, engine)
-        stream = start_stream(cfg.arch, device_b, cfg.gen.seed, engine=engine,
-                              params=params, device=args.device)
-        cond_chunks = None if cond_frames is None else _cond_chunks(
-            params, cfg.arch, cond_frames, chunk, device_b, params["embed"].device)
-        spk = None if speaker_ids is None else np.concatenate(
-            [speaker_ids, np.zeros(device_b - b, np.int64)])   # pad lanes: speaker 0
-        parts = []
-        emitted = 0
-        while emitted < cfg.gen.n_samples:
-            classes, stream = stream_chunk(
-                params, cfg.arch, stream, chunk,
-                cond=None if cond_chunks is None else next(cond_chunks), speaker_ids=spk,
-                temperature=cfg.gen.temperature, engine=engine,
-                global_rng=cfg.gen.global_rng,
-            )
-            classes = classes[:b]  # drop pad lanes
-            parts.append(mu_law_decode(classes, cfg.arch.quant_channels).cpu().numpy())
-            emitted += chunk
-            print(json.dumps({"streamed_samples": emitted}), flush=True)
-        wav_np = np.concatenate(parts, axis=1)[:, : cfg.gen.n_samples]
-    else:
-        wav_np = generate(
-            params, cfg.arch, cfg.gen.seed, batch=b,
-            n_samples=cfg.gen.n_samples, cond_frames=cond_frames, speaker_ids=speaker_ids,
-            temperature=cfg.gen.temperature, engine=engine,
-            global_rng=cfg.gen.global_rng, device=args.device,
-        ).cpu().numpy()
+    with _profiled(args):
+        if args.stream_chunk:
+            chunk = int(args.stream_chunk)
+            if chunk <= 0:
+                raise SystemExit(f"--stream-chunk must be positive, got {chunk}")
+            device_b = padded_stream_batch(b, engine)
+            stream = start_stream(cfg.arch, device_b, cfg.gen.seed, engine=engine,
+                                  params=params, device=args.device)
+            cond_chunks = None if cond_frames is None else _cond_chunks(
+                params, cfg.arch, cond_frames, chunk, device_b, params["embed"].device)
+            spk = None if speaker_ids is None else np.concatenate(
+                [speaker_ids, np.zeros(device_b - b, np.int64)])   # pad lanes: speaker 0
+            parts = []
+            emitted = 0
+            while emitted < cfg.gen.n_samples:
+                classes, stream = stream_chunk(
+                    params, cfg.arch, stream, chunk,
+                    cond=None if cond_chunks is None else next(cond_chunks), speaker_ids=spk,
+                    temperature=cfg.gen.temperature, engine=engine,
+                    global_rng=cfg.gen.global_rng,
+                )
+                classes = classes[:b]  # drop pad lanes
+                parts.append(mu_law_decode(classes, cfg.arch.quant_channels).cpu().numpy())
+                emitted += chunk
+                print(json.dumps({"streamed_samples": emitted}), flush=True)
+            wav_np = np.concatenate(parts, axis=1)[:, : cfg.gen.n_samples]
+        else:
+            wav_np = generate(
+                params, cfg.arch, cfg.gen.seed, batch=b,
+                n_samples=cfg.gen.n_samples, cond_frames=cond_frames, speaker_ids=speaker_ids,
+                forced=forced, temperature=cfg.gen.temperature, engine=engine,
+                global_rng=cfg.gen.global_rng, device=args.device,
+            ).cpu().numpy()
 
     os.makedirs(cfg.gen.out_dir, exist_ok=True)
     for i in range(wav_np.shape[0]):
@@ -696,14 +797,14 @@ def _cond_chunks(params, arch, cond_frames, chunk: int, device_b: int, device):
         pending = pending[:, chunk:]
 
 
-def _generate_mesh(args, cfg, params, cond_frames=None, speaker_ids=None) -> int:
+def _generate_mesh(args, cfg, params, cond_frames=None, speaker_ids=None, forced=None) -> int:
     """Synthesis over a (data, model) process mesh: the GLOBAL
     gen.batch_size is split over the data axis; --mesh-model N > 1 splits
     the model's skip width over the model axis (mesh_generate_classes),
     otherwise the model is replicated (fleet_generate_classes). The classes
     are gathered on every rank; rank 0 writes the wavs and the summary.
     Mel frames are upsampled once on each rank, host-replicated as every
-    input."""
+    input; `forced` (B, T) primes the global batch's lanes (--prime)."""
     import numpy as np
     import torch
 
@@ -718,6 +819,8 @@ def _generate_mesh(args, cfg, params, cond_frames=None, speaker_ids=None) -> int
     if batch % mesh.data:
         raise SystemExit(f"gen.batch_size {batch} must divide by the data axis {mesh.data}")
     engine = _engine(cfg, "mega" if (batch // mesh.data) % LANE_TILE == 0 else "turbo")
+    if cfg.gen.matmul_precision and not cfg.gen.engine:
+        engine = "xla"   # the audit knob is the xla engine's
     cond = None
     if cond_frames is not None:
         from .models.conditioning import upsample_cond
@@ -728,7 +831,7 @@ def _generate_mesh(args, cfg, params, cond_frames=None, speaker_ids=None) -> int
                              compute_dtype(cfg.arch))
     run = mesh_generate_classes if mesh.model > 1 else fleet_generate_classes
     classes = run(params, cfg.arch, cfg.gen.seed, batch, cfg.gen.n_samples, mesh,
-                  engine=engine, temperature=cfg.gen.temperature,
+                  engine=engine, temperature=cfg.gen.temperature, forced=forced,
                   global_rng=cfg.gen.global_rng, cond=cond, speaker_ids=speaker_ids)
     if (mesh.data_rank, mesh.model_rank) == (0, 0):
         wav_np = mu_law_decode(classes, cfg.arch.quant_channels).cpu().numpy()
@@ -743,6 +846,126 @@ def _generate_mesh(args, cfg, params, cond_frames=None, speaker_ids=None) -> int
         }), flush=True)
     if started:
         shutdown()
+    return 0
+
+
+def cmd_info(args) -> int:
+    """The arch's geometry, parameter count and its H100 bounds
+    (utils/profiling.py: the sample step at gen.batch_size, the training
+    step at train.batch_size x train.window_size); one JSON line. Launches
+    nothing; where a card is present, its name and power limit are added."""
+    cfg = _load_config(args)
+    from .utils.profiling import ar_step_speed_of_light, n_params, train_step_speed_of_light
+
+    arch = cfg.arch
+    count = n_params(arch)
+    info = {
+        "layers": len(arch.dilations),
+        "dilations": f"{arch.n_blocks}x[1..{max(arch.dilations)}]",
+        "receptive_field": arch.receptive_field,
+        "receptive_field_ms": round(1000.0 * arch.receptive_field / arch.sample_rate, 2),
+        "hop_size": arch.hop_size,
+        "local_cond": arch.use_local_cond,
+        "global_cond": arch.use_global_cond,
+        "n_params": count,
+        "param_mb": round(count * 4 / 2 ** 20, 2),
+        "train_flops_per_sample": int(6 * count),   # forward + backward, approximately
+        "gen_batch": cfg.gen.batch_size,
+        "ar_speed_of_light": ar_step_speed_of_light(arch, cfg.gen.batch_size),
+        "train_speed_of_light": train_step_speed_of_light(
+            arch, cfg.train.batch_size, cfg.train.window_size, tapcat=cfg.train.tapcat,
+            n_param=count),
+    }
+    card = _card_line()
+    if card:
+        info["gpu"] = card
+    print(json.dumps(info), flush=True)
+    return 0
+
+
+def _card_line() -> str:
+    """`nvidia-smi`'s "name, power limit" of the first card (its torch name
+    where nvidia-smi does not answer), or "" without a card."""
+    import subprocess
+
+    import torch
+
+    if not torch.cuda.is_available():
+        return ""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return torch.cuda.get_device_name(0)
+
+
+def cmd_pack(args) -> int:
+    """Pack a wav corpus into the out-of-core format (pack.py); training then
+    names the pack file in train.data_dir. --with-waves stores the float
+    waveform section, forced on for mel-conditioned archs."""
+    cfg = _load_config(args)
+    from .pack import pack_corpus
+
+    data_dir = args.data_dir or cfg.train.data_dir
+    if not data_dir:
+        raise SystemExit("pack needs --data-dir or train.data_dir")
+    header = pack_corpus(data_dir, args.out, quant_channels=cfg.arch.quant_channels,
+                         sample_rate=cfg.arch.sample_rate,
+                         with_waves=args.with_waves or cfg.arch.use_local_cond,
+                         n_speakers=cfg.arch.n_speakers)
+    print(json.dumps({
+        "pack": args.out,
+        "n_files": header["n_files"],
+        "n_samples": header["n_samples"],
+        "hours": round(header["n_samples"] / cfg.arch.sample_rate / 3600.0, 3),
+        "enc_dtype": header["enc_dtype"],
+        "with_waves": header["with_waves"],
+        "bytes": os.path.getsize(args.out),
+        "speakers": len(header.get("speaker_names") or []) or None,
+    }), flush=True)
+    return 0
+
+
+# The training kernels' sources; every other csrc/*.cu serves sampling.
+TRAIN_SOURCES = ("frontend", "post_loss", "train_stack")
+
+
+def cmd_warm(args) -> int:
+    """Build every library ahead of time, so that no later train, generate
+    or serve start compiles: the native ingest tier (g++) and, on a card,
+    the CUDA kernels (nvcc, one process per source, all at once). One JSON
+    line per library with its seconds ("cached": already built), then
+    {"warmed": [...], "cache_dir": ..., "backend": ...}."""
+    _load_config(args)   # a bad config fails here, as everywhere
+    from . import native
+    from .ops.numerics import resolve_device
+
+    dev = resolve_device(args.device)
+    warmed = []
+
+    def record(target: str, seconds: float, cached: bool) -> None:
+        warmed.append({"target": target, "s": seconds, "cached": cached})
+        print(json.dumps(warmed[-1]), flush=True)
+
+    t0 = time.perf_counter()
+    _, built = native.build()
+    record("native:loader", time.perf_counter() - t0, not built)
+    if dev.type == "cuda":
+        from .ops.cuda import build
+
+        names = [p.stem for p in sorted(build.CSRC.glob("*.cu"))
+                 if not (args.skip_train and p.stem in TRAIN_SOURCES)
+                 and not (args.skip_generate and p.stem not in TRAIN_SOURCES)]
+        build.build_all(names)
+        for name in names:
+            record(f"nvcc:{name}", build.build_seconds.get(name, 0.0),
+                   name not in build.build_seconds)
+    print(json.dumps({"warmed": warmed, "cache_dir": str(native.BUILD), "backend": dev.type}),
+          flush=True)
     return 0
 
 
@@ -767,6 +990,8 @@ def main(argv=None) -> int:
     p_train.add_argument("--mesh-model", default=None, type=int, metavar="N",
                          help="split the skip width over an N-rank model axis "
                          "(train.mesh_model); run under torchrun")
+    p_train.add_argument("--profile", default="", metavar="DIR",
+                         help="write a torch.profiler Chrome trace of the run into DIR")
     p_eval = sub.add_parser("eval", help="held-out teacher-forced metrics")
     _add_common(p_eval)
     p_eval.add_argument("--data-dir", default="",
@@ -775,6 +1000,13 @@ def main(argv=None) -> int:
                         help="evaluate the checkpoint's EMA params")
     p_gen = sub.add_parser("generate", help="batched AR synthesis")
     _add_common(p_gen)
+    p_gen.add_argument("--ema", action="store_true",
+                       help="synthesize with the checkpoint's EMA params")
+    p_gen.add_argument("--prime", default="", metavar="WAV",
+                       help="wav whose samples prime every lane (the reference's primed "
+                       "queue): synthesis continues past the recording")
+    p_gen.add_argument("--profile", default="", metavar="DIR",
+                       help="write a torch.profiler Chrome trace of the synthesis into DIR")
     p_gen.add_argument(
         "--stream-chunk", default=0, type=int,
         help="emit audio incrementally in chunks of this many samples "
@@ -806,6 +1038,8 @@ def main(argv=None) -> int:
         "serve", help="continuous-batching request server over one streaming batch",
     )
     _add_common(p_serve)
+    p_serve.add_argument("--ema", action="store_true",
+                         help="serve the checkpoint's EMA params")
     p_serve.add_argument(
         "--artifact", default=None, metavar="DIR",
         help="serve a FROZEN artifact (cli export --per-lane) instead of the "
@@ -868,9 +1102,27 @@ def main(argv=None) -> int:
         "exported step, so `serve --artifact` can pool it with per-request seeds and "
         "temperatures",
     )
+    p_info = sub.add_parser("info", help="arch geometry, parameter count, H100 bounds")
+    _add_common(p_info)
+    p_warm = sub.add_parser("warm", help="build every library ahead of time")
+    _add_common(p_warm)
+    p_warm.add_argument("--skip-train", action="store_true",
+                        help="leave out the training kernels (train_stack, post_loss, frontend)")
+    p_warm.add_argument("--skip-generate", action="store_true",
+                        help="leave out the sampling kernels")
+    p_warm.add_argument("--stream-chunk", default=0, type=int,
+                        help="accepted for the JAX CLI's sake: the kernels take any chunk")
+    p_pack = sub.add_parser("pack", help="pack a wav corpus into the out-of-core format")
+    _add_common(p_pack)
+    p_pack.add_argument("--data-dir", default="",
+                        help="wav directory to pack (default: train.data_dir)")
+    p_pack.add_argument("--out", required=True, help="output pack file")
+    p_pack.add_argument("--with-waves", action="store_true",
+                        help="store the float waveforms too (forced on for mel archs)")
     args = parser.parse_args(argv)
     return {"train": cmd_train, "eval": cmd_eval, "generate": cmd_generate,
-            "serve": cmd_serve, "export": cmd_export}[args.cmd](args)
+            "serve": cmd_serve, "export": cmd_export, "info": cmd_info,
+            "warm": cmd_warm, "pack": cmd_pack}[args.cmd](args)
 
 
 if __name__ == "__main__":

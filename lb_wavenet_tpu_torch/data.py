@@ -12,9 +12,12 @@ A mel-conditioned arch's batches carry each window's log-mel frames
 outside the file, through the port's `ops/mel.py` in one batched call per
 batch (on the CPU, in the prefetch thread).
 
-Not ported yet (ROADMAP.md A): the packed out-of-core corpus
-(`Corpus.from_pack`, `load_corpus` of a file) and the native C++
-ingest/assembly tier (A queue item 8).
+Files are ingested (parsed and mu-law encoded) by the native C++ tier
+(`native/`, on a thread pool) and batches assembled by it; a wav that is
+not mono PCM16, or WAVENET_NATIVE_LOADER=0, takes the Python path, with the
+same bits. A packed corpus file (`pack.py`, `cli pack`) keeps the classes
+on disk: `Corpus.from_pack` reads each batch's windows by pread(2), so host
+memory stays O(batch) whatever the corpus size.
 """
 from __future__ import annotations
 
@@ -138,7 +141,10 @@ class WindowIndex:
 
 
 class Corpus:
-    """In-memory mu-law-encoded corpus with its window index."""
+    """Mu-law-encoded corpus with its window index: in memory, or on disk
+    behind a pack file (`from_pack`)."""
+
+    _pack_fd: Optional[int] = None
 
     def __init__(
         self,
@@ -146,15 +152,22 @@ class Corpus:
         arch: ArchConfig,
         window_size: int,
         speakers: Optional[Sequence[int]] = None,
+        encoded: Optional[Sequence[np.ndarray]] = None,
     ):
         self.arch = arch
         self.window_size = window_size
         self.r_field = arch.receptive_field
         self.waves = [np.asarray(w, dtype=np.float32) for w in waves]
-        self.encoded = [
-            mu_law_encode(torch.from_numpy(w), arch.quant_channels).numpy()
-            for w in self.waves
-        ]
+        if encoded is not None:   # encoded by the native tier's table
+            self.encoded = [np.asarray(e, dtype=np.int32) for e in encoded]
+            if len(self.encoded) != len(self.waves):
+                raise ValueError(f"{len(self.encoded)} encoded files for {len(self.waves)} waves")
+        else:
+            self.encoded = [
+                mu_law_encode(torch.from_numpy(w), arch.quant_channels).numpy()
+                for w in self.waves
+            ]
+        self._packed: Optional[tuple] = None   # (enc_concat, offsets), lazily
         self.speakers = list(speakers) if speakers is not None else None
         self.speaker_names: Optional[list] = None  # set by from_dir
         self.index = WindowIndex(
@@ -165,23 +178,139 @@ class Corpus:
     @classmethod
     def from_dir(cls, data_dir: str, arch: ArchConfig, window_size: int) -> "Corpus":
         """Build from a directory of wavs (flat or per-speaker layout, see
-        `discover_layout`); every file must have arch.sample_rate."""
+        `discover_layout`); every file must have arch.sample_rate. The
+        native tier ingests the files on a thread pool; a file it does not
+        take (not mono PCM16), or every file with the tier off, goes
+        through `load_wav` and the torch encoder, with the same bits."""
+        from . import native
+
         paths, speakers, speaker_names = discover_layout(data_dir, n_speakers=arch.n_speakers)
-        waves = []
-        for p in paths:
-            w, sr = load_wav(p)
+        results: list = [None] * len(paths)
+        if native.is_available():
+            native.mulaw_lut(arch.quant_channels)   # once, not per thread
+
+            def ingest(i: int) -> None:
+                with open(paths[i], "rb") as f:
+                    raw = f.read()
+                try:
+                    results[i] = native.ingest_wav(raw, arch.quant_channels)
+                except ValueError as e:   # name the file
+                    raise ValueError(f"{paths[i]}: {e}") from e
+
+            import concurrent.futures as cf
+
+            with cf.ThreadPoolExecutor(min(os.cpu_count() or 1, 4)) as ex:
+                list(ex.map(ingest, range(len(paths))))
+        waves, encoded = [], []
+        for p, res in zip(paths, results):
+            if res is None:
+                w, sr = load_wav(p)
+                enc = mu_law_encode(torch.from_numpy(w), arch.quant_channels).numpy()
+            else:
+                w, enc, sr = res
             if sr != arch.sample_rate:
                 raise ValueError(f"{p}: sample rate {sr} != configured {arch.sample_rate}")
             waves.append(w)
-        corpus = cls(waves, arch, window_size, speakers=speakers)
+            encoded.append(enc)
+        corpus = cls(waves, arch, window_size, speakers=speakers, encoded=encoded)
         corpus.speaker_names = speaker_names
         return corpus
+
+    @classmethod
+    def from_pack(cls, path: str, arch: ArchConfig, window_size: int) -> "Corpus":
+        """Open a packed corpus file (`pack.pack_corpus`, `cli pack`): the
+        classes (and the float waves of a with-waves pack) stay on disk
+        behind read-only maps, and batches are read from the file by the
+        native tier's pread path, so host RSS is O(batch). Batches equal the
+        in-RAM Corpus's over the same wavs bit for bit."""
+        from .pack import open_pack
+
+        pk = open_pack(path)
+        h = pk.header
+        if h["quant_channels"] != arch.quant_channels:
+            raise ValueError(f"{path}: pack quant_channels {h['quant_channels']} != "
+                             f"arch.quant_channels {arch.quant_channels}")
+        if h["sample_rate"] != arch.sample_rate:
+            raise ValueError(f"{path}: pack sample_rate {h['sample_rate']} != "
+                             f"arch.sample_rate {arch.sample_rate}")
+        if arch.use_local_cond and pk.waves is None:
+            raise ValueError(f"{path}: a mel-conditioned arch needs the float waveform "
+                             "section; re-pack with `cli pack --with-waves`")
+        self = cls.__new__(cls)
+        self.arch = arch
+        self.window_size = window_size
+        self.r_field = arch.receptive_field
+        off = pk.offsets
+        n_files = h["n_files"]
+        self.encoded = [pk.enc[off[i]: off[i + 1]] for i in range(n_files)]
+        self.waves = (None if pk.waves is None
+                      else [pk.waves[off[i]: off[i + 1]] for i in range(n_files)])
+        self._packed = (pk.enc, off)   # the map is the packed corpus
+        self._pack_path = path
+        self._pack_enc_pos = pk.enc_pos
+        self._pack_itemsize = np.dtype(h["enc_dtype"]).itemsize
+        self._pack_fd = os.open(path, os.O_RDONLY | os.O_CLOEXEC)
+        self._pack_pid = os.getpid()
+        speakers = h.get("speakers")
+        self.speaker_names = None
+        self.speakers = None
+        if speakers is not None and arch.use_global_cond:
+            if max(speakers) >= arch.n_speakers:
+                raise ValueError(f"{path}: pack has speaker ids up to {max(speakers)} but "
+                                 f"arch.n_speakers={arch.n_speakers}")
+            self.speakers = list(speakers)
+            self.speaker_names = h.get("speaker_names")
+        elif speakers is not None:
+            warnings.warn(f"{path} carries speaker labels but arch.n_speakers == 0; "
+                          "training unconditioned")
+        self.index = WindowIndex(
+            [geometry.num_windows(int(off[i + 1] - off[i]), window_size) for i in range(n_files)])
+        if not len(self.index):
+            raise ValueError("Corpus yields no training windows")
+        return self
+
+    def _pack_file(self) -> int:
+        """The pack's descriptor for this process: a forked child opens its
+        own rather than share the parent's."""
+        if self._pack_pid != os.getpid():
+            self._pack_fd = os.open(self._pack_path, os.O_RDONLY | os.O_CLOEXEC)
+            self._pack_pid = os.getpid()
+        return self._pack_fd
+
+    def __del__(self):
+        fd = self._pack_fd
+        if fd is not None and getattr(self, "_pack_pid", None) == os.getpid():
+            try:
+                os.close(fd)
+            except Exception:   # interpreter shutdown may have torn down os
+                pass
 
     def example(self, fi: int, wi: int):
         return geometry.extract_window(self.encoded[fi], self.window_size, self.r_field, wi)
 
+    def _packed_corpus(self):
+        """(enc_concat int32 or the pack's uint8, offsets int64) for the
+        native assembler."""
+        if self._packed is None:
+            offsets = np.zeros(len(self.encoded) + 1, dtype=np.int64)
+            np.cumsum([len(e) for e in self.encoded], out=offsets[1:])
+            concat = np.concatenate(self.encoded).astype(np.int32, copy=False)
+            self._packed = (np.ascontiguousarray(concat), offsets)
+        return self._packed
+
     def examples_batch(self, pairs: Sequence[tuple]):
-        """Batched (inputs, targets, mask) for B (file, window) pairs."""
+        """Batched (inputs, targets, mask) for B (file, window) pairs: the
+        native assembler (a pack by pread), or row by row in Python with the
+        tier off; the same bits either way."""
+        from . import native
+
+        if native.is_available():
+            if self._pack_fd is not None:
+                return native.assemble_windows_fd(
+                    self._pack_file(), self._pack_enc_pos, self._pack_itemsize,
+                    self._packed[1], pairs, self.window_size, self.r_field)
+            enc, offsets = self._packed_corpus()
+            return native.assemble_windows(enc, offsets, pairs, self.window_size, self.r_field)
         rows = [self.example(*p) for p in pairs]
         return (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
                 np.stack([r[2] for r in rows]))
@@ -189,6 +318,9 @@ class Corpus:
     def _window_segment(self, fi: int, wi: int) -> np.ndarray:
         """Float waveform over the window's model-input span (R - 1 + W
         samples from t0 - R), zero where the span leaves the file."""
+        if self.waves is None:
+            raise ValueError("this corpus carries no float waveforms (a classes-only pack); "
+                             "mel frames need `cli pack --with-waves`")
         t0, _ = geometry.window_bounds(len(self.encoded[fi]), self.window_size, wi)
         in_start = t0 - self.r_field
         in_len = self.r_field - 1 + self.window_size
@@ -241,12 +373,10 @@ class LaneSchedule:
 
 
 def load_corpus(path: str, arch: ArchConfig, window_size: int) -> Corpus:
-    """Corpus from a directory of wavs. A packed corpus file is not ported
-    yet."""
+    """Corpus from a directory of wavs (in memory) or a packed corpus file
+    (on disk; `pack.pack_corpus`, `cli pack`)."""
     if os.path.isfile(path):
-        raise NotImplementedError(
-            f"{path}: packed corpora (Corpus.from_pack) are not ported yet "
-            "(ROADMAP.md A queue item 8); pass a directory of wavs")
+        return Corpus.from_pack(path, arch, window_size)
     return Corpus.from_dir(path, arch, window_size)
 
 

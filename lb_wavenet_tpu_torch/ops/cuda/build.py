@@ -17,7 +17,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -31,6 +33,8 @@ _lock = threading.Lock()
 _libs: dict = {}
 # ptxas resource lines of the last build (registers, shared memory, spills).
 build_log: dict = {}
+# Seconds of each nvcc compile this process made.
+build_seconds: dict = {}
 
 
 def nvcc_path() -> str:
@@ -47,33 +51,43 @@ def _target(src: Path) -> Path:
     return BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict:
-    """Compile every source whose library is missing, all at once; return
-    {name: path}."""
-    sources = sorted(CSRC.glob("*.cu"))
+def build_all(names=None) -> dict:
+    """Compile every source (or those named) whose library is missing, one
+    nvcc each, all at once; return {name: path}. The seconds of each
+    compile made by this process go to `build_seconds`, its ptxas report
+    to `build_log` and to a `.log` beside the library (read back into
+    `build_log` when the library was built by another process)."""
+    sources = [s for s in sorted(CSRC.glob("*.cu")) if names is None or s.stem in names]
     targets = {s.stem: _target(s) for s in sources}
     todo = [s for s in sources if not targets[s.stem].exists()]
+    for s in sources:
+        log = targets[s.stem].with_suffix(".log")
+        if s not in todo and s.stem not in build_log and log.exists():
+            build_log[s.stem] = log.read_text()
     if todo:
         BUILD.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
-        procs = []
-        for src in todo:
+
+        def compile_one(src: Path):
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
-            procs.append((src, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            )))
+            t0 = time.perf_counter()
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return src, tmp, proc, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(todo)) as ex:
+            results = list(ex.map(compile_one, todo))
         failed = []
-        for src, tmp, proc in procs:
-            out, _ = proc.communicate()
-            build_log[src.stem] = out
+        for src, tmp, proc, seconds in results:
+            build_log[src.stem] = proc.stdout
             if proc.returncode != 0:
                 os.unlink(tmp)
-                failed.append(f"{src.name}:\n{out}")
+                failed.append(f"{src.name}:\n{proc.stdout}")
             else:
+                targets[src.stem].with_suffix(".log").write_text(proc.stdout)
                 os.replace(tmp, targets[src.stem])
+                build_seconds[src.stem] = seconds
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return targets

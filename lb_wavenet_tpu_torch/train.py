@@ -24,9 +24,9 @@ over time, and the fused stack takes both as one cond row [mel | speaker]
 against [w_cond ; w_gcond] (`forward_fused`); autograd carries d cond on
 to the upsampler's stages, w_cond, w_gcond and the speaker table.
 
-`run_training` evaluates on a held-out corpus every train.eval_every steps
-(eval.py). Not ported yet, and raising NotImplementedError (ROADMAP.md A):
-TensorBoard (A queue item 8).
+`run_training` evaluates on a held-out corpus (a directory or a pack file)
+every train.eval_every steps (eval.py), and with train.tensorboard_dir
+mirrors its metrics as TensorBoard scalars (utils/metrics.py).
 
 Training across ranks (one process per rank, `parallel.mesh`; JAX gets the
 first from GSPMD and the others from shard_map):
@@ -560,10 +560,6 @@ def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
             "seq_parallel with mesh_model > 1 and fused kernels is not supported; drop one "
             "of the three (the TP train step covers fused + model sharding, the SP step "
             "fused + time sharding)")
-    if train.tensorboard_dir:
-        raise NotImplementedError(
-            "the TensorBoard stream is not ported (ROADMAP.md A queue item 8); "
-            "metrics go to JSONL")
 
 
 def _eval_record(state: TrainState, arch: ArchConfig, train: TrainConfig,
@@ -635,7 +631,8 @@ def run_training(
     loader = (0, 1) if train.seq_parallel else (mesh.data_rank, mesh.data)
     batches = prefetch(make_batches(corpus, train, host_id=loader[0], host_count=loader[1],
                                     start_step=start_step, with_mel=arch.use_local_cond))
-    metrics = MetricsLogger(train.metrics_path, enabled=lead)
+    metrics = MetricsLogger(train.metrics_path, enabled=lead,
+                            tensorboard_dir=train.tensorboard_dir)
     total = n_steps if n_steps is not None else train.n_steps
     samples_per_step = train.batch_size * train.window_size
     t_last = time.perf_counter()

@@ -96,6 +96,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "lb_wavenet_tpu_torch/ops/cuda/ar_tp.py", "lb_wavenet_tpu_torch/parallel/mesh.py",
         "lb_wavenet_tpu_torch/parallel/synthesis.py",
         "lb_wavenet_tpu_torch/utils/multihost.py", "tests/torch_tp_ranks.py",
+        "lb_wavenet_tpu_torch/native/__init__.py", "lb_wavenet_tpu_torch/pack.py",
+        "lb_wavenet_tpu_torch/utils/profiling.py",
     }
     assert training_slice <= scanned, training_slice - scanned
     assert len(scanned) > 15

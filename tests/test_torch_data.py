@@ -104,9 +104,11 @@ def test_corpus_from_dir_matches_jax(tmp_path):
 
 
 def test_unported_inputs_raise_and_prefetch_forwards_errors(tmp_path):
+    # A file is read as a packed corpus (tests/test_torch_pack.py): an empty
+    # one is not a pack.
     pack = tmp_path / "corpus.pack"
     pack.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A queue item 8"):
+    with pytest.raises(ValueError, match="not a corpus pack"):
         PD.load_corpus(str(pack), PMICRO, 32)
     # Mel frames are ported (tests/test_torch_train_cond.py holds them
     # against JAX's); an arch without mel has none to give.

@@ -252,21 +252,49 @@ def test_cli_train_then_generate_from_its_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(eval_dir="PACK_FILE", eval_every=5), "A queue item 8"),
-    (dict(tensorboard_dir="/nonexistent"), "A queue item 8"),
+    (dict(eval_dir="PACK_FILE", eval_every=2), "eval_nll"),
+    (dict(tensorboard_dir="TB_DIR"), "loss"),
 ])
-def test_unported_training_settings_raise(tmp_path, override, item):
-    """The settings still to port raise naming their ROADMAP item (the
-    mesh and sequence-parallel settings are ported: test_torch_parallel_train.py)."""
-    if override.get("eval_dir") == "PACK_FILE":   # a packed eval corpus
-        pack = tmp_path / "eval.pack"
-        pack.write_bytes(b"")
-        override = dict(override, eval_dir=str(pack))
-    cfg = _run_cfg(tmp_path, 2)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **override))
+def test_unported_training_settings_raise(tmp_path, capsys, override, item):
+    """The two settings that raised until the pack and the TensorBoard
+    stream were ported now work: a packed eval corpus evaluates in training
+    (the records of the directory it was packed from), and tensorboard_dir
+    mirrors the metrics as TensorBoard scalars."""
+    from lb_wavenet_tpu_torch.eval import evaluate
+    from lb_wavenet_tpu_torch.pack import pack_corpus
+
+    wavs = tmp_path / "wavs"
+    wavs.mkdir()
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        write_wav(str(wavs / f"{i}.wav"), 0.4 * rng.standard_normal(900), 16000)
+    if override.get("eval_dir") == "PACK_FILE":
+        pack_corpus(str(wavs), str(tmp_path / "eval.pack"))
+        override = dict(override, eval_dir=str(tmp_path / "eval.pack"))
+    else:
+        override = dict(override, tensorboard_dir=str(tmp_path / "tb"))
+    cfg = _run_cfg(tmp_path / "ckpt", 2)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_every=1, **override))
     corpus = synthetic_corpus(PMICRO, 64, n_files=1, file_len=500)
-    with pytest.raises(NotImplementedError, match=item):
-        PT.run_training(cfg, corpus=corpus, device="cpu")
+    state = PT.run_training(cfg, corpus=corpus, device="cpu")
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert any(item in r for r in recs)
+    if item == "eval_nll":
+        from lb_wavenet_tpu_torch.data import Corpus
+
+        want = evaluate(state.params, PMICRO, Corpus.from_dir(str(wavs), PMICRO, 64), 4,
+                        max_batches=cfg.train.eval_batches, fused=True, tapcat=True,
+                        device="cpu")
+        assert [r["eval_nll"] for r in recs if "eval_nll" in r] == [want["nll"]]
+    else:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+        acc = EventAccumulator(str(tmp_path / "tb"))
+        acc.Reload()
+        assert {"loss", "lr", "step_time_ms"} <= set(acc.Tags()["scalars"])
+        assert [e.step for e in acc.Scalars("loss")] == [1, 2]
+        np.testing.assert_allclose([e.value for e in acc.Scalars("loss")],
+                                   [r["loss"] for r in recs if "loss" in r], rtol=1e-6)
 
 
 def test_conditioning_and_missing_card_raise(tmp_path, monkeypatch):
