@@ -1,0 +1,6 @@
+"""% of the training stack forward's roofline per call (device trace)."""
+from portbench.lib import readers
+
+
+def read(run):
+    return readers.stack_roofline(run, backward=False)
