@@ -2113,6 +2113,56 @@ def trace_kernel_counts(trace_dir: str, stems) -> tuple:
     return counts, {g: sorted(v) for g, v in names.items()}
 
 
+def trace_launch_ranges(trace_dir: str) -> tuple:
+    """({innermost CPU range around its launch: kernels} of every kernel of
+    the port's csrc sources in the Chrome trace that `--profile` wrote into
+    trace_dir, {name: count} of the program's train.* and data.* ranges).
+    A kernel's launch is the runtime call that shares its correlation id;
+    the range is the latest-starting CPU range of that thread around it."""
+    import bisect
+    import re
+
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    require(len(files) == 1, f"--profile wrote {files} into {trace_dir}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    csrc = os.path.join(ROOT, "lb_wavenet_tpu_torch", "csrc")
+    ours = set().union(*(source_kernels(n) for n in sorted(os.listdir(csrc))
+                         if n.endswith((".cu", ".cuh"))))
+    pat = re.compile("|".join(r"(?<![\w:])" + re.escape(q) + r"[<(]" for q in sorted(ours)))
+    runtime, ranges, phases = {}, {}, {}
+    for e in events:
+        cat, args = e.get("cat"), e.get("args") or {}
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            runtime[args["correlation"]] = e
+        elif cat in ("cpu_op", "user_annotation") and e.get("ph") == "X":
+            ranges.setdefault((e["pid"], e["tid"]), []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"]))
+            if e["name"].startswith(("train.", "data.")):
+                phases[e["name"]] = phases.get(e["name"], 0) + 1
+    for v in ranges.values():
+        v.sort()
+    starts = {k: [r[0] for r in v] for k, v in ranges.items()}
+    launched: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel" or not pat.search(e.get("name", "")):
+            continue
+        call = runtime.get((e.get("args") or {}).get("correlation"))
+        name = "no runtime call"
+        if call is not None:
+            key, ts = (call["pid"], call["tid"]), float(call["ts"])
+            v = ranges.get(key, [])
+            i = bisect.bisect_right(starts.get(key, []), ts)
+            name = "no range"
+            while i > 0:
+                i -= 1
+                if v[i][1] >= ts:
+                    name = v[i][2]
+                    break
+        launched[name] = launched.get(name, 0) + 1
+    return launched, phases
+
+
 def cli_main(argv) -> list:
     """`lb_wavenet_tpu_torch.cli.main(argv)` in this process: the JSON lines
     it printed, and its stderr."""
@@ -2166,7 +2216,9 @@ def phase_pack_training(arch, gpu):
     pack, from the wavs through the native tier and through the Python path
     equal bit for bit; `cli train --profile` from the pack (EMA, TensorBoard,
     checkpoint) with the same losses as from the wavs and the B3/B4/B5
-    kernels in its trace as often as their counters say; the mel recipe
+    kernels in its trace as often as their counters say, each launched
+    inside its ctypes call's `kernel.<fn>` range, and the program's
+    `train.*` ranges every step; the mel recipe
     from a with-waves pack; `cli generate --prime --ema` on mega and turbo
     against in-process generation; `cli serve --ema` against a pool on the
     EMA params; `cli info`'s bounds."""
@@ -2274,6 +2326,7 @@ def phase_pack_training(arch, gpu):
         per_step = train_launches_per_call(arch)
         stems = ("train_stack", "post_loss", "frontend")
         traced, names = trace_kernel_counts(prof, stems)
+        launch_ranges, phase_ranges = trace_launch_ranges(prof)
         want = {s: (per_step[f"{s}_fwd"] + per_step[f"{s}_bwd"]) * PACK_STEPS for s in stems}
         counted = {s: launches[f"{s}_fwd"] + launches[f"{s}_bwd"] for s in stems}
         # Every counted launch is in the trace: each source's own kernels at
@@ -2295,12 +2348,20 @@ def phase_pack_training(arch, gpu):
                         "losses_pack": losses_pack, "losses_dir": losses_dir,
                         "loss_spread": spread, "traced_run_s": traced_s,
                         "trace_kernels": traced, "counters": counted, "expected": want,
-                        "trace_kernel_names": names, "tensorboard_installed": has_tb,
+                        "trace_kernel_names": names, "launch_ranges": launch_ranges,
+                        "program_ranges": phase_ranges, "tensorboard_installed": has_tb,
                         "tensorboard_active": has_tb and "disabled" not in err,
                         "tensorboard_scalars": tb_tags}))
         require(len(losses_pack) == PACK_STEPS and losses_pack == losses_dir,
                 f"losses from the pack {losses_pack} != from the wavs {losses_dir}")
         require(trace_ok, f"trace {traced}, counters {counted}, expected {want} kernel launches")
+        # Each kernel's launching CPU range is its ctypes call's span.
+        require(all(n.startswith("kernel.") for n in launch_ranges)
+                and sum(launch_ranges.values()) == sum(counted.values()),
+                f"launch ranges {launch_ranges} against {sum(counted.values())} launches")
+        require(all(phase_ranges.get(n, 0) >= PACK_STEPS for n in (
+            "train.step", "train.to_device", "train.forward", "train.backward",
+            "train.optimizer", "data.wait")), f"the trace's program ranges: {phase_ranges}")
         require(not has_tb or "loss" in tb_tags, f"TensorBoard scalars: {tb_tags}")
         require(has_tb or "tensorboard writer disabled" in err,
                 "no tensorboard package and no notice of it")

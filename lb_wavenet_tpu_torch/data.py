@@ -33,6 +33,7 @@ from .config import ArchConfig, TrainConfig
 from .ops import geometry
 from .ops.mel import log_mel_spectrogram
 from .ops.mulaw import mu_law_encode
+from .utils.profiling import span
 
 
 def load_wav(path: str) -> tuple[np.ndarray, int]:
@@ -466,7 +467,8 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait"):
+                item = q.get()
             if item is stop:
                 return
             if isinstance(item, Exception):

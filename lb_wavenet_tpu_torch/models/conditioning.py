@@ -36,6 +36,7 @@ from typing import Union
 import torch
 
 from ..config import ArchConfig
+from ..utils.profiling import span
 from .wavenet import _generator
 
 
@@ -130,20 +131,21 @@ def upsample_cond_train(params: dict, arch: ArchConfig, frames: torch.Tensor,
     (B, F * hop, Cc) in `dtype`, computed in float32 with one library
     product per contraction (its own summation order, so not bit for bit
     the fixed-order upsample_cond), differentiable in every parameter."""
-    h = _fp32_mm(frames.to(torch.float32), params["proj_w"].to(torch.float32))
-    h = h + params["proj_b"]
-    for f, stage in zip(arch.upsample_factors, params["stages"]):
-        b, n, cc = h.shape
-        # Nearest-neighbour repeat as a broadcast copy: repeat_interleave
-        # would read its output length back from the card.
-        h = h[:, :, None, :].expand(b, n, f, cc).reshape(b, n * f, cc)   # (B, T, Cc)
-        t = n * f
-        k = 2 * f + 1
-        hp = torch.nn.functional.pad(h, (0, 0, f, f))           # SAME: f zeros each side
-        win = hp.unfold(1, k, 1).transpose(-1, -2).reshape(b, t, k * cc)  # (tap, in)
-        out = _fp32_mm(win, stage["w"].to(torch.float32).reshape(k * cc, cc))
-        h = torch.nn.functional.leaky_relu(out + stage["b"], 0.4)
-    return h.to(dtype)
+    with span("cond.upsample"):
+        h = _fp32_mm(frames.to(torch.float32), params["proj_w"].to(torch.float32))
+        h = h + params["proj_b"]
+        for f, stage in zip(arch.upsample_factors, params["stages"]):
+            b, n, cc = h.shape
+            # Nearest-neighbour repeat as a broadcast copy: repeat_interleave
+            # would read its output length back from the card.
+            h = h[:, :, None, :].expand(b, n, f, cc).reshape(b, n * f, cc)   # (B, T, Cc)
+            t = n * f
+            k = 2 * f + 1
+            hp = torch.nn.functional.pad(h, (0, 0, f, f))           # SAME: f zeros each side
+            win = hp.unfold(1, k, 1).transpose(-1, -2).reshape(b, t, k * cc)  # (tap, in)
+            out = _fp32_mm(win, stage["w"].to(torch.float32).reshape(k * cc, cc))
+            h = torch.nn.functional.leaky_relu(out + stage["b"], 0.4)
+        return h.to(dtype)
 
 
 def cond_halo_frames(arch: ArchConfig) -> int:

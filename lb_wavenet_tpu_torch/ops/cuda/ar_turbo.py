@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from ...config import ArchConfig
+from ...utils.profiling import span
 from ..numerics import compute_dtype, rnd
 from . import ar_tc, build
 from .ar_mega import _gumbel_bits, _inv_temp, _perlane_bits, gumbel_from_bits
@@ -212,8 +213,9 @@ def turbo_generate_cuda(params, lp, arch: ArchConfig, state: dict, t0: int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     count = ctypes.c_int(0)
-    err = fn(ctypes.addressof(args), int(t0), n_steps,
-             torch.cuda.current_stream(dev).cuda_stream, ctypes.addressof(count))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with span("kernel.wn_turbo_steps"):   # build.launch's span, at this direct call
+        err = fn(ctypes.addressof(args), int(t0), n_steps, stream, ctypes.addressof(count))
     turbo_step.launches += count.value
     if err != 0:
         lib.wn_error_string.restype = ctypes.c_char_p

@@ -22,6 +22,8 @@ from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ...utils.profiling import span
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = [
@@ -117,15 +119,16 @@ def entry(lib: ctypes.CDLL, fn: str, argtypes, restype):
 
 
 def launch(lib: ctypes.CDLL, fn: str, args: ctypes.Structure, device) -> int:
-    """Call `fn(&args, stream, &n)` on the current stream of `device`; the
-    function adds the kernels it launched to n. Raise with CUDA's message
-    if a launch was refused. Returns n."""
+    """Call `fn(&args, stream, &n)` on the current stream of `device`, inside
+    the span `kernel.<fn>`; the function adds the kernels it launched to n.
+    Raise with CUDA's message if a launch was refused. Returns n."""
     import torch
 
     f = entry(lib, fn, [ctypes.c_void_p] * 3, ctypes.c_int)
     n = ctypes.c_int(0)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = f(ctypes.addressof(args), stream, ctypes.addressof(n))
+    with span("kernel." + fn):
+        err = f(ctypes.addressof(args), stream, ctypes.addressof(n))
     if err != 0:
         msg = entry(lib, "wn_error_string", [ctypes.c_int], ctypes.c_char_p)(err).decode()
         raise RuntimeError(f"{fn}: CUDA error {err}: {msg}")

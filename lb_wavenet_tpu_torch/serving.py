@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -47,6 +46,7 @@ import torch
 from .config import ArchConfig
 from .ops.cuda.ar_mega import padded_stream_batch
 from .ops.numerics import compute_dtype, params_to, resolve_device
+from .utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -226,11 +226,11 @@ class SessionPool:
         # The cond slab's host buffers (pinned on the card), used in turn,
         # each with the event of its last upload and the rows it wrote.
         self._cond_host: List[tuple] = []
-        # Cumulative wall clock per phase (seconds): 'reset'/'cond'/
-        # 'dispatch' are host-side enqueue work (asynchronous on the card;
-        # 'cond' is the cond slab's assembly and upload), 'fetch' is the
-        # device wait + device-to-host copy, 'slice' the per-request
-        # delivery, 'submit' the lease bookkeeping.
+        # Cumulative wall clock per phase (seconds), the totals of the spans
+        # pool.<phase>: 'reset'/'cond'/'dispatch' are host-side enqueue work
+        # (asynchronous on the card; 'cond' is the cond slab's assembly and
+        # upload), 'fetch' is the device wait + device-to-host copy, 'slice'
+        # the per-request delivery, 'submit' the lease bookkeeping.
         self.stats: Dict[str, float] = {
             "steps": 0, "reset_s": 0.0, "cond_s": 0.0, "dispatch_s": 0.0,
             "fetch_s": 0.0, "slice_s": 0.0, "submit_s": 0.0,
@@ -297,8 +297,7 @@ class SessionPool:
                     f"acc_samples - 2*chunk = {cap - 2 * self.chunk_size} "
                     f"(got {n_samples}); raise acc_samples"
                 )
-        t0 = time.perf_counter()
-        try:
+        with span("pool.submit", self.stats, "submit_s"):
             if not self._free:
                 return False
             i = heapq.heappop(self._free)
@@ -322,8 +321,6 @@ class SessionPool:
                 self._pending_reset[i] = True
             self._fresh[i] = False
             return True
-        finally:
-            self.stats["submit_s"] += time.perf_counter() - t0
 
     # -- the serving step ------------------------------------------------
 
@@ -353,100 +350,96 @@ class SessionPool:
     def _dispatch(self) -> tuple:
         """Apply pending resets and launch one chunk for the current leases
         (asynchronous on the card); returns (classes handle, metadata)."""
-        t0 = time.perf_counter()
-        if self._pending_reset.any():
+        with span("pool.reset", self.stats, "reset_s"):
+            if self._pending_reset.any():
+                if self._artifact is not None:
+                    self._art_state = self._artifact.reset(
+                        self.params, self._art_state, self._to_device(self._pending_reset))
+                elif self._session is not None:
+                    self._session.reset_lanes(self._pending_reset.copy())
+                else:
+                    from .generate import reset_lanes
+
+                    self.stream = reset_lanes(
+                        self.params, self.arch, self.stream,
+                        self._to_device(self._pending_reset), engine=self.engine,
+                    )
+                self._pending_reset[:] = False
+
+        with span("pool.cond", self.stats, "cond_s"):
+            speaker_ids = None
+            if self.arch.use_global_cond:
+                ids = np.zeros(self._device_batch, np.int32)   # idle and pad lanes: 0
+                for i, lease in enumerate(self._lanes):
+                    if lease is not None and lease.speaker is not None:
+                        ids[i] = lease.speaker
+                speaker_ids = self._to_device(ids)
+            cond = self._cond_slab() if self.arch.use_local_cond else None
+
+        with span("pool.dispatch", self.stats, "dispatch_s"):
+            lane_kw = {}
+            if self.per_lane_rng and self._artifact is None:
+                lane_kw = dict(
+                    lane_seed=self._to_device(self._lane_seed),
+                    lane_t0=self._to_device(self._lane_t0),
+                )
+                if self.temperature > 0.0:
+                    # Always ride the per-lane inverse temperature on sampled
+                    # pools: logits * f32(1/tau) equals the folded constant.
+                    lane_kw["lane_inv_temp"] = self._to_device(self._lane_inv_temp)
             if self._artifact is not None:
-                self._art_state = self._artifact.reset(
-                    self.params, self._art_state, self._to_device(self._pending_reset))
+                # One (3, B) int32 upload per chunk: [seeds; lease times; 1/tau bits].
+                lane = self._to_device(np.stack([self._lane_seed, self._lane_t0,
+                                                 self._lane_inv_temp.view(np.int32)]))
+                classes, self._art_state = self._artifact.step(
+                    self.params, self._art_state, cond=cond, lane=lane)
             elif self._session is not None:
-                self._session.reset_lanes(self._pending_reset.copy())
+                classes = self._session.chunk(self.chunk_size, cond=cond, speaker_ids=speaker_ids,
+                                              temperature=self.temperature, **lane_kw)
             else:
-                from .generate import reset_lanes
+                from .generate import stream_chunk
 
-                self.stream = reset_lanes(
-                    self.params, self.arch, self.stream,
-                    self._to_device(self._pending_reset), engine=self.engine,
+                classes, self.stream = stream_chunk(
+                    self.params, self.arch, self.stream, self.chunk_size,
+                    cond=cond, speaker_ids=speaker_ids,
+                    temperature=self.temperature, engine=self.engine,
+                    global_rng=not self.per_lane_rng, **lane_kw,
                 )
-            self._pending_reset[:] = False
-        t1 = time.perf_counter()
-        self.stats["reset_s"] += t1 - t0
+            if self.arch.quant_channels <= 256:
+                classes = classes.to(torch.uint8)
+            if self._acc is not None:
+                # One chunk-aligned ring write on the device; nothing is fetched.
+                pos = self._t_dispatched % int(self._acc.shape[1])
+                self._acc[:, pos: pos + self.chunk_size] = classes
+                handle = None
+            else:
+                handle = self._start_fetch(classes)
+            self._t_dispatched += self.chunk_size
 
-        speaker_ids = None
-        if self.arch.use_global_cond:
-            ids = np.zeros(self._device_batch, np.int32)   # idle and pad lanes: 0
+            meta = []
             for i, lease in enumerate(self._lanes):
-                if lease is not None and lease.speaker is not None:
-                    ids[i] = lease.speaker
-            speaker_ids = self._to_device(ids)
-        cond = self._cond_slab() if self.arch.use_local_cond else None
-        t2 = time.perf_counter()
-        self.stats["cond_s"] += t2 - t1
-        t1 = t2
-
-        lane_kw = {}
-        if self.per_lane_rng and self._artifact is None:
-            lane_kw = dict(
-                lane_seed=self._to_device(self._lane_seed),
-                lane_t0=self._to_device(self._lane_t0),
-            )
-            if self.temperature > 0.0:
-                # Always ride the per-lane inverse temperature on sampled
-                # pools: logits * f32(1/tau) equals the folded constant.
-                lane_kw["lane_inv_temp"] = self._to_device(self._lane_inv_temp)
-        if self._artifact is not None:
-            # One (3, B) int32 upload per chunk: [seeds; lease times; 1/tau bits].
-            lane = self._to_device(np.stack([self._lane_seed, self._lane_t0,
-                                             self._lane_inv_temp.view(np.int32)]))
-            classes, self._art_state = self._artifact.step(
-                self.params, self._art_state, cond=cond, lane=lane)
-        elif self._session is not None:
-            classes = self._session.chunk(self.chunk_size, cond=cond, speaker_ids=speaker_ids,
-                                          temperature=self.temperature, **lane_kw)
-        else:
-            from .generate import stream_chunk
-
-            classes, self.stream = stream_chunk(
-                self.params, self.arch, self.stream, self.chunk_size,
-                cond=cond, speaker_ids=speaker_ids,
-                temperature=self.temperature, engine=self.engine,
-                global_rng=not self.per_lane_rng, **lane_kw,
-            )
-        if self.arch.quant_channels <= 256:
-            classes = classes.to(torch.uint8)
-        if self._acc is not None:
-            # One chunk-aligned ring write on the device; nothing is fetched.
-            pos = self._t_dispatched % int(self._acc.shape[1])
-            self._acc[:, pos: pos + self.chunk_size] = classes
-            handle = None
-        else:
-            handle = self._start_fetch(classes)
-        self._t_dispatched += self.chunk_size
-
-        meta = []
-        for i, lease in enumerate(self._lanes):
-            if lease is None:
-                continue
-            n = min(self.chunk_size, lease.remaining)
-            lease.remaining -= n
-            lease.emitted += n
-            lease.t_local += self.chunk_size
-            done = lease.remaining == 0
-            if self._acc is None:
-                meta.append((i, lease.request_id, n, done))
-            elif done:
-                meta.append(
-                    (i, lease.request_id, lease.emitted, True, lease.start_t)
-                )
-            if done:
-                self._lanes[i] = None
-                heapq.heappush(self._free, i)
-                self._pending_reset[i] = True
-        # Every lane just advanced chunk_size free-running steps: a first
-        # lease on a never-used lane from now on must reset it.
-        self._fresh[:] = False
-        self.stats["steps"] += 1
-        self.stats["dispatch_s"] += time.perf_counter() - t1
-        return handle, meta
+                if lease is None:
+                    continue
+                n = min(self.chunk_size, lease.remaining)
+                lease.remaining -= n
+                lease.emitted += n
+                lease.t_local += self.chunk_size
+                done = lease.remaining == 0
+                if self._acc is None:
+                    meta.append((i, lease.request_id, n, done))
+                elif done:
+                    meta.append(
+                        (i, lease.request_id, lease.emitted, True, lease.start_t)
+                    )
+                if done:
+                    self._lanes[i] = None
+                    heapq.heappush(self._free, i)
+                    self._pending_reset[i] = True
+            # Every lane just advanced chunk_size free-running steps: a first
+            # lease on a never-used lane from now on must reset it.
+            self._fresh[:] = False
+            self.stats["steps"] += 1
+            return handle, meta
 
     def _cond_slab(self) -> torch.Tensor:
         """This chunk's (device batch, chunk, Cc) conditioning in the
@@ -536,27 +529,21 @@ class SessionPool:
             idx = np.zeros(_pow2_bucket(total), np.int64)
             for _rid, off, n, lane, start_t in spans:
                 idx[off: off + n] = lane * cap + (start_t + np.arange(n)) % cap
-            t0 = time.perf_counter()
-            data = self._acc.view(-1)[torch.from_numpy(idx).to(self.device)]
-            data = data.cpu().numpy()
-            t1 = time.perf_counter()
-            out = {
-                rid: (data[off: off + n].astype(np.int32), True)
-                for rid, off, n, _lane, _t in spans
+            with span("pool.fetch", self.stats, "fetch_s"):
+                data = self._acc.view(-1)[torch.from_numpy(idx).to(self.device)]
+                data = data.cpu().numpy()
+            with span("pool.slice", self.stats, "slice_s"):
+                return {
+                    rid: (data[off: off + n].astype(np.int32), True)
+                    for rid, off, n, _lane, _t in spans
+                }
+        with span("pool.fetch", self.stats, "fetch_s"):
+            host, done = handle
+            if done is not None:
+                done.synchronize()
+            classes = host.numpy()
+        with span("pool.slice", self.stats, "slice_s"):
+            return {
+                rid: (classes[i, :n].astype(np.int32), done_)
+                for i, rid, n, done_ in meta
             }
-            self.stats["fetch_s"] += t1 - t0
-            self.stats["slice_s"] += time.perf_counter() - t1
-            return out
-        t0 = time.perf_counter()
-        host, done = handle
-        if done is not None:
-            done.synchronize()
-        classes = host.numpy()
-        t1 = time.perf_counter()
-        out = {
-            rid: (classes[i, :n].astype(np.int32), done_)
-            for i, rid, n, done_ in meta
-        }
-        self.stats["fetch_s"] += t1 - t0
-        self.stats["slice_s"] += time.perf_counter() - t1
-        return out

@@ -73,6 +73,7 @@ from .parallel.mesh import (
 from .utils import checkpoint as ckpt_lib
 from .utils import multihost
 from .utils.metrics import MetricsLogger
+from .utils.profiling import span
 
 
 class TrainState(NamedTuple):
@@ -286,22 +287,23 @@ def loss_sums_fn(params, arch: ArchConfig, window_size: int, batch: dict,
 def _grad(out: torch.Tensor, params: dict) -> dict:
     """d out / d params as a tree; a leaf the loss does not reach (the
     speaker table of a batch without speaker ids) gets zeros, as JAX's."""
-    grads = iter(torch.autograd.grad(out, tree_leaves(params), allow_unused=True,
-                                     materialize_grads=True))
+    with span("train.backward"):
+        grads = iter(torch.autograd.grad(out, tree_leaves(params), allow_unused=True,
+                                         materialize_grads=True))
     return tree_map(lambda _: next(grads), params)
 
 
 def _apply_updates(state: TrainState, grads: dict, train: TrainConfig,
                    g_norm=None) -> TrainState:
     """Optimizer + EMA + step bump (`g_norm`: Adam.update's)."""
-    updates, opt_state = make_optimizer(train).update(grads, state.opt_state, g_norm)
-    with torch.no_grad():
+    with span("train.optimizer"), torch.no_grad():
+        updates, opt_state = make_optimizer(train).update(grads, state.opt_state, g_norm)
         params = tree_map(lambda p, u: p + u, state.params, updates)
         ema = state.ema
         if train.ema_decay > 0:
             d = train.ema_decay
             ema = tree_map(lambda e, p: e * d + p * (1.0 - d), state.ema, params)
-    return TrainState(params, opt_state, state.step + 1, ema)
+        return TrainState(params, opt_state, state.step + 1, ema)
 
 
 def value_and_grads(params: dict, batch: dict, arch: ArchConfig, train: TrainConfig):
@@ -313,7 +315,8 @@ def value_and_grads(params: dict, batch: dict, arch: ArchConfig, train: TrainCon
     params = tree_map(lambda p: p.detach().requires_grad_(True), params)
     k = train.grad_accum
     if k <= 1:
-        num, den = loss_sums_fn(params, arch, train.window_size, batch, train)
+        with span("train.forward"):
+            num, den = loss_sums_fn(params, arch, train.window_size, batch, train)
         loss = num / torch.clamp(den, min=1.0)
         return loss.detach(), _grad(loss, params)
     b = batch["inputs"].shape[0]
@@ -323,7 +326,8 @@ def value_and_grads(params: dict, batch: dict, arch: ArchConfig, train: TrainCon
     num = den = torch.zeros((), dtype=torch.float32, device=batch["inputs"].device)
     for i in range(k):
         micro = {key: v[i::k] for key, v in batch.items()}
-        n_i, d_i = loss_sums_fn(params, arch, train.window_size, micro, train)
+        with span("train.forward"):
+            n_i, d_i = loss_sums_fn(params, arch, train.window_size, micro, train)
         g_sum = tree_map(torch.add, g_sum, _grad(n_i, params))
         num, den = num + n_i.detach(), den + d_i.detach()
     d = torch.clamp(den, min=1.0)
@@ -333,8 +337,9 @@ def value_and_grads(params: dict, batch: dict, arch: ArchConfig, train: TrainCon
 def train_step(state: TrainState, batch: dict, arch: ArchConfig, train: TrainConfig):
     """One optimizer step on `batch` (a dict from batch_to_device):
     (new state, loss)."""
-    loss, grads = value_and_grads(state.params, batch, arch, train)
-    return _apply_updates(state, grads, train), loss
+    with span("train.step"):
+        loss, grads = value_and_grads(state.params, batch, arch, train)
+        return _apply_updates(state, grads, train), loss
 
 
 # ---- training across ranks ---------------------------------------------------
@@ -351,7 +356,8 @@ def num_grads(params: dict, batch: dict, train: TrainConfig, sums_fn):
     g_sum, num, den = None, 0.0, 0.0
     for i in range(k):
         micro = batch if k == 1 else {key: v[i::k] for key, v in batch.items()}
-        n_i, d_i = sums_fn(params, micro)
+        with span("train.forward"):
+            n_i, d_i = sums_fn(params, micro)
         g = _grad(n_i, params)
         g_sum = g if g_sum is None else tree_map(torch.add, g_sum, g)
         num, den = num + n_i.detach(), den + d_i.detach().to(torch.float32)
@@ -366,16 +372,18 @@ def _reduced_step(train: TrainConfig, sums_fn, groups, g_norm=None):
     divided once by max(den, 1); then Adam and EMA (with clipping, by
     g_norm(grads) when given)."""
     def step(state: TrainState, batch: dict):
-        g, num, den = num_grads(state.params, batch, train, sums_fn)
-        paths, leaves = tree_paths(g), tree_leaves(g)
-        sums = torch.stack([num, den])
-        for group, size, keep in groups:
-            picked = [x for p, x in zip(paths, leaves) if keep(p)]
-            all_reduce_flat_(picked + ([sums] if keep(None) else []), group, size)
-        d = torch.clamp(sums[1], min=1.0)
-        grads = tree_map(lambda x: x / d, g)
-        norm = g_norm(grads) if g_norm is not None and train.grad_clip_norm > 0 else None
-        return _apply_updates(state, grads, train, norm), sums[0] / d
+        with span("train.step"):
+            g, num, den = num_grads(state.params, batch, train, sums_fn)
+            paths, leaves = tree_paths(g), tree_leaves(g)
+            sums = torch.stack([num, den])
+            with span("train.allreduce"):
+                for group, size, keep in groups:
+                    picked = [x for p, x in zip(paths, leaves) if keep(p)]
+                    all_reduce_flat_(picked + ([sums] if keep(None) else []), group, size)
+            d = torch.clamp(sums[1], min=1.0)
+            grads = tree_map(lambda x: x / d, g)
+            norm = g_norm(grads) if g_norm is not None and train.grad_clip_norm > 0 else None
+            return _apply_updates(state, grads, train, norm), sums[0] / d
 
     return step
 
@@ -493,22 +501,23 @@ def seq_batch_to_device(batch: Batch, mesh: Mesh, window_size: int, device) -> d
     causally inert, and masked). Mel frames and speaker ids whole."""
     import numpy as np
 
-    n = mesh.data
-    inputs = np.asarray(batch.inputs)
-    b, t = inputs.shape
-    tp = -(-t // n) * n
-    inp = np.zeros((b, tp), inputs.dtype)
-    inp[:, :t] = inputs
-    tgt = np.zeros((b, tp), np.int32)
-    tgt[:, t - window_size: t] = batch.targets
-    msk = np.zeros((b, tp), np.float32)
-    msk[:, t - window_size: t] = batch.mask
-    out = {"inputs": inp, "targets": tgt, "mask": msk}
-    if batch.mel is not None:
-        out["mel"] = np.asarray(batch.mel)
-    if batch.speaker is not None:
-        out["speaker"] = np.asarray(batch.speaker)
-    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in out.items()}
+    with span("train.to_device"):
+        n = mesh.data
+        inputs = np.asarray(batch.inputs)
+        b, t = inputs.shape
+        tp = -(-t // n) * n
+        inp = np.zeros((b, tp), inputs.dtype)
+        inp[:, :t] = inputs
+        tgt = np.zeros((b, tp), np.int32)
+        tgt[:, t - window_size: t] = batch.targets
+        msk = np.zeros((b, tp), np.float32)
+        msk[:, t - window_size: t] = batch.mask
+        out = {"inputs": inp, "targets": tgt, "mask": msk}
+        if batch.mel is not None:
+            out["mel"] = np.asarray(batch.mel)
+        if batch.speaker is not None:
+            out["speaker"] = np.asarray(batch.speaker)
+        return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in out.items()}
 
 
 def _train_mesh(train: TrainConfig, device) -> Mesh:
@@ -545,12 +554,13 @@ def gather_state(state: TrainState, mesh: Mesh) -> TrainState:
 
 def batch_to_device(batch: Batch, device) -> dict:
     """A host batch as tensors on `device`."""
-    d = {"inputs": batch.inputs, "targets": batch.targets, "mask": batch.mask}
-    if batch.mel is not None:
-        d["mel"] = batch.mel
-    if batch.speaker is not None:
-        d["speaker"] = batch.speaker
-    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in d.items()}
+    with span("train.to_device"):
+        d = {"inputs": batch.inputs, "targets": batch.targets, "mask": batch.mask}
+        if batch.mel is not None:
+            d["mel"] = batch.mel
+        if batch.speaker is not None:
+            d["speaker"] = batch.speaker
+        return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in d.items()}
 
 
 def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
@@ -590,7 +600,7 @@ def run_training(
     and every train.eval_every steps an evaluation of the held-out corpus
     (`eval_corpus`, or train.eval_dir), logged as eval_* records (plus
     eval_ema_nll / eval_ema_accuracy with an EMA) and kept out of
-    step_time_ms.
+    step_time_ms, as checkpoint saves are.
 
     Across ranks (a running process group; `_train_mesh`) every rank calls
     it: the sequence-parallel, the model-parallel or the data-parallel
@@ -674,6 +684,7 @@ def run_training(
                     ckpt_lib.save(manager, whole, i + 1)
                 if dist.is_initialized():
                     dist.barrier()
+                t_last = time.perf_counter()  # nor is a checkpoint's
     finally:
         batches.close()
         metrics.close()

@@ -3,19 +3,29 @@ of `lb_wavenet_tpu/utils/profiling.py`).
 
 `sync_time` times a call to its end on the card; `trace(log_dir)` wraps a
 block in a `torch.profiler` trace (CPU and CUDA activities) written into
-`log_dir` as a Chrome trace. The `*_cost` functions give the bytes each
-kernel's function must move (each input read once, each output written
-once) and the operations it does; `bound_ms` turns them into the least time
-an H100 SXM could take by its data sheet (989 TFLOP/s dense bf16, 3.35
-TB/s HBM3). chip_smoke.py's `kernels` line, `cli info` and PERF.md's bound
-column read these same functions.
+`log_dir` as a Chrome trace. `span(name)` marks a phase of the program
+(`train.step`, `train.forward`, `kernel.<fn>` around each ctypes launch,
+`pool.dispatch`, ...): while a `torch.profiler` records, the span enters
+the profiler's timeline as a range of that name and keeps a `SpanRecord`
+in a bounded buffer (`spans()`); otherwise it records nothing. The
+`*_cost` functions give the bytes each kernel's function must move (each
+input read once, each output written once) and the operations it does;
+`bound_ms` turns them into the least time an H100 SXM could take by its
+data sheet (989 TFLOP/s dense bf16, 3.35 TB/s HBM3). chip_smoke.py's
+`kernels` line, `cli info` and PERF.md's bound column read these same
+functions.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
-from typing import Callable
+from typing import Callable, NamedTuple, Optional
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (H100 SXM data sheet)
 H100_BYTES_S = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
@@ -40,6 +50,72 @@ def sync_time(fn: Callable[[], object], reps: int = 3) -> float:
         _sync()
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    start: float            # time.perf_counter() seconds
+    end: float
+    parent: Optional[str]   # the innermost span open on the same thread at the start
+    thread: int             # threading.get_ident()
+
+
+SPAN_BUFFER = 1 << 16       # records kept; the oldest are dropped beyond
+_records: "collections.deque" = collections.deque(maxlen=SPAN_BUFFER)
+_records_lock = threading.Lock()
+_open = threading.local()   # .names: the spans open on this thread, innermost last
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, totals: Optional[dict] = None, key: str = ""):
+    """A context manager marking the phase `name` of the program. Tracing is
+    on exactly while a torch.profiler records (the autograd profiler's
+    flag): then the span is a range of the profiler's timeline and a
+    SpanRecord in the buffer. Off, it costs this flag check. With `totals`
+    it also adds its seconds to totals[key], on or off (a running total
+    such as SessionPool.stats)."""
+    if totals is None and not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, totals, key)
+
+
+def spans() -> list:
+    """A snapshot of the buffer: the SpanRecords of every thread, oldest
+    first."""
+    with _records_lock:
+        return list(_records)
+
+
+class _Span:
+    __slots__ = ("name", "totals", "key", "parent", "range", "t0")
+
+    def __init__(self, name: str, totals: Optional[dict], key: str):
+        self.name, self.totals, self.key = name, totals, key
+        self.range = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            names = getattr(_open, "names", None)
+            if names is None:
+                names = _open.names = []
+            self.parent = names[-1] if names else None
+            names.append(self.name)
+            self.range = _RecordFunctionFast(self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self.totals is not None:
+            self.totals[self.key] += t1 - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+            _open.names.pop()
+            record = SpanRecord(self.name, self.t0, t1, self.parent, threading.get_ident())
+            with _records_lock:
+                _records.append(record)
+        return False
 
 
 @contextlib.contextmanager
@@ -257,5 +333,4 @@ def train_step_speed_of_light(arch, batch: int, window: int, tapcat: bool = True
         "bound": "operations" if t_mxu >= t_hbm else "bytes",
         "sol_step_ms": step_ms,
         "sol_samples_per_sec": batch * window / (step_ms * 1e-3),
-        "mfu_at_sol": flops / (step_ms * 1e-3) / H100_BF16_FLOPS,
     }

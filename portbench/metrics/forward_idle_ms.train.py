@@ -1,0 +1,8 @@
+"""Device-idle ms a training step while the host is inside the program's
+span train.forward, less the part under cond.upsample
+(upsample_idle_ms.train), over the traced phase (lib/program_spans.py)."""
+from portbench.lib import program_spans
+
+
+def read(run):
+    return program_spans.idle_ms(run, "forward")
