@@ -178,6 +178,16 @@ random weights seeded by numpy, in phases; any failure exits non-zero:
      checkpoint and resume, then `torchrun --nproc-per-node 2 -m
      lb_wavenet_tpu_torch.cli train --set train.seq_parallel=true` and
      `cli eval` from its checkpoint;
+ 12b. `mol`: Tacotron 2's WaveNet vocoder
+     (lb_wavenet_tpu_torch/configs/tacotron2_mol.json at full width: 24 kHz,
+     hop 300 as 15 x 20, a 10-component mixture of logistics): the MoL head
+     pair against its plain versions at the training shape (B=8, W=7200;
+     bf16 on tensor cores, fp32 on CUDA cores), its ms a call beside the
+     plain versions' and its bound; one training step through train_step
+     (the fused stack, then the pair: 2 + 2 launches); 1 s of xla-engine
+     generation (one lane, 24,000 steps) with the head outputs of its last
+     steps held to the teacher-forced forward; the pair's rows of the
+     `kernels` line;
  13. timings at the serving and training shapes (mega and turbo at B=512
      and at wavenet30.json's gen batch 64), the conditioned kernels against
      the unconditioned ones (`mel_timing`) and the `kernels` JSON line,
@@ -288,7 +298,7 @@ try:   # the bounds' yardstick; main() reports a missing port
 except ImportError:
     pass
 KERNEL_SOURCES = ("ar_step", "ar_mega", "ar_turbo", "frontend", "train_stack", "post_loss",
-                  "ar_tp")
+                  "ar_tp", "post_mol")
 
 
 class SmokeFailure(Exception):
@@ -5229,6 +5239,120 @@ def phase_http_serving(params, arch, gpu):
         shutil.rmtree(work, ignore_errors=True)
 
 
+MOL_CONFIG = os.path.join(ROOT, "lb_wavenet_tpu_torch", "configs", "tacotron2_mol.json")
+MOL_B, MOL_W = 8, 7200      # the config's recipe
+# Generated samples: 1 s at 24 kHz. The xla engine is launch-bound at ~21 ms
+# a step on an H100 (~1,250 launches a step, measured on one H100), so this
+# phase takes ~8.5 min.
+MOL_GEN = 24000
+MOL_TAIL = 64               # generated steps held to the teacher-forced forward
+# The generated steps' head outputs against the teacher-forced forward: one
+# lane's step products sum in another order than the whole sequence's, and
+# bf16 rounding flips carry through 30 layers.
+MOL_GEN_ATOL = 0.1
+
+
+def phase_mol(gpu):
+    """The mol section (phase 12b): the head pair against its plain versions
+    on both routes, one train step, MOL_GEN steps of xla-engine generation;
+    returns the kernels line's rows of the pair."""
+    import math
+
+    import torch
+
+    from lb_wavenet_tpu_torch import generate as G
+    from lb_wavenet_tpu_torch import train as PT
+    from lb_wavenet_tpu_torch.config import Config
+    from lb_wavenet_tpu_torch.models.conditioning import upsample_cond
+    from lb_wavenet_tpu_torch.models.wavenet import compute_dtype, forward, init_params
+    from lb_wavenet_tpu_torch.ops import mol
+    from lb_wavenet_tpu_torch.ops.cuda import post_mol as PM
+    from lb_wavenet_tpu_torch.utils.profiling import mol_post_cost
+
+    cfg = Config.load(MOL_CONFIG)
+    arch, train = cfg.arch, cfg.train
+    t = arch.receptive_field - 1 + MOL_W
+    g = torch.Generator(device="cuda").manual_seed(11)
+    params = init_params(5, arch, "cuda")
+    skip = torch.randn((MOL_B, t, arch.skip_channels), device="cuda", generator=g)
+    tgt = mol.to_grid(0.5 * torch.randn((MOL_B, MOL_W), device="cuda", generator=g))
+    tgt[:, :8] = -1.0
+    mask = (torch.rand((MOL_B, MOL_W), device="cuda", generator=g) > 0.05).float()
+    gbar = torch.tensor(1.0 / MOL_W, device="cuda")
+    head = params["mol"]
+    errs, rows = {}, []
+    for dt in (torch.bfloat16, torch.float32):
+        num = PM.post_mol_fwd(head, skip, tgt, mask, MOL_W, dt)
+        want = PM.post_mol_plain(head, skip, tgt, mask, MOL_W, dt)
+        dskip, grads = PM.post_mol_bwd(head, skip, tgt, mask, MOL_W, dt, gbar)
+        w_dskip, w_grads = PM.post_mol_bwd_plain(head, skip, tgt, mask, MOL_W, dt, gbar)
+        torch.cuda.synchronize()
+        e = {"num": rel_err(num, want), "dskip": rel_err(dskip, w_dskip),
+             **{f"d{k}": rel_err(grads[k], w_grads[k]) for k in grads}}
+        # KERNEL_RTOL, the other training pairs': the products sum in the same
+        # order (tc_mm on the tensor cores), but dy differs by the NLL's
+        # transcendentals (expf, log1pf: ulps), and rounding dy to bf16 for
+        # the dskip and dw products turns some of them into a bf16 ulp
+        # (dskip read 6.9e-4, measured on one H100).
+        require(all(v <= KERNEL_RTOL for v in e.values()), f"MoL head pair vs plain ({dt}): {e}")
+        require(float(dskip[:, : t - MOL_W].abs().max()) == 0.0, "MoL head rows of dskip not 0")
+        errs[str(dt)] = e
+    dt = compute_dtype(arch)
+    launches0 = PM.post_mol_fwd.launches, PM.post_mol_bwd.launches
+    ms_f = cuda_ms(lambda: PM.post_mol_fwd(head, skip, tgt, mask, MOL_W, dt), 20)
+    ms_b = cuda_ms(lambda: PM.post_mol_bwd(head, skip, tgt, mask, MOL_W, dt, gbar), 20)
+    plain_f = cuda_ms(lambda: PM.post_mol_plain(head, skip, tgt, mask, MOL_W, dt), 2)
+    plain_b = cuda_ms(lambda: PM.post_mol_bwd_plain(head, skip, tgt, mask, MOL_W, dt, gbar), 2)
+    PM.post_mol_fwd.launches, PM.post_mol_bwd.launches = launches0
+    # One training step through train_step on a batch of 16-bit samples.
+    x = mol.to_grid(0.3 * torch.randn((MOL_B, t), device="cuda", generator=g))
+    frames = torch.randn((MOL_B, -(-t // arch.hop_size), arch.n_mels), device="cuda", generator=g)
+    batch = {"inputs": x, "targets": torch.cat([x[:, 1:], x[:, -1:]], 1)[:, -MOL_W:],
+             "mask": torch.ones((MOL_B, MOL_W), device="cuda"), "mel": frames}
+    state = PT.TrainState(params, PT.make_optimizer(train).init(params), 0)
+    before = PM.post_mol_fwd.launches, PM.post_mol_bwd.launches
+    t0 = time.perf_counter()
+    state, loss = PT.train_step(state, batch, arch, train)
+    loss = float(loss)
+    step_s = time.perf_counter() - t0
+    step_launches = (PM.post_mol_fwd.launches - before[0], PM.post_mol_bwd.launches - before[1])
+    require(math.isfinite(loss) and step_launches == (2, 2),
+            f"mol train step: loss {loss}, head launches {step_launches}")
+    # MOL_GEN steps of xla-engine generation, one lane, on random frames.
+    gen_frames = torch.randn((1, -(-MOL_GEN // arch.hop_size), arch.n_mels), device="cuda",
+                             generator=g)
+    cond = upsample_cond(params["upsampler"], arch, gen_frames, dt)
+    t0 = time.perf_counter()
+    samples, y = G.generate_classes(params, arch, 3, 1, MOL_GEN, cond=cond, return_logits=True,
+                                    engine="xla", device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(samples).all()) and float(samples.abs().max()) <= 1.0,
+            "mol generation left [-1, 1]")
+    lo = MOL_GEN - MOL_TAIL - arch.receptive_field
+    prev = torch.cat([torch.zeros_like(samples[:, :1]), samples[:, :-1]], 1)[:, lo:]
+    want = forward(params, arch, prev, cond=cond[:, lo:MOL_GEN])[:, -MOL_TAIL:]
+    gen_err = float((y[:, -MOL_TAIL:] - want).abs().max())
+    require(gen_err <= MOL_GEN_ATOL, f"mol generation's head outputs vs forward: {gen_err}")
+    log(json.dumps({"phase": "mol", "gpu": gpu, "config": MOL_CONFIG, "pair_vs_plain": errs,
+                    "train_step_loss": loss, "train_step_s": step_s,
+                    "head_launches_per_step": step_launches, "gen_samples": MOL_GEN,
+                    "gen_s": gen_s, "gen_ms_per_step": 1e3 * gen_s / MOL_GEN,
+                    "gen_tail_max_abs_err": gen_err}))
+    for name, ms, plain, bwd in (("post_mol_fwd", ms_f, plain_f, False),
+                                 ("post_mol_bwd", ms_b, plain_b, True)):
+        bms, by = bound_ms(*mol_post_cost(arch, MOL_B, t, MOL_W, bwd))
+        rows.append({
+            "name": name, "route": "cuda", "source": "lb_wavenet_tpu_torch/csrc/post_mol.cu",
+            "replaces": "none (the JAX package has no mixture output)",
+            "launches": step_launches[int(bwd)], "max_abs_err": errs[str(dt)],
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "unit": f"ms per call of 2 launches (B={MOL_B}, W={MOL_W}, T={t}, S=256, 3M=30)",
+            "launches_per_call": 2, "kernel_route": PM.route(arch.skip_channels, arch.n_mix, dt),
+            "config": "lb_wavenet_tpu_torch/configs/tacotron2_mol.json"})
+    return rows
+
+
 def timed(name, fn, *args):
     """fn(*args), logging the phase's seconds."""
     t0 = time.perf_counter()
@@ -5298,10 +5422,11 @@ def main() -> int:
         train_launches, _ = timed("training", phase_training, arch, gpu)
         launches.update(train_launches)
         timed("pack_training", phase_pack_training, arch, gpu)
+        mol_rows = timed("mol", phase_mol, gpu)
         timed("timing", phase_timing, params, arch, errs, launches, gpu,
               (tp_arch, tp_params, tp_measured), (mel_params, mel_arch, mel_measured),
               (mel_arch, cond_stack, mel_trained),
-              [*mask_rows(mel_arch, masked, mask_launches), vmem_row])
+              [*mask_rows(mel_arch, masked, mask_launches), vmem_row, *mol_rows])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

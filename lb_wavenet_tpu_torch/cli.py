@@ -650,6 +650,9 @@ def _prime_classes(args, cfg):
     mu-law classes on every lane, -1 (free-running) after it; or None."""
     if not args.prime:
         return None
+    if cfg.arch.mol:
+        raise SystemExit("--prime forces mu-law classes; a mol arch (arch.output_dist='mol') "
+                         "generates without it")
     import numpy as np
     import torch
 
@@ -670,10 +673,7 @@ def _generate(args, cfg) -> int:
     import numpy as np
 
     from .data import write_wav
-    from .generate import (
-        generate, mu_law_decode, padded_stream_batch, start_stream,
-        stream_chunk,
-    )
+    from .generate import decode, generate, padded_stream_batch, start_stream, stream_chunk
     from .utils.checkpoint import restore_params
 
     if args.prime and args.stream_chunk:
@@ -728,7 +728,7 @@ def _generate(args, cfg) -> int:
             stream = start_stream(cfg.arch, device_b, cfg.gen.seed, engine=engine,
                                   params=params, device=args.device)
             cond_chunks = None if cond_frames is None else _cond_chunks(
-                params, cfg.arch, cond_frames, chunk, device_b, params["embed"].device)
+                params, cfg.arch, cond_frames, chunk, device_b, params["input_conv"]["b"].device)
             spk = None if speaker_ids is None else np.concatenate(
                 [speaker_ids, np.zeros(device_b - b, np.int64)])   # pad lanes: speaker 0
             parts = []
@@ -741,7 +741,7 @@ def _generate(args, cfg) -> int:
                     global_rng=cfg.gen.global_rng,
                 )
                 classes = classes[:b]  # drop pad lanes
-                parts.append(mu_law_decode(classes, cfg.arch.quant_channels).cpu().numpy())
+                parts.append(decode(classes, cfg.arch).cpu().numpy())
                 emitted += chunk
                 print(json.dumps({"streamed_samples": emitted}), flush=True)
             wav_np = np.concatenate(parts, axis=1)[:, : cfg.gen.n_samples]

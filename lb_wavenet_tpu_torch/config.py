@@ -5,6 +5,11 @@ A copy of `lb_wavenet_tpu/config.py`: the port loads the same
 the same way, without importing the JAX package. Knobs named after TPU
 kernels (`fused_stack`, `tapcat`, `global_rng`, ...) keep their names; the
 port maps them onto its own kernels as those slices land (ROADMAP.md).
+
+The port's own fields, which the JAX package does not have, keep their
+defaults in every file under `configs/`: `ArchConfig.output_dist` and
+`n_mix` (the mixture-of-logistics output of Tacotron 2's WaveNet vocoder,
+`lb_wavenet_tpu_torch/configs/tacotron2_mol.json`).
 """
 from __future__ import annotations
 
@@ -44,6 +49,22 @@ class ArchConfig:
     sample_rate: int = 16000
     # Compute dtype for matmuls ("bfloat16" or "float32"); params stay fp32.
     compute_dtype: str = "bfloat16"
+    # The port's own (not in the JAX package). Output distribution:
+    # "softmax", the quant_channels-way mu-law softmax over class inputs;
+    # or "mol", a discretised mixture of n_mix logistics over 16-bit linear
+    # samples in [-1, 1), which go in as real numbers (ops/mol.py; the
+    # head is relu(skip) @ w + b, 3 n_mix wide; quant_channels unused).
+    output_dist: str = "softmax"
+    n_mix: int = 10
+
+    def __post_init__(self):
+        if self.output_dist not in ("softmax", "mol"):
+            raise ValueError(f"arch.output_dist must be 'softmax' or 'mol', "
+                             f"got {self.output_dist!r}")
+
+    @property
+    def mol(self) -> bool:
+        return self.output_dist == "mol"
 
     @property
     def dilations(self) -> tuple:

@@ -18,6 +18,12 @@ not mono PCM16, or WAVENET_NATIVE_LOADER=0, takes the Python path, with the
 same bits. A packed corpus file (`pack.py`, `cli pack`) keeps the classes
 on disk: `Corpus.from_pack` reads each batch's windows by pread(2), so host
 memory stays O(batch) whatever the corpus size.
+
+A mol arch (arch.output_dist == "mol") keeps 16-bit linear PCM in place of
+mu-law classes: `encoded` holds each file's int16 sample values (as int32),
+windows are cut by the same geometry and assembler, and `make_batches`
+hands out inputs and targets as float32 samples k / 32768 in [-1, 1). Its
+packed corpora are not there yet (ops/mol.py ROADMAP_PACK).
 """
 from __future__ import annotations
 
@@ -66,8 +72,8 @@ def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:
 class Batch:
     """One training batch (host-local rows)."""
 
-    inputs: np.ndarray   # int32 (B, R-1+W)   mu-law classes
-    targets: np.ndarray  # int32 (B, W)
+    inputs: np.ndarray   # int32 (B, R-1+W) mu-law classes; float32 samples (mol)
+    targets: np.ndarray  # int32 (B, W); float32 (mol)
     mask: np.ndarray     # float32 (B, W)
     mel: Optional[np.ndarray] = None       # float32 (B, F, n_mels)
     speaker: Optional[np.ndarray] = None   # int32 (B,)
@@ -159,7 +165,11 @@ class Corpus:
         self.window_size = window_size
         self.r_field = arch.receptive_field
         self.waves = [np.asarray(w, dtype=np.float32) for w in waves]
-        if encoded is not None:   # encoded by the native tier's table
+        if arch.mol:              # 16-bit linear PCM, whatever the caller encoded
+            from .ops.mol import pcm16
+
+            self.encoded = [pcm16(w) for w in self.waves]
+        elif encoded is not None:   # encoded by the native tier's table
             self.encoded = [np.asarray(e, dtype=np.int32) for e in encoded]
             if len(self.encoded) != len(self.waves):
                 raise ValueError(f"{len(self.encoded)} encoded files for {len(self.waves)} waves")
@@ -226,6 +236,10 @@ class Corpus:
         in-RAM Corpus's over the same wavs bit for bit."""
         from .pack import open_pack
 
+        if arch.mol:
+            from .ops.mol import ROADMAP_PACK
+
+            raise NotImplementedError(f"{path}: a pack holds mu-law classes; {ROADMAP_PACK}")
         pk = open_pack(path)
         h = pk.header
         if h["quant_channels"] != arch.quant_channels:
@@ -423,6 +437,9 @@ def make_batches(
                      for k in range(train.batch_size)]
             pairs = [corpus.index[r] for r in picks[host_id::host_count]]
         inputs, targets, mask = corpus.examples_batch(pairs)
+        if corpus.arch.mol:   # PCM values -> samples in [-1, 1)
+            inputs = inputs.astype(np.float32) / np.float32(32768.0)
+            targets = targets.astype(np.float32) / np.float32(32768.0)
         mel = corpus.mel_for_windows(pairs, mel_frames(corpus)) if with_mel else None
         speaker = None
         if corpus.speakers is not None:

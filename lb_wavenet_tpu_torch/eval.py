@@ -83,6 +83,10 @@ def evaluate(params, arch: ArchConfig, corpus: Corpus, batch_size: int,
     "n_samples", "n_windows"}, aggregated exactly over masked sums."""
     from .train import batch_to_device
 
+    if arch.mol:
+        from .ops.mol import ROADMAP_REST
+
+        raise NotImplementedError(f"evaluation of a mol arch is {ROADMAP_REST}")
     dev = resolve_device(device)
     params = params_to(params, dev)
     sums = torch.zeros(3, dtype=torch.float64, device=dev)

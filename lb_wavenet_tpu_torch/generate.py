@@ -45,6 +45,17 @@ as the JAX step; the kernel engines see one folded conditioning row per
 step and lane, [cond | speaker row] against [w_cond ; w_gcond]
 (`_fold_gcond`, the folded weight made once per weight set).
 
+Tacotron 2's WaveNet vocoder (arch.output_dist == "mol", ops/mol.py) runs on
+the xla engine, one-shot and streaming: the previous sample goes in as a
+real number (RingState.prev_class holds it, float32, and embed_buf the K-1
+samples before it), the step's head gives the mixture's 3 n_mix outputs
+(what return_logits returns), and the sample is drawn in the span
+`mol.sample` from the per-lane counter hash: n_mix + 1 draws a lane step,
+n_mix Gumbels for the component and one uniform for its logistic, with
+lane seeds derived from the session seed (RingState.seed_base) unless the
+caller gives them. "Classes" are then float32 samples on the 16-bit grid.
+The other engines and model sharding raise (ops/mol.py ROADMAP_ENGINES).
+
 WAVENET_MEGA_VMEM_D (as in JAX): read once by `generate_classes` and
 passed to one-shot mega only, whose kernel then keeps the rings of layers
 with 1 < d <= D on chip (ops/cuda/ar_mega.py); every other engine and all
@@ -75,6 +86,7 @@ from .ops.cuda.train_stack import LAYER_KEYS
 from .ops.mulaw import mu_law_decode
 from .ops.numerics import resolve_device  # noqa: F401
 from .parallel.mesh import all_reduce_
+from .utils.profiling import span
 
 Rng = Union[int, torch.Generator]
 
@@ -106,10 +118,11 @@ class RingState(NamedTuple):
 
     embed_buf: torch.Tensor     # (K-1, B, C): past input-conv embeddings
     bufs: torch.Tensor          # (sum_d, B, C) packed residual history
-    prev_class: torch.Tensor    # (B,) int32: sample emitted at t-1
+    prev_class: torch.Tensor    # (B,) int32: sample emitted at t-1 (mol: float32)
     # The sampling generator on the state's device; in an exported program
     # its state tensor (ops/library.py `generator_state`), advanced in place.
     rng: Union[torch.Generator, torch.Tensor]
+    seed_base: Optional[int] = None   # mol: the per-lane hash's session seed
 
 
 def _device_generator(rng, device):
@@ -141,6 +154,12 @@ def init_ring_state(arch: ArchConfig, batch: int, rng: Rng,
     dev = resolve_device(device)
     c = arch.residual_channels
     k = arch.input_kernel
+    if arch.mol:   # the zero waveform: sample 0 before the start
+        return RingState(
+            embed_buf=torch.zeros((k - 1, batch, 1), dtype=dtype, device=dev),
+            bufs=torch.zeros((sum(arch.dilations), batch, c), dtype=dtype, device=dev),
+            prev_class=torch.zeros((batch,), dtype=torch.float32, device=dev),
+            rng=_device_generator(rng, dev), seed_base=_seed_base(rng))
     return RingState(
         embed_buf=torch.zeros((k - 1, batch, c), dtype=dtype, device=dev),
         bufs=torch.zeros((sum(arch.dilations), batch, c), dtype=dtype,
@@ -244,6 +263,49 @@ def _sample_class_perlane(logits, temperature: float, lane_seed, t_local,
     return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
+def perlane_mol_noise(lane_seed, t_local, n_mix: int):
+    """(gumbel (B, n_mix), u (B,)) of a mol lane step from the per-lane
+    counter hash: features 0 .. n_mix - 1 give the components' Gumbel noise
+    and feature n_mix the logistic's uniform ((bits >> 8) + 0.5) 2^-24."""
+    lane = torch.stack([torch.as_tensor(lane_seed).to(torch.int64),
+                        -torch.as_tensor(t_local).to(torch.int64)])
+    bits = ar_mega._perlane_bits(n_mix + 1, lane, 0)
+    u = ((bits[n_mix] >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return gumbel_from_bits(bits[:n_mix]).t(), u
+
+
+def _sample_mol_perlane(y, arch: ArchConfig, temperature: float, lane_seed, t_local):
+    """A mol step's samples (B,) float32 from its head outputs y (B, 3 n_mix)."""
+    from .ops.mol import sample_mol
+
+    with span("mol.sample"):
+        if temperature == 0.0:
+            return sample_mol(y, arch.n_mix, 0.0)
+        gum, u = perlane_mol_noise(lane_seed, t_local, arch.n_mix)
+        return sample_mol(y, arch.n_mix, temperature, gum, u)
+
+
+def _mol_engine(arch: ArchConfig, engine: str, model_axis=None, per_lane_temp=False) -> None:
+    """Refuse what a mol arch does not run: every engine but xla, model
+    sharding and per-lane temperatures."""
+    if not arch.mol:
+        return
+    from .ops.mol import ROADMAP_ENGINES
+
+    if engine != "xla" or model_axis is not None or per_lane_temp:
+        raise NotImplementedError(
+            f"a mol arch generates on the xla engine of one process at one temperature "
+            f"(asked: engine {engine!r}{', model-sharded' if model_axis is not None else ''}"
+            f"{', per-lane temperatures' if per_lane_temp else ''}); the rest is "
+            f"{ROADMAP_ENGINES}")
+
+
+def decode(out: torch.Tensor, arch: ArchConfig) -> torch.Tensor:
+    """Waveform in [-1, 1] of generated output: mu-law classes decoded, or a
+    mol arch's samples as they are."""
+    return out if arch.mol else mu_law_decode(out, arch.quant_channels)
+
+
 def derive_lane_seeds(seed_base, batch: int, device="cpu") -> torch.Tensor:
     """Default per-lane seeds for the fused engines' sampled path: one more
     hash round over (seed_base, lane index)."""
@@ -295,13 +357,19 @@ def generate_classes(
     rank's skip slice, as parallel/synthesis.py cuts them): model-sharded
     synthesis, one all-reduce per step. turbo and mega then run the TP step
     (kernel B7), which samples greedy or from the per-lane hash only.
+
+    A mol arch (xla engine only) returns samples (B, T) float32 [, head
+    outputs (B, T, 3 n_mix)]; its `forced` is (B, T) float32 samples, NaN
+    free-running.
     """
+    _mol_engine(arch, engine, model_axis)
     # Read here, once per call, and passed down: one-shot mega uses it.
     vmem_d = int(os.environ.get("WAVENET_MEGA_VMEM_D", "1"))
     dev = resolve_device(device)
     params = params_to(params, dev)
     if forced is not None:
-        forced = torch.as_tensor(forced, dtype=torch.int32).to(dev)
+        forced = torch.as_tensor(forced, dtype=torch.float32 if arch.mol else torch.int32
+                                 ).to(dev)
     b = int(batch)
     cond = _as_cond(params, cond, b, n_samples, dev)
     gcond = _speaker_rows(params, speaker_ids, dev)
@@ -406,6 +474,10 @@ def _run_scan_engine(params, arch: ArchConfig, state: RingState, t0: int,
     step_fn = _resolve_step_fn(engine)
     classes, logits_all = [], []
     embed_buf, prev = state.embed_buf, state.prev_class
+    if arch.mol and lane_seed is None:   # lane time == absolute time
+        b = state.bufs.shape[1]
+        lane_seed = derive_lane_seeds(state.seed_base, b, state.bufs.device)
+        lane_t0 = torch.zeros((b,), dtype=torch.int32, device=state.bufs.device)
     for i in range(n_samples):
         t = t0 + i
         embed_buf, _, logits = step_fn(
@@ -413,7 +485,10 @@ def _run_scan_engine(params, arch: ArchConfig, state: RingState, t0: int,
             cond_t=None if cond is None else cond[:, i], gcond=gcond,
             model_axis=model_axis,
         )
-        if lane_seed is not None:
+        if arch.mol:
+            cls = _sample_mol_perlane(logits, arch, temperature, lane_seed,
+                                      t - lane_t0.to(torch.int64))
+        elif lane_seed is not None:
             cls = _sample_class_perlane(
                 logits, temperature, lane_seed, t - lane_t0.to(torch.int64),
                 lane_inv_temp=lane_inv_temp,
@@ -421,7 +496,8 @@ def _run_scan_engine(params, arch: ArchConfig, state: RingState, t0: int,
         else:
             cls = _sample_class(state.rng, logits, temperature)
         if forced is not None:
-            cls = torch.where(forced[:, i] >= 0, forced[:, i], cls)
+            free = torch.isnan(forced[:, i]) if arch.mol else forced[:, i] < 0
+            cls = torch.where(free, cls, forced[:, i])
         prev = cls
         classes.append(cls)
         if return_logits:
@@ -721,7 +797,9 @@ def start_stream(arch: ArchConfig, batch: int, rng: Rng, engine: str = "xla",
     (open it at padded_stream_batch and slice the pad lanes off, as
     SessionPool does), turbo streams at any batch. With `model_axis`
     (params: this rank's skip slice) turbo and mega carry the TP step's
-    state instead, at any batch; xla and pallas keep their RingState."""
+    state instead, at any batch; xla and pallas keep their RingState. A mol
+    arch streams on xla only."""
+    _mol_engine(arch, engine, model_axis)
     dev = resolve_device(device)
     if engine in ("mega", "turbo"):
         if params is None:
@@ -778,6 +856,7 @@ def stream_chunk(
     per-lane sampling only). `cond` (B, chunk_size, Cc) covers exactly this
     chunk (the caller slices the upsampled conditioning to the chunk's
     span); `speaker_ids` (B,) as in generate_classes."""
+    _mol_engine(arch, engine, model_axis, lane_inv_temp is not None)
     tp = model_axis is not None and engine in ("mega", "turbo")
     if model_axis is not None:
         _model_group(model_axis)
@@ -823,7 +902,7 @@ def stream_chunk(
     lane_t0 = _as_lanes(lane_t0, torch.int32, dev)
     lane_inv_temp = _as_lanes(lane_inv_temp, torch.float32, dev)
     if forced is not None:
-        forced = torch.as_tensor(forced).to(dev, torch.int32)
+        forced = torch.as_tensor(forced).to(dev, torch.float32 if arch.mol else torch.int32)
 
     if engine in ("mega", "turbo") and lane_seed is None and (
             temperature > 0.0 and not global_rng):
@@ -943,7 +1022,7 @@ def reset_lanes(params: Params, arch: ArchConfig, stream: Stream,
         mask = torch.as_tensor(lane_mask).to(rs.bufs.device, torch.bool)
         rs.embed_buf.masked_fill_(mask[None, :, None], 0.0)
         rs.bufs.masked_fill_(mask[None, :, None], 0.0)
-        rs.prev_class.masked_fill_(mask, arch.quant_channels // 2)
+        rs.prev_class.masked_fill_(mask, 0.0 if arch.mol else arch.quant_channels // 2)
         return stream
     if engine == "mega":
         carry = stream.state["carry"]
@@ -985,7 +1064,7 @@ def generate_streaming(params: Params, arch: ArchConfig, rng: Rng, batch: int,
             params, arch, stream, chunk_size, temperature=temperature,
             engine=engine,
         )
-        yield mu_law_decode(classes, arch.quant_channels)
+        yield decode(classes, arch)
         i += 1
 
 
@@ -997,7 +1076,8 @@ def generate(params: Params, arch: ArchConfig, rng: Rng, batch: int,
     generator (forced[b, t] >= 0 is emitted and fed back, -1 free-runs).
     `cond_frames` (B, F, n_mels) frame-rate features are upsampled once
     (models/conditioning.upsample_cond, F * hop >= n_samples) and condition
-    every step; `speaker_ids` (B,) pick the speakers."""
+    every step; `speaker_ids` (B,) pick the speakers. A mol arch's samples
+    come as they are (xla engine only)."""
     cond = None
     if cond_frames is not None:
         from .models.conditioning import upsample_cond
@@ -1011,7 +1091,7 @@ def generate(params: Params, arch: ArchConfig, rng: Rng, batch: int,
         forced=forced, temperature=temperature, engine=engine,
         global_rng=global_rng, device=device,
     )
-    return mu_law_decode(classes, arch.quant_channels)
+    return decode(classes, arch)
 
 
 def naive_sample(params: Params, arch: ArchConfig, rng: Rng, batch: int,

@@ -23,6 +23,15 @@ gather's own backward (an index add), the same gradient as the JAX
 package's `mm_embed_grad` (a matmul formulation written for the TPU), so
 that training option is accepted and changes nothing here.
 
+Tacotron 2's WaveNet vocoder (arch.output_dist == "mol", ops/mol.py) keeps
+the stack and changes both ends: the previous sample goes in as a real
+number through a width-K causal conv from one channel to C (no embedding;
+`input_conv.w` is (K, 1, C), its K products a position are done in
+float32, where rounding a 16-bit sample to bf16 would drop half its bits),
+and the output is one projection of relu(skip sum) to the mixture's
+3 n_mix parameters (`mol.w` (S, 3 n_mix), `mol.b`), in place of the
+two-layer post network; the loss is the masked MoL NLL (`mol_loss_sums`).
+
 The sequence-parallel input mask (`input_mask` (B, T), 0/1,
 parallel/halo.py) makes masked positions contribute exactly as the zero
 padding before the sequence: the frontend zeroes the masked embedding rows
@@ -95,6 +104,11 @@ def init_params(
             "b2": zeros(Q),
         },
     }
+    if arch.mol:   # scalar input, the mixture head (in place of embed and post)
+        del params["embed"], params["post"]
+        params["input_conv"]["w"] = _dense_init(gen, (K, 1, C), device)
+        params["mol"] = {"w": _dense_init(gen, (S, 3 * arch.n_mix), device),
+                         "b": zeros(3 * arch.n_mix)}
     if arch.use_local_cond:
         from .conditioning import init_upsampler_params
 
@@ -148,6 +162,12 @@ def input_frontend(params: Params, arch: ArchConfig, x_classes, dt,
     zeroes the masked embedding rows, then the masked output rows."""
     if input_mask is not None:
         input_mask = input_mask.detach().to(torch.float32)
+    if arch.mol:
+        if fused_frontend:
+            raise ValueError("train.fused_frontend is the class-embedding frontend's kernel "
+                             "pair; a mol arch takes its samples as real numbers: set "
+                             "train.fused_frontend=false")
+        return scalar_frontend(params, x_classes, input_mask)
     if fused_frontend:
         from ..ops.cuda.frontend import fused_frontend as _ff
 
@@ -166,13 +186,42 @@ def input_frontend(params: Params, arch: ArchConfig, x_classes, dt,
     return h
 
 
+def scalar_frontend(params: Params, x: torch.Tensor, input_mask=None) -> torch.Tensor:
+    """The mol arch's frontend: samples x (B, T) -> (B, T, C), the width-K
+    causal conv from one channel, h[t] = b + sum_k x[t - (K-1-k)] w[k],
+    in float32. `input_mask` zeroes the masked inputs, then the masked
+    output rows."""
+    x = x.to(torch.float32)[..., None]
+    if input_mask is not None:
+        x = x * input_mask[..., None]
+    w = params["input_conv"]["w"]   # (K, 1, C)
+    k_taps = w.shape[0]
+    h = params["input_conv"]["b"].to(torch.float32)
+    for k in range(k_taps):
+        h = h + shift_right(x, k_taps - 1 - k) * w[k, 0]
+    if input_mask is not None:
+        h = h * input_mask[..., None]
+    return h
+
+
 def input_step(params: Params, arch: ArchConfig, embed_buf, x_class):
     """One step of the input frontend for the ring-buffer engines.
 
     embed_buf (K-1, B, C) holds e(t-(K-1)) .. e(t-1); returns the residual
-    input h (B, C) of class x_class (B,) and the shifted embedding stack."""
+    input h (B, C) of class x_class (B,) and the shifted embedding stack.
+    A mol arch's x_class is the previous sample (B,) float32 and its
+    embed_buf (K-1, B, 1) the samples before it (scalar_frontend's taps)."""
     dt = compute_dtype(arch)
     k_taps = arch.input_kernel
+    if arch.mol:
+        w_in = params["input_conv"]["w"]
+        x = x_class.to(torch.float32)[:, None]
+        h = params["input_conv"]["b"].to(torch.float32) + x * w_in[k_taps - 1, 0]
+        for j in range(k_taps - 1):
+            h = h + embed_buf[j] * w_in[j, 0]
+        if k_taps > 1:
+            embed_buf = torch.cat([embed_buf[1:], x[None].to(embed_buf.dtype)], 0)
+        return h, embed_buf
     e = params["embed"][x_class.long()]
     w_in = params["input_conv"]["w"]
     h = params["input_conv"]["b"].to(torch.float32) + _mm(e, w_in[k_taps - 1], dt)
@@ -184,10 +233,19 @@ def input_step(params: Params, arch: ArchConfig, embed_buf, x_class):
 
 
 def post_network(params: Params, skip_sum: torch.Tensor, dt) -> torch.Tensor:
+    """The output layers on the skip sum: the two-layer post network's
+    logits (..., Q), or a mol arch's head outputs (..., 3 n_mix)."""
+    if "mol" in params:
+        return mol_head(params["mol"], skip_sum, dt)
     p = params["post"]
     h = torch.relu(skip_sum)
     h = torch.relu(_mm(h, p["w1"], dt) + p["b1"])
     return _mm(h, p["w2"], dt) + p["b2"]
+
+
+def mol_head(head: Params, skip_sum: torch.Tensor, dt) -> torch.Tensor:
+    """relu(skip sum) @ w + b: the mixture's (logits | means | log-scales)."""
+    return _mm(torch.relu(skip_sum), head["w"], dt) + head["b"]
 
 
 def forward(
@@ -203,7 +261,8 @@ def forward(
     input_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Teacher-forced forward: classes (B, T) -> logits (B, T, Q), or the
-    skip sum (B, T, S) with return_skip.
+    skip sum (B, T, S) with return_skip. A mol arch takes samples (B, T)
+    float and gives the head outputs (B, T, 3 n_mix).
 
     logits[:, t] is the categorical distribution over sample t+1. The skip
     sum is ONE stacked contraction over (layer, gate), as in the JAX
@@ -268,6 +327,16 @@ def masked_loss_sums(logits: torch.Tensor, targets: torch.Tensor,
     ce = -torch.log_softmax(w_logits, dim=-1)
     ce = ce.gather(-1, targets.long()[..., None])[..., 0]
     return (ce * mask).sum(), mask.sum()
+
+
+def mol_loss_sums(y: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                  window_size: int, n_mix: int):
+    """(sum of masked MoL NLL, sum of mask) over the last `window_size`
+    head outputs y (B, R-1+W, 3 n_mix); targets (B, W) samples."""
+    from ..ops.mol import masked_nll_sum
+
+    return (masked_nll_sum(y[:, -window_size:], targets, mask, n_mix),
+            mask.to(torch.float32).sum())
 
 
 def masked_loss(logits: torch.Tensor, targets: torch.Tensor,

@@ -28,6 +28,15 @@ to the upsampler's stages, w_cond, w_gcond and the speaker table.
 every train.eval_every steps (eval.py), and with train.tensorboard_dir
 mirrors its metrics as TensorBoard scalars (utils/metrics.py).
 
+A mol arch (Tacotron 2's WaveNet vocoder, arch.output_dist == "mol") trains
+on the same step: samples in through the scalar frontend, the stack (the
+fused kernel pair with train.fused_stack), then the mixture head and its
+masked NLL through the head kernel pair (ops/cuda/post_mol.py; its plain
+version on the CPU) inside the span `mol.head`. train.fused_frontend and
+train.fused_post are the softmax model's kernel pairs and raise for it;
+data-parallel training takes it, sequence- and model-parallel training
+and evaluation raise (ops/mol.py ROADMAP_REST).
+
 Training across ranks (one process per rank, `parallel.mesh`; JAX gets the
 first from GSPMD and the others from shard_map):
   * data-parallel (mesh_data > 1): each data rank loads rows
@@ -269,7 +278,11 @@ def loss_sums_fn(params, arch: ArchConfig, window_size: int, batch: dict,
     train.fused_post the post network + CE run through the post-loss kernel
     pair (ops/cuda/post_loss.py) on the skip sum; with train.fused_frontend
     the frontend runs through its kernel pair (ops/cuda/frontend.py).
-    train.mm_embed_grad is accepted and changes nothing (models/wavenet.py)."""
+    train.mm_embed_grad is accepted and changes nothing (models/wavenet.py).
+    A mol arch's loss is the masked MoL NLL through the head kernel pair
+    (`_mol_loss_sums`)."""
+    if arch.mol:
+        return _mol_loss_sums(params, arch, window_size, batch, train)
     if train.fused_post:
         from .ops.cuda.post_loss import fused_post_loss
 
@@ -282,6 +295,32 @@ def loss_sums_fn(params, arch: ArchConfig, window_size: int, batch: dict,
     logits = _batch_logits(params, arch, batch, train.remat, train.fused_stack,
                            train.tapcat, fused_frontend=train.fused_frontend)
     return masked_loss_sums(logits, batch["targets"], batch["mask"], window_size)
+
+
+def _check_mol(arch: ArchConfig, train: TrainConfig) -> None:
+    """Refuse the softmax model's kernel pairs for a mol arch."""
+    for knob in ("fused_frontend", "fused_post"):
+        if getattr(train, knob):
+            raise ValueError(
+                f"train.{knob} is the mu-law softmax model's kernel pair; a mol arch "
+                f"(arch.output_dist='mol') takes samples as real numbers through its scalar "
+                f"frontend and its loss through the MoL head pair: set train.{knob}=false")
+
+
+def _mol_loss_sums(params, arch: ArchConfig, window_size: int, batch: dict,
+                   train: TrainConfig):
+    """(masked MoL NLL numerator, mask denominator) of one (micro)batch: the
+    skip sum (the fused stack with train.fused_stack), then the head and
+    the NLL through the head kernel pair, in the span `mol.head`."""
+    from .ops.cuda.post_mol import mol_head_loss
+
+    _check_mol(arch, train)
+    skip = _batch_logits(params, arch, batch, train.remat, train.fused_stack, train.tapcat,
+                         return_skip=True)
+    with span("mol.head"):
+        num = mol_head_loss(params["mol"], skip, batch["targets"], batch["mask"], window_size,
+                            compute_dtype=arch.compute_dtype)
+    return num, batch["mask"].to(torch.float32).sum()
 
 
 def _grad(out: torch.Tensor, params: dict) -> dict:
@@ -564,6 +603,14 @@ def batch_to_device(batch: Batch, device) -> dict:
 
 
 def _check_supported(arch: ArchConfig, train: TrainConfig) -> None:
+    if arch.mol:
+        from .ops.mol import ROADMAP_REST
+
+        _check_mol(arch, train)
+        if train.seq_parallel or train.mesh_model > 1 or train.eval_dir or train.eval_every:
+            raise NotImplementedError(
+                "a mol arch trains on one rank or data-parallel, without in-training "
+                f"evaluation; the rest is {ROADMAP_REST}")
     if train.seq_parallel and train.mesh_model > 1 and (
             train.fused_stack or train.fused_post or train.fused_frontend):
         raise ValueError(

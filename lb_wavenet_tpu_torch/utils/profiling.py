@@ -208,6 +208,22 @@ def post_loss_cost(arch, b: int, t: int, w: int, wbytes: int, backward: bool):
     return rows_in + weights + 4, 2 * b * w * (S * S + S * Q)
 
 
+def mol_post_cost(arch, b: int, t: int, w: int, backward: bool):
+    """(bytes, flops) of the MoL head pair's forward or backward over the
+    scored window (csrc/post_mol.cu): the skip rows, target samples and
+    mask, the head's fp32 weight and bias in; the numerator out, or, in
+    the backward, dskip (all rows) and the head's gradients out. The
+    operations are the head's products: y = relu(skip) w, and in the
+    backward its recompute, da = dy w^T and dw = relu(skip)^T dy."""
+    S, n3 = arch.skip_channels, 3 * arch.n_mix
+    head = 4 * (S * n3 + n3)
+    rows_in = 4 * b * w * S + 8 * b * w
+    flops = 2 * b * w * S * n3
+    if backward:
+        return rows_in + head + 4 + 4 * b * t * S + head, 3 * flops
+    return rows_in + head + 4, flops
+
+
 def turbo_cost(arch, b: int, lane_rows: int, wbytes: int, cc: int = 0):
     """(bytes, flops) of one turbo step: weights and biases, h and the
     embedding stack in and out, the L ring rows read and written, forced

@@ -86,7 +86,7 @@ def test_info_keys_params_and_bounds(tmp_path, capsys, variant):
         MICRO, n_mels=8, cond_channels=8, upsample_factors=(4, 4), n_speakers=3,
         speaker_embed_dim=4)
     parch = PArch(**dataclasses.asdict(arch))
-    conf = _cfg_file(tmp_path / "cfg.json", parch)
+    conf = _cfg_file(tmp_path / "cfg.json", arch)   # JAX's fields: both CLIs load it
     assert cli.main(["info", "--config", conf, "--device", "cpu"]) == 0
     (info,) = _lines(capsys)
     JCLI.cmd_info(argparse.Namespace(config=conf, set=None))

@@ -303,7 +303,7 @@ def test_jax_and_port_per_lane_artifacts_agree(tmp_path):
     from lb_wavenet_tpu_torch.generate import generate_classes as pgen
     from lb_wavenet_tpu_torch.utils.convert import params_from_jax
 
-    jarch = JArch(**dataclasses.asdict(ARCH))
+    jarch = JArch(**{f.name: getattr(ARCH, f.name) for f in dataclasses.fields(JArch)})
     jp = jinit(jax.random.key(0), jarch)
     params = params_from_jax(jax.tree.map(np.asarray, jp))
     batch, chunk = 3, 16

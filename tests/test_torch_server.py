@@ -305,7 +305,7 @@ def test_jax_and_port_servers_answer_alike():
     from lb_wavenet_tpu.serving import SessionPool as JPool
     from lb_wavenet_tpu_torch.utils.convert import params_from_jax
 
-    jarch = JArch(**dataclasses.asdict(ARCH))
+    jarch = JArch(**{f.name: getattr(ARCH, f.name) for f in dataclasses.fields(JArch)})
     jp = jinit(jax.random.key(0), jarch)
     params = params_from_jax(jax.tree.map(np.asarray, jp))
     jpool = JPool(jp, jarch, 3, jax.random.key(0), engine="xla", chunk_size=CHUNK,

@@ -151,7 +151,7 @@ def test_stack_smem_fits_the_ring_beside_the_tile(c, g, s, n_layers):
 
 
 def _jax_pair(seed):
-    jarch = JArch(**dataclasses.asdict(SMALL))
+    jarch = JArch(**{f.name: getattr(SMALL, f.name) for f in dataclasses.fields(JArch)})
     jp = jinit(jax.random.key(seed), jarch)
     return jp, jarch, params_from_jax(jax.tree.map(np.asarray, jp))
 
@@ -211,7 +211,7 @@ def test_b7_plain_versions_match_jax_at_bf16(half, order):
     bufs = rng.standard_normal((sum(SMALL.dilations), c, b)).astype(np.float32)
     h0 = rng.standard_normal((c, b)).astype(np.float32)
     slots, written = _written(SMALL, t)
-    jarch = JArch(**dataclasses.asdict(SMALL))
+    jarch = JArch(**{f.name: getattr(SMALL, f.name) for f in dataclasses.fields(JArch)})
     jb, js = jtp(JG._tp_weights(jp, jp["layers"], False), jarch, jnp.asarray(h0),
                  jnp.asarray(bufs), jnp.asarray(slots, jnp.int32), interpret=True)
     fm = PG._tp_weights(pp, lp, BF16)

@@ -148,7 +148,7 @@ def _jax_pair(arch):
     from lb_wavenet_tpu.models.wavenet import init_params as jinit
     from lb_wavenet_tpu_torch.utils.convert import params_from_jax
 
-    jarch = JArch(**dataclasses.asdict(arch))
+    jarch = JArch(**{f.name: getattr(arch, f.name) for f in dataclasses.fields(JArch)})
     jp = jinit(jax.random.key(5), jarch)
     return jp, jarch, params_from_jax(jax.tree.map(np.asarray, jp))
 
